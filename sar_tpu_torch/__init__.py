@@ -1,0 +1,16 @@
+"""sar_tpu_torch — the PyTorch + CUDA port of sar_tpu for NVIDIA Hopper.
+
+The JAX package `sar_tpu` stays the reference; this package mirrors its
+module paths (`sar_tpu_torch/models/whisper.py` is the counterpart of
+`sar_tpu/models/whisper.py`) and never imports jax or sar_tpu.
+
+Covered so far: the int8-KV greedy transcription path — log-mel frontend,
+Whisper encoder (head-minor attention kernel), the int8 head-minor decode
+cache (fused projection + quantization kernel), the KV-cached decode step
+(cross-attention decode kernel), the greedy loop and the evaluator's
+greedy prep/decode pair. The kernels are hand-written CUDA C++ for sm_90a
+(`csrc/`), built at first use by `ops/_build.py`; every kernel has a plain
+PyTorch version beside it that CPU tensors take.
+"""
+
+__version__ = "0.1.0"

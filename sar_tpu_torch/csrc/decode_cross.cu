@@ -1,0 +1,120 @@
+// One decode step of cross-attention over the int8 head-minor cache (K3).
+//
+// Replaces sar_tpu/ops/decode_cross.py::cross_decode_attention_exact for
+// beam_width 1 (Pallas `_kernel_exact`). Per sample b and head h, over layer
+// `layer`'s slab of the FULL stacked cache (kq/vq [L, B, S_pad, H*64] s8,
+// ks/vs [L, B, H, S_pad] f32): scores_s = (q . k_s) * ks_s with q bf16 and
+// k_s dequantized exactly (int8 -> float), masked where ks_s <= 0 (layout
+// padding carries scale 0; real rows have scale >= 1e-8/127), softmax in
+// fp32, pw_s = bf16(p_s * vs_s), out = sum_s pw_s * v_s accumulated in fp32
+// and stored bf16 [B, H*64]. q and the probabilities are never quantized.
+//
+// Bound on the H100: bytes of the int8 slab. At whisper-small B=8 one call
+// reads 2*B*S_pad*D = 18.9 MB of kq/vq (plus 0.8 MB of scales) for
+// 4*B*S_pad*D = 38 MFLOP — about 0.5 FLOP/byte, far below the card's
+// ~295 FLOP/byte ridge. Design: one block per (head, sample) streams its
+// head's 64-byte rows of the slab (row stride D) with 16-byte loads, four
+// threads per row; the layer is an offset into the stacked cache, so no
+// per-step slice or copy exists. Scores live in shared memory (S_pad
+// floats), the softmax is two block reductions, and the PV pass reads the
+// V rows the same way, reducing the 64 row groups through shared memory.
+// Each byte of the slab is read exactly once per step.
+#include "common.cuh"
+
+namespace {
+
+constexpr int HD = 64;        // head_dim
+constexpr int NT = 256;       // threads per block
+constexpr int RG = NT / 4;    // row groups: 4 threads x 16 int8 columns per row
+
+__global__ void __launch_bounds__(NT)
+cross_decode_exact_kernel(const __nv_bfloat16* __restrict__ q,  // [B, D]
+                          const int8_t* __restrict__ kq,        // [L, B, S, D]
+                          const float* __restrict__ ks,         // [L, B, H, S]
+                          const int8_t* __restrict__ vq,
+                          const float* __restrict__ vs,
+                          __nv_bfloat16* __restrict__ out,      // [B, D]
+                          int B, int S, int D, int H, int layer) {
+  extern __shared__ float smem[];
+  float* sc = smem;       // [S] scores, then weighted probabilities
+  float* red = smem + S;  // [RG][HD] partial outputs
+  __shared__ float scratch[32];
+
+  const int tid = threadIdx.x;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int part = tid & 3;  // columns 16*part .. 16*part+15 of the head
+  const int rg = tid >> 2;   // rows rg, rg+RG, ...
+  const size_t plane = (size_t)layer * B + b;
+  const int8_t* kb = kq + plane * S * D + h * HD + part * 16;
+  const int8_t* vb = vq + plane * S * D + h * HD + part * 16;
+  const float* ksb = ks + (plane * H + h) * S;
+  const float* vsb = vs + (plane * H + h) * S;
+
+  float qf[16];
+  sar::load_bf16x8(q + (size_t)b * D + h * HD + part * 16, qf);
+  sar::load_bf16x8(q + (size_t)b * D + h * HD + part * 16 + 8, qf + 8);
+
+  float mloc = -INFINITY;
+  for (int s = rg; s < S; s += RG) {  // S % RG == 0: no lane leaves early
+    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(kb + (size_t)s * D));
+    const int8_t* kv = reinterpret_cast<const int8_t*>(&raw);
+    float dot = 0.f;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) dot = fmaf(qf[i], (float)kv[i], dot);
+    dot = sar::group_sum<4>(dot);
+    const float kscale = ksb[s];
+    const float score = kscale > 0.f ? dot * kscale : sar::kNeg;
+    if (part == 0) sc[s] = score;
+    mloc = fmaxf(mloc, score);
+  }
+  const float m = sar::block_reduce<true>(mloc, scratch);
+
+  float lsum = 0.f;
+  for (int s = tid; s < S; s += NT) {
+    const float e = expf(sc[s] - m);
+    sc[s] = e;
+    lsum += e;
+  }
+  const float sum = sar::block_reduce<false>(lsum, scratch);
+  for (int s = tid; s < S; s += NT) sc[s] = sar::bf16_round((sc[s] / sum) * vsb[s]);
+  __syncthreads();
+
+  float acc[16] = {};
+  for (int s = rg; s < S; s += RG) {
+    const float pw = sc[s];
+    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(vb + (size_t)s * D));
+    const int8_t* vv = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) acc[i] = fmaf(pw, (float)vv[i], acc[i]);
+  }
+#pragma unroll
+  for (int i = 0; i < 16; ++i) red[rg * HD + part * 16 + i] = acc[i];
+  __syncthreads();
+  if (tid < HD) {
+    float o = 0.f;
+    for (int r = 0; r < RG; ++r) o += red[r * HD + tid];
+    out[(size_t)b * D + h * HD + tid] = __float2bfloat16_rn(o);
+  }
+}
+
+}  // namespace
+
+extern "C" int sar_cross_decode_exact(const void* q, const void* kq, const void* ks,
+                                      const void* vq, const void* vs, void* out,
+                                      int L, int B, int S_pad, int D, int n_heads,
+                                      int layer, int device, void* stream) {
+  const size_t smem = (size_t)(S_pad + RG * HD) * sizeof(float);
+  if (D != n_heads * HD || S_pad % RG != 0 || S_pad < RG || layer < 0 ||
+      layer >= L || B < 1 || B > 65535 || smem > 48 * 1024 - 32 * sizeof(float))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(n_heads, B);
+  cross_decode_exact_kernel<<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(kq),
+      static_cast<const float*>(ks), static_cast<const int8_t*>(vq),
+      static_cast<const float*>(vs), static_cast<__nv_bfloat16*>(out), B, S_pad, D,
+      n_heads, layer);
+  return (int)cudaGetLastError();
+}

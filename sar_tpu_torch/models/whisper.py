@@ -1,0 +1,398 @@
+"""Whisper encoder and KV-cached decode step in PyTorch (counterpart of
+sar_tpu/models/whisper.py, inference path only).
+
+Parameters are plain nested dicts of tensors with the JAX package's layout:
+per-stack layer weights are STACKED on a leading [L, ...] axis, linear
+weights are [d_in, d_out] (y = x @ w + b). The one layout change is the
+encoder convolutions, stored as F.conv1d takes them ([out, in, 3]);
+models/convert.py bridges both ways.
+
+Numerics kept from the reference: LayerNorm in fp32 (population variance,
+eps 1e-5), matmuls in the params' dtype, exact GELU, q = (h.Wq + bq) *
+hd^-0.5, no bias on the k projections, softmax in fp32, logits in fp32 from
+the compute-dtype operands.
+
+Slice covered: `encode(flash="hm"|False)`, the int8 head-minor
+`init_cache` and `decode_step` without LoRA, beams or int4. Other variants
+raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from sar_tpu_torch.models.config import WhisperConfig
+from sar_tpu_torch.ops.decode_cross import (cross_decode_attention_exact,
+                                            cross_decode_reference_exact)
+from sar_tpu_torch.ops.flash_enc import encoder_attention_hm
+from sar_tpu_torch.ops.kv_init import fused_kv_init, fused_kv_init_reference
+
+Params = dict[str, Any]
+
+LN_KEYS = ("attn_ln", "mlp_ln", "self_ln", "cross_ln", "ln")
+
+
+# ---------------------------------------------------------------------------
+# Primitive ops
+# ---------------------------------------------------------------------------
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    dtype = x.dtype
+    x32 = x.float()
+    mean = x32.mean(-1, keepdim=True)
+    var = x32.var(-1, keepdim=True, correction=0)
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(dtype)
+
+
+def linear(x: torch.Tensor, p: Params) -> torch.Tensor:
+    y = torch.matmul(x, p["w"])
+    if "b" in p:
+        y = y + p["b"].to(y.dtype)
+    return y
+
+
+def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    B, T, D = x.shape
+    return x.reshape(B, T, num_heads, D // num_heads).transpose(1, 2)
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    B, H, T, hd = x.shape
+    return x.transpose(1, 2).reshape(B, T, H * hd)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Scaled dot-product attention over [B, H, T, hd]; fp32 scores from the
+    compute-dtype operands, fp32 softmax, probabilities cast back for the PV
+    product. `q` is expected pre-scaled by head_dim**-0.5."""
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    if mask is not None:
+        scores = torch.where(mask, scores, torch.finfo(torch.float32).min)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.matmul(probs, v)
+
+
+def sinusoids(length: int, channels: int) -> np.ndarray:
+    """Whisper's fixed sinusoidal encoder position table."""
+    log_timescale = np.log(10000.0) / (channels // 2 - 1)
+    inv = np.exp(-log_timescale * np.arange(channels // 2))
+    scaled = np.arange(length)[:, None] * inv[None, :]
+    return np.concatenate([np.sin(scaled), np.cos(scaled)], axis=1).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# Parameter init
+# ---------------------------------------------------------------------------
+
+def _normal(g: torch.Generator, shape, std=0.02) -> torch.Tensor:
+    return torch.randn(shape, generator=g, device=g.device) * std
+
+
+def _linear_stack(g, L, d_in, d_out, bias=True):
+    p = {"w": _normal(g, (L, d_in, d_out))}
+    if bias:
+        p["b"] = torch.zeros((L, d_out), device=g.device)
+    return p
+
+
+def _ln_stack(L, d, device):
+    return {"scale": torch.ones((L, d), device=device),
+            "bias": torch.zeros((L, d), device=device)}
+
+
+def _ln(d, device):
+    return {"scale": torch.ones((d,), device=device),
+            "bias": torch.zeros((d,), device=device)}
+
+
+def init_params(cfg: WhisperConfig, generator: torch.Generator,
+                device: torch.device | str | None = None) -> Params:
+    """Random-init fp32 parameters with the reference's shapes and scheme
+    (N(0, 0.02) weights, zero biases, unit LayerNorm, sinusoidal encoder
+    positions), drawn from `generator` on its own device, then moved to
+    `device` (default: the generator's)."""
+    g = generator
+    d, f = cfg.d_model, cfg.ffn_dim
+    Le, Ld = cfg.encoder_layers, cfg.decoder_layers
+    dev = g.device
+    enc_layers = {
+        "attn_ln": _ln_stack(Le, d, dev),
+        "q": _linear_stack(g, Le, d, d),
+        "k": _linear_stack(g, Le, d, d, bias=False),
+        "v": _linear_stack(g, Le, d, d),
+        "o": _linear_stack(g, Le, d, d),
+        "mlp_ln": _ln_stack(Le, d, dev),
+        "fc1": _linear_stack(g, Le, d, f),
+        "fc2": _linear_stack(g, Le, f, d),
+    }
+    dec_layers = {
+        "self_ln": _ln_stack(Ld, d, dev),
+        "self_q": _linear_stack(g, Ld, d, d),
+        "self_k": _linear_stack(g, Ld, d, d, bias=False),
+        "self_v": _linear_stack(g, Ld, d, d),
+        "self_o": _linear_stack(g, Ld, d, d),
+        "cross_ln": _ln_stack(Ld, d, dev),
+        "cross_q": _linear_stack(g, Ld, d, d),
+        "cross_k": _linear_stack(g, Ld, d, d, bias=False),
+        "cross_v": _linear_stack(g, Ld, d, d),
+        "cross_o": _linear_stack(g, Ld, d, d),
+        "mlp_ln": _ln_stack(Ld, d, dev),
+        "fc1": _linear_stack(g, Ld, d, f),
+        "fc2": _linear_stack(g, Ld, f, d),
+    }
+    params = {
+        "encoder": {
+            # F.conv1d layout [out, in, 3] (the JAX package stores HIO).
+            "conv1": {"w": _normal(g, (d, cfg.num_mel_bins, 3)),
+                      "b": torch.zeros((d,), device=dev)},
+            "conv2": {"w": _normal(g, (d, d, 3)),
+                      "b": torch.zeros((d,), device=dev)},
+            "pos_embed": torch.tensor(sinusoids(cfg.max_source_positions, d),
+                                      device=dev),
+            "layers": enc_layers,
+            "ln": _ln(d, dev),
+        },
+        "decoder": {
+            "token_embed": _normal(g, (cfg.vocab_size, d)),
+            "pos_embed": _normal(g, (cfg.max_target_positions, d)),
+            "layers": dec_layers,
+            "ln": _ln(d, dev),
+        },
+    }
+    return tree_map(lambda x: x.to(device or dev), params)
+
+
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def param_count(params: Params) -> int:
+    return sum(param_count(v) if isinstance(v, dict) else v.numel()
+               for v in params.values())
+
+
+def cast_params(params: Params, dtype: torch.dtype) -> Params:
+    """Cast matmul-heavy weights to `dtype`, keep LayerNorm params fp32.
+
+    Below fp32 it also keeps `decoder.token_embed_f32`, an fp32 copy of the
+    (cast) token embedding made once here: the logits are fp32 products of
+    compute-dtype operands, as in the reference, and a compute-dtype GEMM
+    would round them (and tie argmaxes on random weights)."""
+    def cast(tree, in_ln=False):
+        if isinstance(tree, dict):
+            return {k: cast(v, in_ln or k in LN_KEYS) for k, v in tree.items()}
+        return tree if in_ln else tree.to(dtype)
+    out = cast(params)
+    if dtype != torch.float32:
+        out["decoder"]["token_embed_f32"] = out["decoder"]["token_embed"].float()
+    return out
+
+
+def _layer(stack: Params, l: int) -> Params:
+    """Layer l's slice of a stacked [L, ...] parameter tree (views)."""
+    return tree_map(lambda x: x[l], stack)
+
+
+# ---------------------------------------------------------------------------
+# Encoder
+# ---------------------------------------------------------------------------
+
+def _enc_layer_apply(x, p, num_heads, flash=False, t_valid=None):
+    scaling = (x.shape[-1] // num_heads) ** -0.5
+    h = layer_norm(x, p["attn_ln"]["scale"], p["attn_ln"]["bias"])
+    q = linear(h, p["q"]) * scaling
+    k = linear(h, p["k"])
+    v = linear(h, p["v"])
+    if flash == "hm":
+        # Head-minor kernel on the residual layout: no split/merge copies;
+        # `x` is padded to the kernel's T and keys >= t_valid are masked.
+        a_m = encoder_attention_hm(q, k, v, n_heads=num_heads, t_valid=t_valid)
+    else:
+        a = attention(split_heads(q, num_heads), split_heads(k, num_heads),
+                      split_heads(v, num_heads))
+        a_m = merge_heads(a)
+    x = x + linear(a_m, p["o"])
+    h = layer_norm(x, p["mlp_ln"]["scale"], p["mlp_ln"]["bias"])
+    h = F.gelu(linear(h, p["fc1"]))
+    return x + linear(h, p["fc2"])
+
+
+def encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig, *,
+           flash: bool | str = False) -> torch.Tensor:
+    """Encoder forward. mel: [B, num_mel_bins, T_frames] -> [B, T/2, d].
+
+    flash: False = exact attention ([T, T] probabilities materialised);
+    "hm" = the head-minor attention kernel (ops/flash_enc.py), run on T
+    padded to `cross_pad_len(T)` with the pad sliced off after the stack."""
+    if flash not in (False, "hm"):
+        raise NotImplementedError(
+            f"encode(flash={flash!r}): the port has False and 'hm'")
+    enc = params["encoder"]
+    dtype = enc["conv1"]["w"].dtype
+    x = mel.to(dtype)                                            # [B, M, T]
+    x = F.conv1d(x, enc["conv1"]["w"], padding=1) + enc["conv1"]["b"][:, None].to(dtype)
+    x = F.gelu(x)
+    x = F.conv1d(x, enc["conv2"]["w"], stride=2, padding=1) + enc["conv2"]["b"][:, None].to(dtype)
+    x = F.gelu(x).transpose(1, 2)                                # [B, T, d]
+
+    T = x.shape[1]
+    x = x + enc["pos_embed"][:T].to(dtype)
+    pad = cross_pad_len(T) - T if flash == "hm" else 0
+    if pad:
+        # Padded rows carry garbage that masked keys keep out of real rows.
+        x = F.pad(x, (0, 0, 0, pad))
+    for l in range(cfg.encoder_layers):
+        x = _enc_layer_apply(x, _layer(enc["layers"], l), cfg.encoder_heads,
+                             flash=flash, t_valid=T)
+    if pad:
+        x = x[:, :T]
+    return layer_norm(x, enc["ln"]["scale"], enc["ln"]["bias"])
+
+
+# ---------------------------------------------------------------------------
+# KV-cached decoding
+# ---------------------------------------------------------------------------
+
+def cross_pad_len(s: int) -> int:
+    """Cross-cache S rounded up to the 128-row layout tile."""
+    return -(-s // 128) * 128
+
+
+class DecodeCache(NamedTuple):
+    """Int8 KV cache for autoregressive decode (the head-minor variant of the
+    reference's DecodeCache).
+
+    Cross K/V are HEAD-MINOR [L, B, S_pad, H*hd] int8 with head-major
+    per-(row, head) scales [L, B, H, S_pad]; padded rows carry scale 0.
+    The self cache is classic [L, B, H, max_len, hd] int8 with scales
+    [L, B, H, max_len]; decode_step writes its column `pos` IN PLACE.
+    """
+    self_k: torch.Tensor
+    self_v: torch.Tensor
+    cross_k: torch.Tensor
+    cross_v: torch.Tensor
+    cross_k_scale: torch.Tensor
+    cross_v_scale: torch.Tensor
+    self_k_scale: torch.Tensor
+    self_v_scale: torch.Tensor
+
+
+def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row int8: x [.., S, hd] -> (int8 values, [.., S] scales)."""
+    x32 = x.float()
+    scale = x32.abs().amax(-1).clamp_min(1e-8) / 127.0
+    q = torch.clamp(torch.round(x32 / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def init_cache(params: Params, enc_out: torch.Tensor, cfg: WhisperConfig,
+               max_len: int, *, cross_kv_int8: bool = True,
+               self_kv_int8: bool = True, head_minor: bool = True,
+               kernels: bool = True) -> DecodeCache:
+    """Project + quantize the cross K/V once per batch (fused_kv_init) and
+    allocate the zeroed int8 self cache of `max_len` positions.
+
+    `kernels=False` runs the plain PyTorch version on any device (the
+    reference path the card's results are compared with)."""
+    if not (cross_kv_int8 and self_kv_int8 and head_minor):
+        raise NotImplementedError(
+            "the port's decode cache is the int8 head-minor variant only")
+    dec = params["decoder"]
+    B, S, _ = enc_out.shape
+    H, hd = cfg.decoder_heads, cfg.d_model // cfg.decoder_heads
+    pad = cross_pad_len(S) - S
+    enc_pad = F.pad(enc_out, (0, 0, 0, pad)) if pad else enc_out.contiguous()
+    fn = fused_kv_init if kernels else fused_kv_init_reference
+    lay = dec["layers"]
+    ck, cks, cv, cvs = fn(enc_pad, lay["cross_k"]["w"], lay["cross_v"]["w"],
+                          lay["cross_v"]["b"], n_heads=H, t_valid=S)
+    L = ck.shape[0]
+    dev = enc_out.device
+    return DecodeCache(
+        self_k=torch.zeros((L, B, H, max_len, hd), dtype=torch.int8, device=dev),
+        self_v=torch.zeros((L, B, H, max_len, hd), dtype=torch.int8, device=dev),
+        cross_k=ck, cross_v=cv, cross_k_scale=cks, cross_v_scale=cvs,
+        self_k_scale=torch.zeros((L, B, H, max_len), device=dev),
+        self_v_scale=torch.zeros((L, B, H, max_len), device=dev))
+
+
+def _attention_int8(q, kq, ks, vq, vs, mask=None):
+    """q [B,H,1,hd]; kq/vq [B,H,S,hd] int8; ks/vs [B,H,S] fp32 -> [B,H,1,hd].
+
+    scores_s = ks_s * (q . kq_s); out = sum_s (probs_s * vs_s) vq_s — the
+    per-row scales factor out of both products. Plain torch: the reference
+    has no production kernel for the self path either."""
+    dtype = q.dtype
+    scores = torch.matmul(q.float(), kq.float().transpose(-1, -2))
+    scores = scores * ks[:, :, None, :]
+    if mask is not None:
+        scores = torch.where(mask, scores, torch.finfo(torch.float32).min)
+    probs = torch.softmax(scores, dim=-1)
+    pw = (probs * vs[:, :, None, :]).to(dtype)
+    return torch.matmul(pw.float(), vq.float()).to(dtype)
+
+
+def logits_weight(dec: Params) -> torch.Tensor:
+    """fp32 token embedding for the logits (see cast_params)."""
+    emb = dec["token_embed"]
+    return emb if emb.dtype == torch.float32 else dec["token_embed_f32"]
+
+
+def decode_step(params: Params, tokens: torch.Tensor, pos: int,
+                cache: DecodeCache, cfg: WhisperConfig, *,
+                kernels: bool = True) -> tuple[torch.Tensor, DecodeCache]:
+    """One autoregressive step. tokens: [B] int64 at position `pos` (< the
+    self cache's max_len). Returns (logits [B, V] fp32, cache), the self
+    cache updated in place at column `pos`.
+
+    The cross path goes through the decode kernel (ops/decode_cross.py);
+    `kernels=False` runs its plain version on any device."""
+    if cache.cross_k.dim() != 4 or cache.self_k_scale is None:
+        raise NotImplementedError("decode_step takes the int8 head-minor cache")
+    dec = params["decoder"]
+    H = cfg.decoder_heads
+    dtype = dec["token_embed"].dtype
+    max_len = cache.self_k.shape[3]
+    x = dec["token_embed"][tokens][:, None, :].to(dtype)         # [B, 1, d]
+    x = x + dec["pos_embed"][pos].to(dtype)
+    pos_mask = (torch.arange(max_len, device=x.device) <= pos)[None, None, None, :]
+    scaling = (cfg.d_model // H) ** -0.5
+    cross = cross_decode_attention_exact if kernels else cross_decode_reference_exact
+
+    for l in range(cache.self_k.shape[0]):
+        p = _layer(dec["layers"], l)
+        # Self-attention against the int8 cache (row `pos` written first).
+        h = layer_norm(x, p["self_ln"]["scale"], p["self_ln"]["bias"])
+        q = linear(h, p["self_q"]) * scaling
+        kq, ks = quantize_kv(split_heads(linear(h, p["self_k"]), H))
+        vq, vs = quantize_kv(split_heads(linear(h, p["self_v"]), H))
+        cache.self_k[l, :, :, pos] = kq[:, :, 0]
+        cache.self_v[l, :, :, pos] = vq[:, :, 0]
+        cache.self_k_scale[l, :, :, pos] = ks[:, :, 0]
+        cache.self_v_scale[l, :, :, pos] = vs[:, :, 0]
+        a = _attention_int8(split_heads(q, H), cache.self_k[l],
+                            cache.self_k_scale[l], cache.self_v[l],
+                            cache.self_v_scale[l], mask=pos_mask)
+        x = x + linear(merge_heads(a), p["self_o"])
+        # Cross-attention over the head-minor int8 slabs of layer l.
+        h = layer_norm(x, p["cross_ln"]["scale"], p["cross_ln"]["bias"])
+        q = linear(h, p["cross_q"]) * scaling
+        o = cross(q[:, 0], cache.cross_k, cache.cross_k_scale, cache.cross_v,
+                  cache.cross_v_scale, layer=l, n_heads=H)
+        x = x + linear(o[:, None, :], p["cross_o"])
+        # MLP.
+        h = layer_norm(x, p["mlp_ln"]["scale"], p["mlp_ln"]["bias"])
+        h = F.gelu(linear(h, p["fc1"]))
+        x = x + linear(h, p["fc2"])
+    x = layer_norm(x, dec["ln"]["scale"], dec["ln"]["bias"])
+    logits = torch.matmul(x[:, 0].float(), logits_weight(dec).T)
+    return logits, cache

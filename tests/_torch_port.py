@@ -1,0 +1,37 @@
+"""Shared setup of the sar_tpu_torch port tests (tests/test_torch_*.py).
+
+Importing it pins torch to one thread per process — the suite runs under
+several xdist workers — and it holds the helpers that hand the same
+numpy-made data and JAX-made weights to both packages. JAX runs on the CPU
+(tests/conftest.py); data crosses between the frameworks as numpy arrays.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+torch.set_num_threads(1)
+
+
+def to_numpy(tree):
+    """A JAX pytree (nested dicts of arrays) as nested dicts of numpy."""
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    return np.asarray(tree)
+
+
+def t(x) -> torch.Tensor:
+    """numpy / JAX array -> CPU torch tensor (a copy)."""
+    return torch.from_numpy(np.array(x))
+
+
+def jax_whisper(cfg, seed: int = 0):
+    """(JAX params, the same weights as port params), fp32, on the CPU."""
+    import jax
+
+    from sar_tpu.models import whisper as jw
+    from sar_tpu_torch.models.convert import from_jax_params
+
+    jp = jw.init_params(jax.random.PRNGKey(seed), cfg)
+    return jp, from_jax_params(to_numpy(jp))

@@ -1,0 +1,90 @@
+"""K1-K3 hand-written CUDA kernels against their plain PyTorch versions on
+the card, in bf16, at small shapes (marked `cuda`: they need an NVIDIA GPU
+with nvcc and skip elsewhere; chip_smoke.py runs the same comparisons at
+whisper-small shapes). Run on the card with
+`python -m pytest tests/test_torch_kernels_cuda.py -m cuda -q`."""
+
+import pytest
+import torch
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _randn(g, dev, *shape, std=1.0):
+    return (torch.randn(shape, generator=g, device=dev) * std).to(torch.bfloat16)
+
+
+# Shapes: the smallest legal one, whisper-small's and whisper-large-v3's
+# widths (the kernels need no column groups at d_model 1280).
+@pytest.mark.parametrize("B,T,H,t_valid", [(2, 128, 2, 100), (1, 1536, 12, 1500),
+                                           (1, 1536, 20, 1500)])
+def test_encoder_attention_kernel(dev, B, T, H, t_valid):
+    from sar_tpu_torch.ops import flash_enc
+    g = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (_randn(g, dev, B, T, H * 64, std=s) for s in (0.125, 1.0, 1.0))
+    n = flash_enc.LAUNCHES
+    got = flash_enc.encoder_attention_hm(q, k, v, n_heads=H, t_valid=t_valid)
+    want = flash_enc.encoder_attention_hm_reference(q, k, v, n_heads=H, t_valid=t_valid)
+    torch.cuda.synchronize()
+    assert flash_enc.LAUNCHES == n + 1
+    err = (got[:, :t_valid].float() - want[:, :t_valid].float()).abs().max().item()
+    assert err <= 2e-2
+
+
+@pytest.mark.parametrize("H", [2, 12, 20])
+def test_kv_init_kernel(dev, H):
+    from sar_tpu_torch.ops import kv_init
+    g = torch.Generator(device=dev).manual_seed(1)
+    L, B, S, S_pad = 2, 2, 100, 128
+    D = H * 64
+    x = _randn(g, dev, B, S_pad, D)
+    x[:, S:] = 0
+    wk, wv, bv = _randn(g, dev, L, D, D, std=0.05), _randn(g, dev, L, D, D, std=0.05), \
+        _randn(g, dev, L, D, std=0.05)
+    got = kv_init.fused_kv_init(x, wk, wv, bv, n_heads=H, t_valid=S)
+    want = kv_init.fused_kv_init_reference(x, wk, wv, bv, n_heads=H, t_valid=S)
+    torch.cuda.synchronize()
+    for a, b in ((got[0], want[0]), (got[2], want[2])):
+        d = (a.int() - b.int()).abs()
+        assert d.max().item() <= 1 and (d != 0).float().mean().item() <= 5e-3
+        assert not a[:, :, S:].any()
+    for a, b in ((got[1], want[1]), (got[3], want[3])):
+        assert not a[..., S:].any()
+        assert ((a[..., :S] - b[..., :S]).abs() / b[..., :S]).max().item() <= 1e-2
+
+
+@pytest.mark.parametrize("H", [4, 20])
+def test_cross_decode_kernel(dev, H):
+    from sar_tpu_torch.ops import decode_cross, kv_init
+    g = torch.Generator(device=dev).manual_seed(2)
+    L, B, S, S_pad = 2, 3, 100, 128
+    D = H * 64
+    x = _randn(g, dev, B, S_pad, D)
+    x[:, S:] = 0
+    w = _randn(g, dev, L, D, D, std=0.05)
+    kq, ks, vq, vs = kv_init.fused_kv_init_reference(
+        x, w, w, torch.zeros((L, D), dtype=torch.bfloat16, device=dev), n_heads=H, t_valid=S)
+    q = _randn(g, dev, B, D, std=0.125)
+    for layer in range(L):
+        got = decode_cross.cross_decode_attention_exact(q, kq, ks, vq, vs, layer=layer, n_heads=H)
+        want = decode_cross.cross_decode_reference_exact(q, kq, ks, vq, vs, layer=layer, n_heads=H)
+        torch.cuda.synchronize()
+        assert (got.float() - want.float()).abs().max().item() <= 2e-2
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    from sar_tpu_torch.ops import flash_enc
+    q = torch.zeros((1, 128, 128), device=dev)           # fp32: kernel takes bf16
+    with pytest.raises(ValueError, match="bfloat16"):
+        flash_enc.encoder_attention_hm(q, q, q, n_heads=2, t_valid=100)
+    q = torch.zeros((1, 100, 128), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="multiple"):
+        flash_enc.encoder_attention_hm(q, q, q, n_heads=2, t_valid=100)
