@@ -1,26 +1,44 @@
 #!/usr/bin/env python3
 """Smoke run of the sar_tpu_torch port on one NVIDIA GPU (H100, sm_90a).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
 Phases, each printing its own line(s); any failure raises and exits non-zero:
 
 1. device: requires CUDA (no CPU fallback), prints the card's name and its
    `nvidia-smi --query-gpu=name,power.limit` line, turns TF32 off.
-2. build: compiles sar_tpu_torch/csrc/*.cu with nvcc (first use) and prints
-   the seconds it took.
+2. build: compiles sar_tpu_torch/csrc/*.cu with nvcc (first use, one
+   process per source, all at once) and prints the seconds it took.
 3. kernels: K1 (encoder attention), K2 (cross-KV projection + int8
-   quantization) and K3 (cross-attention decode) at whisper-small shapes,
-   batch 8, each against its plain PyTorch version on the card in bf16,
-   with error limits and median CUDA-event times over 20 runs.
-4. end to end: random bf16 whisper-small (seeded), two batches of 8 random
-   30 s clips through the port's ASREvaluator (mel -> encode(flash="hm") ->
-   init_cache -> greedy, 64 new tokens), with the three launch counters
-   zeroed before and read after; then the first batch through the plain
-   path, compared in lockstep (both paths fed the same tokens) and free
-   running.
-5. result: one JSON line with every kernel's numbers, then the last line
+   quantization), K4 (K2 with a per-sample LoRA term on V, per-sample and
+   broadcast slices of a 4-adapter r=16 bank) and K3 (cross-attention
+   decode) at whisper-small shapes, batch 8, each against its plain
+   PyTorch version on the card in bf16, with error limits, median
+   CUDA-event times over 20 runs, the least time the card could take
+   (bound) and, for K1, one library call computing the same function
+   (scaled_dot_product_attention with the key mask; the port never calls
+   it).
+4. greedy end to end: random bf16 whisper-small (seeded), two batches of 8
+   random 30 s clips through the port's ASREvaluator (mel ->
+   encode(flash="hm") -> init_cache -> greedy, 64 new tokens), with the
+   launch counters zeroed before and read after; then the first batch
+   through the plain path, compared in lockstep (both paths fed the same
+   tokens) and free running.
+5. routed end to end: the same model with a random 4-adapter bank (r=16,
+   q_proj/v_proj, nonzero B) and a random LID head (layer 3, mean
+   pooling) behind an AdapterRouter, 16 requests of 30 s audio submitted
+   from 4 threads to a TranscriptionService (batches of 8, 64 new tokens),
+   then router.generate with adapters [0,1,2,3,0,1,2,3] with its phases
+   fenced, all with the launch counters zeroed before and read after
+   (K1, K4, K3 > 0, K2 = 0); then the routed plain path (kernels=False,
+   flash=False) in lockstep and free running, and the LID overhead.
+6. result: one JSON line with every kernel's numbers, then the last line
    {"ok": true, "device": {...}}.
+
+With --profile, the routed phase also runs PROFILE_STEPS steady-state
+decode steps of the greedy and of the routed path under torch.profiler
+(after the counted run) and prints, for each, the wall and device time
+per step, the device busy share and the kernels that take the most time.
 """
 
 from __future__ import annotations
@@ -36,6 +54,20 @@ BATCH = 8
 N_BATCHES = 2
 MAX_NEW_TOKENS = 64
 SEED = 0
+# Routed cell: a 4-adapter bank named for the reference's languages, r=16,
+# alpha=32 on q_proj/v_proj; B drawn N(0, LORA_B_STD) so the deltas move the
+# logits (LoRA's own init leaves B = 0); the LID head of LID_BENCH.json's
+# chosen default (encoder layer 3, mean pooling).
+LORA_RANK, LORA_ALPHA, LORA_B_STD = 16, 32, 0.01
+MIXED_ADAPTERS = [0, 1, 2, 3, 0, 1, 2, 3]
+ROUTED_REQUESTS, ROUTED_THREADS = 16, 4
+LID_LAYER = 3
+PROFILE_STEPS = 10
+# Published peaks of one H100 SXM (dense): the bound of a kernel is the
+# larger of its FLOPs over the bf16 tensor-core rate and its bytes (each
+# input read once, each output written once) over the HBM rate.
+PEAK_BF16_FLOPS = 989e12
+PEAK_HBM_BYTES = 3.35e12
 TIMING_RUNS = 20
 SPIN_CYCLES = 50_000_000  # ~25 ms at the H100's clock: longer than any fn's host dispatch
 # Tolerances, kernel vs its plain version on the same bf16 inputs. K1/K3:
@@ -76,6 +108,13 @@ def time_cuda(fn, runs: int = TIMING_RUNS, warmup: int = 3) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    """(least ms the card could take, what bounds it)."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
 
 
 def phase_device():
@@ -145,50 +184,88 @@ def phase_kernels(cfg, device, batch):
     abs_err, rel_err = _attn_errors(got[:, :S], want[:, :S])
     ms = time_cuda(lambda: flash_enc.encoder_attention_hm(q, k, v, n_heads=H, t_valid=S))
     plain_ms = time_cuda(lambda: flash_enc.encoder_attention_hm_reference(q, k, v, n_heads=H, t_valid=S))
+    # The library yardstick: SDPA on head-major views of the same tensors,
+    # keys >= t_valid masked, q already scaled.
+    heads = lambda x: x.view(batch, S_pad, H, hd).transpose(1, 2)
+    key_mask = (torch.arange(S_pad, device=device) < S)[None, None, None, :]
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+        heads(q), heads(k), heads(v), attn_mask=key_mask, scale=1.0)
+    lib_err = _attn_errors(sdpa().transpose(1, 2).reshape(batch, S_pad, D)[:, :S],
+                           want[:, :S])[0]
+    library_ms = time_cuda(sdpa)
+    b_ms, b_by = bound(4.0 * batch * H * S * S * hd, 4 * batch * S_pad * D * 2)
     print(f"K1 encoder_attention_hm [B={batch}, T_pad={S_pad}, D={D}, H={H}] bf16: "
           f"max_abs_err {abs_err:.3e} max_rel_err {rel_err:.3e} (tol {ATTN_ABS_TOL}) | "
-          f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms")
+          f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms | library (SDPA, key mask) "
+          f"{library_ms:.3f} ms, max_abs_err vs plain {lib_err:.3e} | bound {b_ms:.4f} ms ({b_by})")
     if abs_err > ATTN_ABS_TOL or rel_err > ATTN_REL_TOL:
         fail("K1 disagrees with its plain version")
     rows.append(dict(name="encoder_attention_hm", route="cuda",
                      source="sar_tpu_torch/csrc/flash_enc.cu",
                      replaces="sar_tpu/ops/flash_enc.py:90",
-                     max_abs_err=abs_err, ms=ms, plain_ms=plain_ms))
+                     max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                     bound_ms=b_ms, bound_by=b_by, library_ms=library_ms))
     del q, k, v, got, want
 
     # K2: an LN-scale encoder output with zero pad rows, as init_cache builds.
     enc = randn(batch, S_pad, D)
     enc[:, S:] = 0
     wk, wv, bv = randn(L, D, D, std=0.02), randn(L, D, D, std=0.02), randn(L, D, std=0.02)
-    got = kv_init.fused_kv_init(enc, wk, wv, bv, n_heads=H, t_valid=S)
-    want = kv_init.fused_kv_init_reference(enc, wk, wv, bv, n_heads=H, t_valid=S)
-    torch.cuda.synchronize()
-    flip, deq_err, scale_err = 0.0, 0.0, 0.0
-    for gq, gs, wq, ws in ((got[0], got[1], want[0], want[1]),
-                           (got[2], got[3], want[2], want[3])):
-        dq = (gq.int() - wq.int()).abs()
-        if dq.max().item() > 1:
-            fail(f"K2 int8 values differ by {dq.max().item()} (> 1)")
-        flip = max(flip, (dq != 0).float().mean().item())
-        if gq[:, :, S:].any() or gs[..., S:].any():
-            fail("K2 pad rows are not 0 with scale 0")
-        scale_err = max(scale_err, ((gs[..., :S] - ws[..., :S]).abs()
-                                    / ws[..., :S]).max().item())
-        deq = lambda q8, s: q8.float().reshape(L, batch, S_pad, H, hd) \
-            * s.transpose(2, 3)[..., None]
-        deq_err = max(deq_err, (deq(gq, gs) - deq(wq, ws)).abs().max().item())
-    ms = time_cuda(lambda: kv_init.fused_kv_init(enc, wk, wv, bv, n_heads=H, t_valid=S))
-    plain_ms = time_cuda(lambda: kv_init.fused_kv_init_reference(enc, wk, wv, bv, n_heads=H, t_valid=S))
+    k2 = lambda fn: lambda: fn(enc, wk, wv, bv, n_heads=H, t_valid=S)
+    got = k2(kv_init.fused_kv_init)()
+    flip, scale_err, deq_err = _kv_errors("K2", got, k2(kv_init.fused_kv_init_reference)(), S)
+    ms = time_cuda(k2(kv_init.fused_kv_init))
+    plain_ms = time_cuda(k2(kv_init.fused_kv_init_reference))
+    kv_bytes = (batch * S_pad * D * 2 + 2 * L * D * D * 2 + L * D * 2
+                + 2 * L * batch * S_pad * D + 2 * L * batch * H * S_pad * 4)
+    b_ms, b_by = bound(4.0 * L * batch * S * D * D, kv_bytes)
     print(f"K2 fused_kv_init [L={L}, B={batch}, S_pad={S_pad}, D={D}] bf16->s8: "
           f"int8 |d|<=1 on {flip:.3e} of entries (tol {KV_FLIP_FRAC_TOL}) | "
           f"scale max_rel_err {scale_err:.3e} (tol {KV_SCALE_REL_TOL}) | pad rows 0/0 | "
-          f"dequantized max_abs_err {deq_err:.3e} | kernel {ms:.3f} ms plain {plain_ms:.3f} ms")
-    if flip > KV_FLIP_FRAC_TOL or scale_err > KV_SCALE_REL_TOL:
-        fail("K2 disagrees with its plain version")
+          f"dequantized max_abs_err {deq_err:.3e} | kernel {ms:.3f} ms plain {plain_ms:.3f} ms"
+          f" | bound {b_ms:.4f} ms ({b_by})")
     rows.append(dict(name="fused_kv_init", route="cuda",
                      source="sar_tpu_torch/csrc/kv_init.cu",
                      replaces="sar_tpu/ops/kv_init.py:191",
-                     max_abs_err=deq_err, ms=ms, plain_ms=plain_ms))
+                     max_abs_err=deq_err, ms=ms, plain_ms=plain_ms,
+                     bound_ms=b_ms, bound_by=b_by, library_ms=None))
+
+    # K4: cross_v slices of a 4-adapter bank, per sample (the routed path)
+    # and one slice broadcast over the batch (a single adapter).
+    r = LORA_RANK
+    bank_a = randn(L, 4, D, r, std=1.0 / r)
+    bank_b = randn(L, 4, r, D, std=0.02)
+    idx = torch.tensor(MIXED_ADAPTERS[:batch], device=device)
+    scale = LORA_ALPHA / LORA_RANK
+    forms = {"per-sample": (bank_a[:, idx].contiguous(), bank_b[:, idx].contiguous()),
+             "broadcast": (bank_a[:, :1].contiguous(), bank_b[:, :1].contiguous())}
+    k4 = lambda fn, va, vb: lambda: fn(enc, wk, wv, bv, n_heads=H, t_valid=S,
+                                       va=va, vb=vb, lora_scale=scale)
+    k4_ms, k4_err = {}, 0.0
+    for form, (va, vb) in forms.items():
+        got4 = k4(kv_init.fused_kv_init, va, vb)()
+        want4 = k4(kv_init.fused_kv_init_reference, va, vb)()
+        flip, scale_err, deq_err = _kv_errors(f"K4 {form}", got4, want4, S)
+        if torch.equal(got4[2], got[2]):
+            fail(f"K4 {form}: the LoRA term did not reach V")
+        k4_err = max(k4_err, deq_err)
+        k4_ms[form] = (time_cuda(k4(kv_init.fused_kv_init, va, vb)),
+                       time_cuda(k4(kv_init.fused_kv_init_reference, va, vb)))
+        print(f"K4 fused_kv_init_lora {form} [L={L}, B={batch}, S_pad={S_pad}, D={D}, "
+              f"r={r}] bf16->s8: int8 |d|<=1 on {flip:.3e} of entries (tol "
+              f"{KV_FLIP_FRAC_TOL}) | scale max_rel_err {scale_err:.3e} (tol "
+              f"{KV_SCALE_REL_TOL}) | pad rows 0/0 | dequantized max_abs_err {deq_err:.3e}"
+              f" | kernel {k4_ms[form][0]:.3f} ms plain {k4_ms[form][1]:.3f} ms")
+        del got4, want4
+    ms, plain_ms = k4_ms["per-sample"]
+    b_ms, b_by = bound(4.0 * L * batch * S * D * (D + r), kv_bytes + 2 * L * batch * D * r * 2)
+    print(f"K4 bound (per-sample slices) {b_ms:.4f} ms ({b_by})")
+    rows.append(dict(name="fused_kv_init_lora", route="cuda",
+                     source="sar_tpu_torch/csrc/kv_init.cu",
+                     replaces="sar_tpu/ops/kv_init.py:172",
+                     max_abs_err=k4_err, ms=ms, plain_ms=plain_ms,
+                     bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                     broadcast_ms=k4_ms["broadcast"][0]))
 
     # K3: over the kernel-built cache, every layer checked, the last timed.
     kq, ks, vq, vs = got
@@ -208,18 +285,45 @@ def phase_kernels(cfg, device, batch):
     ms = time_cuda(sweep(decode_cross.cross_decode_attention_exact)) / L
     plain_ms = time_cuda(sweep(decode_cross.cross_decode_reference_exact)) / L
     slab_mb = (2 * batch * S_pad * D + 2 * 4 * batch * H * S_pad) / 1e6
+    b_ms, b_by = bound(4.0 * batch * H * S * hd, slab_mb * 1e6 + 2 * batch * D * 2)
     print(f"K3 cross_decode_attention_exact [B={batch}, S_pad={S_pad}, D={D}, all {L} layers] "
           f"bf16 q, s8 cache: max_abs_err {abs_err:.3e} max_rel_err {rel_err:.3e} "
           f"(tol {ATTN_ABS_TOL}) | per call over a {L}-layer sweep: kernel {ms:.4f} ms "
           f"plain {plain_ms:.4f} ms | {slab_mb:.1f} MB of int8 slab + scales -> "
-          f"{slab_mb / ms:.1f} GB/s")
+          f"{slab_mb / ms:.1f} GB/s | bound {b_ms:.4f} ms ({b_by})")
     if abs_err > ATTN_ABS_TOL or rel_err > ATTN_REL_TOL:
         fail("K3 disagrees with its plain version")
     rows.append(dict(name="cross_decode_attention_exact", route="cuda",
                      source="sar_tpu_torch/csrc/decode_cross.cu",
                      replaces="sar_tpu/ops/decode_cross.py:219",
-                     max_abs_err=abs_err, ms=ms, plain_ms=plain_ms))
+                     max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                     bound_ms=b_ms, bound_by=b_by, library_ms=None))
     return rows
+
+
+def _kv_errors(name, got, want, t_valid):
+    """K2's rules for the (kq, ks, vq, vs) of K2 or K4 against the plain
+    version: int8 |d| <= 1 on <= KV_FLIP_FRAC_TOL of entries, scales within
+    KV_SCALE_REL_TOL, pad rows 0 with scale 0. Returns (flip fraction,
+    scale max rel err, dequantized max abs err)."""
+    flip, deq_err, scale_err = 0.0, 0.0, 0.0
+    L, B, S_pad, D = got[0].shape
+    H = got[1].shape[2]
+    deq = lambda q8, s: q8.float().reshape(L, B, S_pad, H, D // H) * s.transpose(2, 3)[..., None]
+    for gq, gs, wq, ws in ((got[0], got[1], want[0], want[1]),
+                           (got[2], got[3], want[2], want[3])):
+        dq = (gq.int() - wq.int()).abs()
+        if dq.max().item() > 1:
+            fail(f"{name} int8 values differ by {dq.max().item()} (> 1)")
+        flip = max(flip, (dq != 0).float().mean().item())
+        if gq[:, :, t_valid:].any() or gs[..., t_valid:].any():
+            fail(f"{name} pad rows are not 0 with scale 0")
+        scale_err = max(scale_err, ((gs[..., :t_valid] - ws[..., :t_valid]).abs()
+                                    / ws[..., :t_valid]).max().item())
+        deq_err = max(deq_err, (deq(gq, gs) - deq(wq, ws)).abs().max().item())
+    if flip > KV_FLIP_FRAC_TOL or scale_err > KV_SCALE_REL_TOL:
+        fail(f"{name} disagrees with its plain version")
+    return flip, scale_err, deq_err
 
 
 def decode_steps(tokens, cfg, prompt_len: int) -> int:
@@ -233,18 +337,51 @@ def decode_steps(tokens, cfg, prompt_len: int) -> int:
     return min(int(first.max()), total - 1)
 
 
-def phase_e2e(cfg, device, batch, n_batches, max_new_tokens, language="hindi"):
+KERNEL_NAMES = ("encoder_attention_hm", "fused_kv_init", "fused_kv_init_lora",
+                "cross_decode_attention_exact")
+
+
+def reset_counts():
+    from sar_tpu_torch.ops import decode_cross, flash_enc, kv_init
+    flash_enc.LAUNCHES = kv_init.LAUNCHES = kv_init.LORA_LAUNCHES = 0
+    decode_cross.LAUNCHES = 0
+
+
+def read_counts() -> dict:
+    from sar_tpu_torch.ops import decode_cross, flash_enc, kv_init
+    return dict(zip(KERNEL_NAMES, (flash_enc.LAUNCHES, kv_init.LAUNCHES,
+                                   kv_init.LORA_LAUNCHES, decode_cross.LAUNCHES)))
+
+
+def check_counts(path: str, counts: dict, want_zero: tuple) -> None:
+    """Every kernel of the path launched, and none that is not on it."""
+    missing = [k for k in KERNEL_NAMES if k not in want_zero and counts[k] == 0]
+    if missing:
+        fail(f"the {path} path launched no {', '.join(missing)} kernel")
+    extra = [k for k in want_zero if counts[k] != 0]
+    if extra:
+        fail(f"the {path} path launched {', '.join(extra)}, which is not on it")
+
+
+def make_model(cfg, device):
+    """Random bf16 weights of the model (seeded) on the card."""
+    import torch
+    from sar_tpu_torch.models import whisper
+    g = torch.Generator(device=device).manual_seed(SEED)
+    params = whisper.init_params(cfg, g, device)
+    n_params = whisper.param_count(params)
+    return whisper.cast_params(params, torch.bfloat16), n_params
+
+
+def phase_e2e(cfg, params, n_params, device, batch, n_batches, max_new_tokens,
+              language="hindi"):
     import torch
     from sar_tpu_torch.evaluation import ASREvaluator
     from sar_tpu_torch.models import whisper
-    from sar_tpu_torch.ops import decode_cross, flash_enc, kv_init
     from sar_tpu_torch.ops import mel as mel_ops
 
-    g = torch.Generator(device=device).manual_seed(SEED)
+    g = torch.Generator(device=device).manual_seed(SEED + 1)
     t0 = time.perf_counter()
-    params = whisper.init_params(cfg, g, device)
-    n_params = whisper.param_count(params)
-    params = whisper.cast_params(params, torch.bfloat16)
     audio = [torch.randn((batch, mel_ops.N_SAMPLES), generator=g, device=device) * 0.1
              for _ in range(n_batches)]
     ev = ASREvaluator(cfg, params, language=language,
@@ -274,7 +411,7 @@ def phase_e2e(cfg, device, batch, n_batches, max_new_tokens, language="hindi"):
 
     # Warm-up batch (cuBLAS handles, allocator), not counted.
     run(ev, audio[0])
-    flash_enc.LAUNCHES = kv_init.LAUNCHES = decode_cross.LAUNCHES = 0
+    reset_counts()
     outs, wall = [], 0.0
     for i, a in enumerate(audio):
         t_b = time.perf_counter()
@@ -288,16 +425,12 @@ def phase_e2e(cfg, device, batch, n_batches, max_new_tokens, language="hindi"):
               f"prep {t_prep * 1e3:.1f}, decode {t_dec * 1e3:.1f} ms for {steps} steps "
               f"= {t_dec * 1e3 / steps:.3f} ms/token-step at batch {batch})")
         outs.append((tokens, steps, t_dec))
-    counts = {"encoder_attention_hm": flash_enc.LAUNCHES,
-              "fused_kv_init": kv_init.LAUNCHES,
-              "cross_decode_attention_exact": decode_cross.LAUNCHES}
+    counts = read_counts()
     audio_s = n_batches * batch * mel_ops.CHUNK_SECONDS
     ms_tok = 1e3 * sum(o[2] for o in outs) / sum(o[1] for o in outs)
     print(f"e2e: {audio_s} audio-s in {wall:.3f} s -> RTFx {audio_s / wall:.1f} | "
           f"{ms_tok:.3f} ms/token-step (batch {batch}) | launches {json.dumps(counts)}")
-    zero = [k for k, n in counts.items() if n == 0]
-    if zero:
-        fail(f"the main path launched no {', '.join(zero)} kernel")
+    check_counts("greedy", counts, want_zero=("fused_kv_init_lora",))
 
     # Lockstep: both paths fed the kernel path's tokens, argmax compared at
     # every generated position; then the plain path free-running.
@@ -330,6 +463,198 @@ def phase_e2e(cfg, device, batch, n_batches, max_new_tokens, language="hindi"):
     return counts
 
 
+def phase_routed(cfg, params, device, batch, max_new_tokens, profile=False):
+    """The routed serving path at full width: LID -> per-row adapters ->
+    K4 cache -> routed greedy, through TranscriptionService and
+    AdapterRouter; returns the launch counts of its run."""
+    import threading
+
+    import numpy as np
+    import torch
+    from sar_tpu_torch.models import classifier as clf
+    from sar_tpu_torch.models import lora as lora_lib
+    from sar_tpu_torch.models.config import TARGET_LANGUAGES
+    from sar_tpu_torch.models.router import AdapterRouter
+    from sar_tpu_torch.ops import mel as mel_ops
+    from sar_tpu_torch.serving import TranscriptionService
+
+    g = torch.Generator(device=device).manual_seed(SEED + 2)
+    lcfg = lora_lib.LoraConfig(r=LORA_RANK, alpha=LORA_ALPHA, dropout=0.0,
+                               target_modules=("q_proj", "v_proj"))
+    bank = lora_lib.init_lora(g, cfg, lcfg, num_adapters=len(TARGET_LANGUAGES))
+    bank = lora_lib.map_with_path(
+        lambda path, x: (torch.randn(x.shape, generator=g, device=device) * LORA_B_STD
+                         if path[-1] == "b" else x), bank)
+    ccfg = clf.ClassifierConfig(input_dim=cfg.d_model, hidden_dims=(256, 128),
+                                num_classes=len(TARGET_LANGUAGES), pooling="mean",
+                                languages=tuple(TARGET_LANGUAGES), encoder_layer=LID_LAYER)
+    router = AdapterRouter(cfg, params, bank, lcfg, clf.init_classifier(g, ccfg), ccfg,
+                           device=device)
+    if router.flash != "hm" or not router.kernels:
+        fail(f"the router did not pick the kernels (flash={router.flash!r})")
+    rng = np.random.default_rng(SEED)
+    clip_len = cfg.num_audio_frames * mel_ops.HOP_LENGTH     # the 30 s window
+    clips = [(rng.standard_normal(clip_len) * 0.1).astype(np.float32)
+             for _ in range(ROUTED_REQUESTS)]
+    idx = torch.tensor(MIXED_ADAPTERS[:batch], device=device)
+
+    def features(chunk):
+        audio = torch.from_numpy(mel_ops.stack_pad_audio(chunk)).to(device)
+        return mel_ops.log_mel_spectrogram(audio, cfg.num_mel_bins, dtype=torch.bfloat16)[
+            :, :, :cfg.num_audio_frames]
+
+    feats = features(clips[:batch])
+    router.generate(feats, adapter_idx=idx, max_new_tokens=max_new_tokens)  # warm-up
+    torch.cuda.synchronize()
+
+    reset_counts()
+    svc = TranscriptionService(router=router, batch_size=batch, max_wait_ms=50.0,
+                               max_new_tokens=max_new_tokens)
+    results = [None] * ROUTED_REQUESTS
+
+    def client(k):
+        mine = range(k, ROUTED_REQUESTS, ROUTED_THREADS)
+        try:
+            handles = [(i, svc.submit(clips[i])) for i in mine]
+            for i, h in handles:
+                results[i] = h.result(timeout=600.0)
+        except BaseException as e:       # noqa: BLE001 — fails the phase below
+            for i in mine:
+                results[i] = results[i] if isinstance(results[i], list) else e
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(ROUTED_THREADS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    wall = time.perf_counter() - t0
+    svc.close()
+    st = svc.stats()
+    errors = [r for r in results if not isinstance(r, list)]
+    if errors or st["errors"] > 0 or st["rows_served"] != ROUTED_REQUESTS:
+        fail(f"routed service: {len(errors)} requests failed ({errors[:1]}), "
+             f"stats {st}")
+    if any(len(r) > max_new_tokens or any(not 0 <= tok < cfg.vocab_size for tok in r)
+           for r in results):
+        fail("routed service returned a bad token list")
+    audio_s = ROUTED_REQUESTS * clip_len / mel_ops.SAMPLE_RATE
+    print(f"routed service: {ROUTED_REQUESTS} requests x 30 s from {ROUTED_THREADS} threads,"
+          f" batches of {batch}, {st['batches']} batches: {audio_s} audio-s in {wall:.3f} s"
+          f" -> routed RTFx {audio_s / wall:.1f} | latency p50 {st['latency_ms_p50']:.1f} ms"
+          f" p95 {st['latency_ms_p95']:.1f} ms | errors {st['errors']}")
+
+    # The mixed batch (a random LID head may send every row to one adapter),
+    # its phases fenced.
+    def fenced(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    enc, t_enc = fenced(lambda: router.encode(feats, idx))
+    cache, t_cache = fenced(lambda: router.cache(enc, idx, max_new_tokens))
+    tok_k, t_dec = fenced(lambda: router.decode_from_cache(cache, idx))
+    del enc, cache
+    steps = decode_steps(tok_k, cfg, router.prompt_len)
+    counts = read_counts()
+    if tok_k.shape != (batch, router.prompt_len + max_new_tokens) or tok_k.min() < 0 \
+            or tok_k.max() >= cfg.vocab_size:
+        fail(f"routed generate: bad token tensor {tuple(tok_k.shape)}")
+    print(f"routed generate, adapters {MIXED_ADAPTERS[:batch]}: adapted encode "
+          f"{t_enc * 1e3:.1f} ms, cache (K4) {t_cache * 1e3:.1f} ms, decode "
+          f"{t_dec * 1e3:.1f} ms for {steps} steps = {t_dec * 1e3 / steps:.3f} "
+          f"ms/token-step at batch {batch}")
+    print(f"routed launches {json.dumps(counts)}")
+    check_counts("routed", counts, want_zero=("fused_kv_init",))
+
+    # LID overhead: tap (the first LID_LAYER + 1 encoder layers) + head.
+    def lid():
+        router.detect_language(router.extract_encoder_features(feats))
+    lid_ms = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lid()
+        torch.cuda.synchronize()
+        lid_ms.append((time.perf_counter() - t0) * 1e3)
+    lid_ms = statistics.median(lid_ms[1:])
+    print(f"LID overhead: {lid_ms:.2f} ms per batch of {batch} = {lid_ms / batch:.3f} "
+          f"ms per utterance (layer {LID_LAYER} tap + head; the reference's target < 10 ms)")
+
+    # Lockstep against the routed plain path, both fed the kernel path's
+    # tokens; then the plain path free-running.
+    plain = AdapterRouter(cfg, params, bank, lcfg, router.clf_params, ccfg,
+                          device=device, flash=False, kernels=False)
+    cache_k = router.cache(router.encode(feats, idx), idx, max_new_tokens)
+    cache_p = plain.cache(plain.encode(feats, idx), idx, max_new_tokens)
+    P = router.prompt_len
+    agree, n, max_dlogit = 0, 0, 0.0
+    for pos in range(steps):
+        lk, cache_k = router.step(tok_k[:, pos], pos, cache_k, idx)
+        lp, cache_p = plain.step(tok_k[:, pos], pos, cache_p, idx)
+        if not (torch.isfinite(lk).all() and torch.isfinite(lp).all()):
+            fail(f"routed: non-finite logits at step {pos}")
+        if pos + 1 >= P:
+            agree += int((lk.argmax(-1) == lp.argmax(-1)).sum())
+            n += batch
+            max_dlogit = max(max_dlogit, (lk - lp).abs().max().item())
+    tok_p = plain.generate(feats, adapter_idx=idx, max_new_tokens=max_new_tokens)
+    free = (tok_k[:, P:] == tok_p[:, P:]).float().mean().item()
+    lock = agree / max(n, 1)
+    print(f"routed vs plain routed path: lockstep argmax agreement {lock:.4f} "
+          f"({agree}/{n} row-steps, need >= {LOCKSTEP_MIN_AGREEMENT}) | max |dlogit| "
+          f"{max_dlogit:.4e} | free-running token agreement {free:.4f}")
+    if lock < LOCKSTEP_MIN_AGREEMENT:
+        fail("the routed kernel path disagrees with the routed plain path")
+    if profile:
+        from sar_tpu_torch.models import whisper
+        P = router.prompt_len
+        cache_g = whisper.init_cache(params, router.encode(feats, idx), cfg, P + max_new_tokens)
+        cache_r = router.cache(router.encode(feats, idx), idx, max_new_tokens)
+        for name, step, cache in (
+                ("greedy", lambda tok, pos, c: whisper.decode_step(params, tok, pos, c, cfg),
+                 cache_g),
+                ("routed", lambda tok, pos, c: router.step(tok, pos, c, idx), cache_r)):
+            profile_steps(name, step, cache, tok_k, P)
+    return counts
+
+
+def profile_steps(name, step, cache, tokens, first_pos):
+    """PROFILE_STEPS decode steps from `first_pos` (after PROFILE_STEPS
+    untimed ones) under torch.profiler: wall and device ms per step,
+    device busy share, top kernels by device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    pos = first_pos
+    with torch.no_grad():
+        for _ in range(PROFILE_STEPS):
+            _, cache = step(tokens[:, pos], pos, cache)
+            pos += 1
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(PROFILE_STEPS):
+                _, cache = step(tokens[:, pos], pos, cache)
+                pos += 1
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    dev_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    by_name: dict = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    print(f"profile {name} decode, {PROFILE_STEPS} steps (profiled): wall "
+          f"{wall_ms / PROFILE_STEPS:.3f} ms/step, device {dev_ms / PROFILE_STEPS:.3f} "
+          f"ms/step, busy {dev_ms / wall_ms:.1%}, {len(kernels) // PROFILE_STEPS} device "
+          f"ops/step | top: " + "; ".join(f"{n[:60]} {t / PROFILE_STEPS:.3f} ms/step"
+                                          for n, t in top))
+
+
 def main() -> int:
     device, name, _ = phase_device()
     import torch
@@ -337,12 +662,18 @@ def main() -> int:
     phase_build()
     cfg = get_config(MODEL)
     rows = phase_kernels(cfg, device, BATCH)
-    counts = phase_e2e(cfg, device, BATCH, N_BATCHES, MAX_NEW_TOKENS)
+    params, n_params = make_model(cfg, device)
+    by_path = {"greedy": phase_e2e(cfg, params, n_params, device, BATCH, N_BATCHES,
+                                   MAX_NEW_TOKENS),
+               "routed": phase_routed(cfg, params, device, BATCH, MAX_NEW_TOKENS,
+                                      profile="--profile" in sys.argv[1:])}
     for r in rows:
-        r["launches"] = counts[r["name"]]
+        r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}
+        r["launches"] = sum(r["launches_by_path"].values())
     print(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces", "launches",
-                           "max_abs_err", "ms", "plain_ms")} for r in rows]}))
+                           "launches_by_path", "max_abs_err", "ms", "plain_ms",
+                           "bound_ms", "bound_by", "library_ms")} for r in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -8,7 +8,13 @@ Covered so far: the int8-KV greedy transcription path — log-mel frontend,
 Whisper encoder (head-minor attention kernel), the int8 head-minor decode
 cache (fused projection + quantization kernel), the KV-cached decode step
 (cross-attention decode kernel), the greedy loop and the evaluator's
-greedy prep/decode pair. The kernels are hand-written CUDA C++ for sm_90a
+greedy prep/decode pair — and the routed multi-adapter serving path: LoRA
+banks (models/lora.py, the PEFT import in models/convert.py), the LID
+classifier (models/classifier.py), the AdapterRouter (models/router.py)
+and the micro-batching TranscriptionService (serving/service.py), whose
+cache build adds each utterance's cross_v LoRA term in the fused kernel's
+LoRA variant. Entry points run on the CUDA card unless given
+device="cpu" (device.py). The kernels are hand-written CUDA C++ for sm_90a
 (`csrc/`), built at first use by `ops/_build.py`; every kernel has a plain
 PyTorch version beside it that CPU tensors take.
 """

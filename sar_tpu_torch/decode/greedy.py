@@ -25,23 +25,31 @@ from sar_tpu_torch.models.config import WhisperConfig
 
 def greedy_decode(params: dict, enc_out: torch.Tensor, cfg: WhisperConfig,
                   prompt_ids, *, max_new_tokens: int = 256,
+                  lora: dict | None = None, adapter_idx=None,
+                  lora_scale: float = 1.0,
                   suppress_ids: tuple[int, ...] = (),
                   kernels: bool = True) -> torch.Tensor:
     """Greedy decode over an int8 head-minor cache built from `enc_out`.
-    prompt_ids: [P] or [B, P] (e.g. cfg.prompt_ids(lang)). Returns
-    [B, min(P + max_new_tokens, max_target_positions)] int64; positions
-    after EOS are EOS."""
+    prompt_ids: [P] or [B, P] (e.g. cfg.prompt_ids(lang)). `lora` (a bank)
+    adapts the cache build and every step, with adapter 0 for the batch or
+    `adapter_idx` [B] per row. Returns [B, min(P + max_new_tokens,
+    max_target_positions)] int64; positions after EOS are EOS."""
     P = torch.as_tensor(prompt_ids).shape[-1]
     total = min(P + max_new_tokens, cfg.max_target_positions)
-    cache = whisper.init_cache(params, enc_out, cfg, max_len=total,
+    cache = whisper.init_cache(params, enc_out, cfg, max_len=total, lora=lora,
+                               adapter_idx=adapter_idx, lora_scale=lora_scale,
                                kernels=kernels)
-    return greedy_decode_from_cache(params, cache, cfg, prompt_ids,
+    return greedy_decode_from_cache(params, cache, cfg, prompt_ids, lora=lora,
+                                    adapter_idx=adapter_idx,
+                                    lora_scale=lora_scale,
                                     suppress_ids=suppress_ids, kernels=kernels)
 
 
 @torch.no_grad()
 def greedy_decode_from_cache(params: dict, cache: whisper.DecodeCache,
                              cfg: WhisperConfig, prompt_ids, *,
+                             lora: dict | None = None, adapter_idx=None,
+                             lora_scale: float = 1.0,
                              suppress_ids: tuple[int, ...] = (),
                              kernels: bool = True) -> torch.Tensor:
     """The decode loop alone, from a prepared DecodeCache; the total length
@@ -64,7 +72,10 @@ def greedy_decode_from_cache(params: dict, cache: whisper.DecodeCache,
         if bool(finished.all()):
             break
         logits, cache = whisper.decode_step(params, tokens[:, pos], pos, cache,
-                                            cfg, kernels=kernels)
+                                            cfg, lora=lora,
+                                            adapter_idx=adapter_idx,
+                                            lora_scale=lora_scale,
+                                            kernels=kernels)
         if suppress is not None:
             logits[:, suppress] = torch.finfo(torch.float32).min
         # Prompt positions force the provided token; finished rows emit EOS.

@@ -13,8 +13,11 @@ hd^-0.5, no bias on the k projections, softmax in fp32, logits in fp32 from
 the compute-dtype operands.
 
 Slice covered: `encode(flash="hm"|False)`, the int8 head-minor
-`init_cache` and `decode_step` without LoRA, beams or int4. Other variants
-raise NotImplementedError.
+`init_cache` and `decode_step`, each with optional LoRA from an adapter
+bank (models/lora.py): one adapter for the whole batch, or one per
+utterance (`adapter_idx`, masked-dense routing, `lora_delta`). The cross_v
+LoRA term of the cache build rides kernel K4 (ops/kv_init.py). Beams, int4
+and LoRA dropout (training) raise NotImplementedError or are absent.
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ from sar_tpu_torch.models.config import WhisperConfig
 from sar_tpu_torch.ops.decode_cross import (cross_decode_attention_exact,
                                             cross_decode_reference_exact)
 from sar_tpu_torch.ops.flash_enc import encoder_attention_hm
-from sar_tpu_torch.ops.kv_init import fused_kv_init, fused_kv_init_reference
+from sar_tpu_torch.ops.kv_init import (fused_kv_init, fused_kv_init_reference,
+                                      quantize_rows)
 
 Params = dict[str, Any]
 
@@ -54,6 +58,55 @@ def linear(x: torch.Tensor, p: Params) -> torch.Tensor:
     y = torch.matmul(x, p["w"])
     if "b" in p:
         y = y + p["b"].to(y.dtype)
+    return y
+
+
+class LoraCtx(NamedTuple):
+    """LoRA at inference. `sel` [B, A] is the one-hot of the per-row
+    adapter index in the compute dtype (None: adapter 0 for every row),
+    made once per call of encode / init_cache / decode_step rather than
+    once per projection; `scale` = alpha / r."""
+    sel: torch.Tensor | None = None
+    scale: float = 1.0
+
+
+def lora_ctx(lora: Params | None, adapter_idx, scale: float,
+             dtype: torch.dtype) -> LoraCtx:
+    """The LoraCtx of one side's bank ({hook: {"a", "b"}}) for a call."""
+    if lora is None or adapter_idx is None:
+        return LoraCtx(None, scale)
+    la = next(iter(lora.values()))["a"]                         # [L, A, d, r]
+    idx = torch.as_tensor(adapter_idx, device=la.device).long()
+    return LoraCtx(F.one_hot(idx, la.shape[1]).to(dtype), scale)
+
+
+def lora_delta(x: torch.Tensor, la: torch.Tensor, lb: torch.Tensor,
+               ctx: LoraCtx) -> torch.Tensor:
+    """`scale * (x @ A) @ B` for x [B, T, d_in]; la [A, d_in, r] and lb
+    [A, r, d_out] are one layer's slice of a bank entry.
+
+    ctx.sel None: adapter 0 for every row. Otherwise MASKED-DENSE, as the
+    JAX package: x against all A adapters as one [d_in, A*r] product, the
+    rank blocks of the other adapters zeroed by the one-hot mask, then one
+    [A*r, d_out] product. Both products round to x's dtype, as the einsums
+    do there."""
+    if ctx.sel is None:
+        u = torch.matmul(x, la[0].to(x.dtype))
+        return ctx.scale * torch.matmul(u, lb[0].to(x.dtype))
+    A, d_in, r = la.shape
+    B, T = x.shape[0], x.shape[1]
+    laf = la.transpose(0, 1).reshape(d_in, A * r).to(x.dtype)
+    lbf = lb.reshape(A * r, lb.shape[-1]).to(x.dtype)
+    u = torch.matmul(x, laf)                                     # [B, T, A*r]
+    u = (u.reshape(B, T, A, r) * ctx.sel[:, None, :, None]).reshape(B, T, A * r)
+    return ctx.scale * torch.matmul(u, lbf)
+
+
+def _proj(x: torch.Tensor, p: Params, lora: Params | None,
+          ctx: LoraCtx) -> torch.Tensor:
+    y = linear(x, p)
+    if lora is not None:
+        y = y + lora_delta(x, lora["a"], lora["b"], ctx)
     return y
 
 
@@ -206,12 +259,14 @@ def _layer(stack: Params, l: int) -> Params:
 # Encoder
 # ---------------------------------------------------------------------------
 
-def _enc_layer_apply(x, p, num_heads, flash=False, t_valid=None):
+def _enc_layer_apply(x, p, num_heads, flash=False, t_valid=None, lora=None,
+                     ctx: LoraCtx = LoraCtx()):
+    lo = lora or {}
     scaling = (x.shape[-1] // num_heads) ** -0.5
     h = layer_norm(x, p["attn_ln"]["scale"], p["attn_ln"]["bias"])
-    q = linear(h, p["q"]) * scaling
-    k = linear(h, p["k"])
-    v = linear(h, p["v"])
+    q = _proj(h, p["q"], lo.get("q"), ctx) * scaling
+    k = _proj(h, p["k"], lo.get("k"), ctx)
+    v = _proj(h, p["v"], lo.get("v"), ctx)
     if flash == "hm":
         # Head-minor kernel on the residual layout: no split/merge copies;
         # `x` is padded to the kernel's T and keys >= t_valid are masked.
@@ -220,41 +275,63 @@ def _enc_layer_apply(x, p, num_heads, flash=False, t_valid=None):
         a = attention(split_heads(q, num_heads), split_heads(k, num_heads),
                       split_heads(v, num_heads))
         a_m = merge_heads(a)
-    x = x + linear(a_m, p["o"])
+    x = x + _proj(a_m, p["o"], lo.get("o"), ctx)
     h = layer_norm(x, p["mlp_ln"]["scale"], p["mlp_ln"]["bias"])
     h = F.gelu(linear(h, p["fc1"]))
     return x + linear(h, p["fc2"])
 
 
-def encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig, *,
-           flash: bool | str = False) -> torch.Tensor:
-    """Encoder forward. mel: [B, num_mel_bins, T_frames] -> [B, T/2, d].
-
-    flash: False = exact attention ([T, T] probabilities materialised);
-    "hm" = the head-minor attention kernel (ops/flash_enc.py), run on T
-    padded to `cross_pad_len(T)` with the pad sliced off after the stack."""
-    if flash not in (False, "hm"):
-        raise NotImplementedError(
-            f"encode(flash={flash!r}): the port has False and 'hm'")
-    enc = params["encoder"]
+def encoder_front(enc: Params, mel: torch.Tensor) -> torch.Tensor:
+    """The two GELU convolutions plus positions: mel [B, M, T_frames] ->
+    [B, T_frames/2, d] in the weights' dtype."""
     dtype = enc["conv1"]["w"].dtype
     x = mel.to(dtype)                                            # [B, M, T]
     x = F.conv1d(x, enc["conv1"]["w"], padding=1) + enc["conv1"]["b"][:, None].to(dtype)
     x = F.gelu(x)
     x = F.conv1d(x, enc["conv2"]["w"], stride=2, padding=1) + enc["conv2"]["b"][:, None].to(dtype)
     x = F.gelu(x).transpose(1, 2)                                # [B, T, d]
+    return x + enc["pos_embed"][:x.shape[1]].to(dtype)
 
+
+def encoder_layers(enc: Params, x: torch.Tensor, cfg: WhisperConfig,
+                   n_layers: int, *, flash: bool | str = False,
+                   lora: Params | None = None,
+                   ctx: LoraCtx = LoraCtx()) -> torch.Tensor:
+    """The first `n_layers` encoder layers over x [B, T, d]. With
+    flash="hm" they run on T padded to `cross_pad_len(T)` (padded rows carry
+    garbage that masked keys keep out of real rows) and the pad is sliced
+    off after the last layer."""
+    if flash not in (False, "hm"):
+        raise NotImplementedError(
+            f"encode(flash={flash!r}): the port has False and 'hm'")
     T = x.shape[1]
-    x = x + enc["pos_embed"][:T].to(dtype)
     pad = cross_pad_len(T) - T if flash == "hm" else 0
     if pad:
-        # Padded rows carry garbage that masked keys keep out of real rows.
         x = F.pad(x, (0, 0, 0, pad))
-    for l in range(cfg.encoder_layers):
+    for l in range(n_layers):
         x = _enc_layer_apply(x, _layer(enc["layers"], l), cfg.encoder_heads,
-                             flash=flash, t_valid=T)
-    if pad:
-        x = x[:, :T]
+                             flash=flash, t_valid=T,
+                             lora=_layer(lora, l) if lora else None, ctx=ctx)
+    return x[:, :T] if pad else x
+
+
+def encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig, *,
+           lora: Params | None = None, adapter_idx=None,
+           lora_scale: float = 1.0,
+           flash: bool | str = False) -> torch.Tensor:
+    """Encoder forward. mel: [B, num_mel_bins, T_frames] -> [B, T/2, d].
+
+    flash: False = exact attention ([T, T] probabilities materialised);
+    "hm" = the head-minor attention kernel (ops/flash_enc.py), run on T
+    padded to `cross_pad_len(T)` with the pad sliced off after the stack.
+    `lora` (a bank) adapts the hooks q/k/v/o it holds, with adapter 0 for
+    every row or `adapter_idx` [B] per row."""
+    enc = params["encoder"]
+    x = encoder_front(enc, mel)
+    enc_lora = lora.get("encoder") if lora else None
+    ctx = lora_ctx(enc_lora, adapter_idx, lora_scale, x.dtype)
+    x = encoder_layers(enc, x, cfg, cfg.encoder_layers, flash=flash,
+                       lora=enc_lora, ctx=ctx)
     return layer_norm(x, enc["ln"]["scale"], enc["ln"]["bias"])
 
 
@@ -295,11 +372,19 @@ def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def init_cache(params: Params, enc_out: torch.Tensor, cfg: WhisperConfig,
-               max_len: int, *, cross_kv_int8: bool = True,
+               max_len: int, *, lora: Params | None = None,
+               adapter_idx=None, lora_scale: float = 1.0,
+               cross_kv_int8: bool = True,
                self_kv_int8: bool = True, head_minor: bool = True,
                kernels: bool = True) -> DecodeCache:
     """Project + quantize the cross K/V once per batch (fused_kv_init) and
     allocate the zeroed int8 self cache of `max_len` positions.
+
+    A bank that adapts cross_v rides K4: its cross_v slices are gathered
+    here once per batch (`a[:, adapter_idx]`, or `a[:, :1]` for one adapter
+    shared by the batch) and handed to fused_kv_init. A bank that adapts
+    cross_k takes the plain torch projections (`_proj`) plus
+    `quantize_rows`, as the JAX package takes its jnp body there.
 
     `kernels=False` runs the plain PyTorch version on any device (the
     reference path the card's results are compared with)."""
@@ -311,10 +396,27 @@ def init_cache(params: Params, enc_out: torch.Tensor, cfg: WhisperConfig,
     H, hd = cfg.decoder_heads, cfg.d_model // cfg.decoder_heads
     pad = cross_pad_len(S) - S
     enc_pad = F.pad(enc_out, (0, 0, 0, pad)) if pad else enc_out.contiguous()
-    fn = fused_kv_init if kernels else fused_kv_init_reference
     lay = dec["layers"]
-    ck, cks, cv, cvs = fn(enc_pad, lay["cross_k"]["w"], lay["cross_v"]["w"],
-                          lay["cross_v"]["b"], n_heads=H, t_valid=S)
+    dec_lora = lora.get("decoder") if lora else None
+    if dec_lora is not None and "cross_k" in dec_lora:
+        ck, cks, cv, cvs = _cross_kv_torch(enc_pad, lay, dec_lora, H, S,
+                                           lora_ctx(dec_lora, adapter_idx,
+                                                    lora_scale, enc_pad.dtype))
+    else:
+        kw = {}
+        if dec_lora is not None and "cross_v" in dec_lora:
+            a, b = dec_lora["cross_v"]["a"], dec_lora["cross_v"]["b"]
+            if adapter_idx is None:
+                va, vb = a[:, :1], b[:, :1]               # one shared adapter
+            else:
+                idx = torch.as_tensor(adapter_idx, device=a.device).long()
+                va, vb = a[:, idx], b[:, idx]             # [L, B, d, r]
+            kw = dict(va=va.to(enc_pad.dtype).contiguous(),
+                      vb=vb.to(enc_pad.dtype).contiguous(),
+                      lora_scale=lora_scale)
+        fn = fused_kv_init if kernels else fused_kv_init_reference
+        ck, cks, cv, cvs = fn(enc_pad, lay["cross_k"]["w"], lay["cross_v"]["w"],
+                              lay["cross_v"]["b"], n_heads=H, t_valid=S, **kw)
     L = ck.shape[0]
     dev = enc_out.device
     return DecodeCache(
@@ -323,6 +425,25 @@ def init_cache(params: Params, enc_out: torch.Tensor, cfg: WhisperConfig,
         cross_k=ck, cross_v=cv, cross_k_scale=cks, cross_v_scale=cvs,
         self_k_scale=torch.zeros((L, B, H, max_len), device=dev),
         self_v_scale=torch.zeros((L, B, H, max_len), device=dev))
+
+
+def _cross_kv_torch(enc_pad, lay, dec_lora, n_heads, t_valid, ctx):
+    """Cross K/V of every layer through `_proj` (LoRA on cross_k and/or
+    cross_v) and `quantize_rows`: the cache build of banks that adapt
+    cross_k, which K4 does not take."""
+    L = lay["cross_k"]["w"].shape[0]
+    B, S, D = enc_pad.shape
+    kq = torch.empty((L, B, S, D), dtype=torch.int8, device=enc_pad.device)
+    vq = torch.empty_like(kq)
+    ks = torch.empty((L, B, n_heads, S), device=enc_pad.device)
+    vs = torch.empty_like(ks)
+    for l in range(L):
+        p, lo = _layer(lay, l), _layer(dec_lora, l)
+        kq[l], ks[l] = quantize_rows(_proj(enc_pad, p["cross_k"], lo.get("cross_k"), ctx),
+                                     n_heads, t_valid)
+        vq[l], vs[l] = quantize_rows(_proj(enc_pad, p["cross_v"], lo.get("cross_v"), ctx),
+                                     n_heads, t_valid)
+    return kq, ks, vq, vs
 
 
 def _attention_int8(q, kq, ks, vq, vs, mask=None):
@@ -349,13 +470,17 @@ def logits_weight(dec: Params) -> torch.Tensor:
 
 def decode_step(params: Params, tokens: torch.Tensor, pos: int,
                 cache: DecodeCache, cfg: WhisperConfig, *,
+                lora: Params | None = None, adapter_idx=None,
+                lora_scale: float = 1.0,
                 kernels: bool = True) -> tuple[torch.Tensor, DecodeCache]:
     """One autoregressive step. tokens: [B] int64 at position `pos` (< the
     self cache's max_len). Returns (logits [B, V] fp32, cache), the self
     cache updated in place at column `pos`.
 
     The cross path goes through the decode kernel (ops/decode_cross.py);
-    `kernels=False` runs its plain version on any device."""
+    `kernels=False` runs its plain version on any device. `lora` adapts
+    the decoder hooks it holds (self_q/k/v/o, cross_q/o; cross_k/v live in
+    the cache), per row when `adapter_idx` is given."""
     if cache.cross_k.dim() != 4 or cache.self_k_scale is None:
         raise NotImplementedError("decode_step takes the int8 head-minor cache")
     dec = params["decoder"]
@@ -367,14 +492,17 @@ def decode_step(params: Params, tokens: torch.Tensor, pos: int,
     pos_mask = (torch.arange(max_len, device=x.device) <= pos)[None, None, None, :]
     scaling = (cfg.d_model // H) ** -0.5
     cross = cross_decode_attention_exact if kernels else cross_decode_reference_exact
+    dec_lora = lora.get("decoder") if lora else None
+    ctx = lora_ctx(dec_lora, adapter_idx, lora_scale, dtype)
 
     for l in range(cache.self_k.shape[0]):
         p = _layer(dec["layers"], l)
+        lo = _layer(dec_lora, l) if dec_lora else {}
         # Self-attention against the int8 cache (row `pos` written first).
         h = layer_norm(x, p["self_ln"]["scale"], p["self_ln"]["bias"])
-        q = linear(h, p["self_q"]) * scaling
-        kq, ks = quantize_kv(split_heads(linear(h, p["self_k"]), H))
-        vq, vs = quantize_kv(split_heads(linear(h, p["self_v"]), H))
+        q = _proj(h, p["self_q"], lo.get("self_q"), ctx) * scaling
+        kq, ks = quantize_kv(split_heads(_proj(h, p["self_k"], lo.get("self_k"), ctx), H))
+        vq, vs = quantize_kv(split_heads(_proj(h, p["self_v"], lo.get("self_v"), ctx), H))
         cache.self_k[l, :, :, pos] = kq[:, :, 0]
         cache.self_v[l, :, :, pos] = vq[:, :, 0]
         cache.self_k_scale[l, :, :, pos] = ks[:, :, 0]
@@ -382,13 +510,13 @@ def decode_step(params: Params, tokens: torch.Tensor, pos: int,
         a = _attention_int8(split_heads(q, H), cache.self_k[l],
                             cache.self_k_scale[l], cache.self_v[l],
                             cache.self_v_scale[l], mask=pos_mask)
-        x = x + linear(merge_heads(a), p["self_o"])
+        x = x + _proj(merge_heads(a), p["self_o"], lo.get("self_o"), ctx)
         # Cross-attention over the head-minor int8 slabs of layer l.
         h = layer_norm(x, p["cross_ln"]["scale"], p["cross_ln"]["bias"])
-        q = linear(h, p["cross_q"]) * scaling
+        q = _proj(h, p["cross_q"], lo.get("cross_q"), ctx) * scaling
         o = cross(q[:, 0], cache.cross_k, cache.cross_k_scale, cache.cross_v,
                   cache.cross_v_scale, layer=l, n_heads=H)
-        x = x + linear(o[:, None, :], p["cross_o"])
+        x = x + _proj(o[:, None, :], p["cross_o"], lo.get("cross_o"), ctx)
         # MLP.
         h = layer_norm(x, p["mlp_ln"]["scale"], p["mlp_ln"]["bias"])
         h = F.gelu(linear(h, p["fc1"]))

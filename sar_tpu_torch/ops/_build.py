@@ -1,8 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-Every `csrc/*.cu` file is compiled by `nvcc` into ONE shared library with a
-plain C interface (`libsar_kernels.so`), which is loaded with ctypes. The
-build runs at the first launch of any kernel, never at import, and lands in
+Every `csrc/*.cu` file is compiled by its own `nvcc` process (all started
+together, so the build takes as long as the slowest source) and the
+objects are linked into ONE shared library with a plain C interface
+(`libsar_kernels.so`), which is loaded with ctypes. The build runs at the
+first launch of any kernel, never at import, and lands in
 `build/sar_tpu_torch/<content hash>/` beside the package (git-ignored): an
 unchanged source tree reuses the library, an edited one rebuilds.
 
@@ -31,10 +33,11 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "sar_tpu_torch"
 LIB_NAME = "libsar_kernels.so"
 # No --use_fast_math: the int8 quantization divides y / scale and must round
 # exactly like the reference (approximate division flips values at .5).
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> argtypes (pointers and the stream as c_void_p, ints c_int).
 SIGNATURES = {
     # q, k, v, out, B, T, D, n_heads, t_valid, device, stream
@@ -43,6 +46,10 @@ SIGNATURES = {
     # device, stream
     "sar_fused_kv_init": [_P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, wk, wv, bv, va, vb, kq, ks, vq, vs, L, B, Bv, S_pad, D, n_heads,
+    # rank, t_valid, lora_scale, device, stream
+    "sar_fused_kv_init_lora": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     # q, kq, ks, vq, vs, out, L, B, S_pad, D, n_heads, layer, device, stream
     "sar_cross_decode_exact": [_P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _I, _P],
@@ -51,7 +58,7 @@ SIGNATURES = {
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 BUILD_SECONDS: float | None = None   # wall time of this process's build
-BUILD_LOG: str = ""                  # nvcc's -Xptxas -v report
+BUILD_LOG: str = ""                  # nvcc's -Xptxas -v reports
 
 
 def sources() -> list[Path]:
@@ -85,30 +92,45 @@ def find_nvcc() -> str:
         "sar_tpu_torch/csrc at first use and need the CUDA toolkit")
 
 
+def _run_all(cmds: list[list[str]]) -> list[str]:
+    """Run the commands concurrently, wait for every one, and return their
+    output; raises with the first failure's output once all have ended."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for c, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(c)}"
+                               f"\n{out}")
+    return outs
+
+
 def build() -> Path:
     """Compile csrc/*.cu into the content-addressed library (no-op when it
-    exists) and return its path."""
+    exists) and return its path: one nvcc per source, all at once, then
+    one link."""
     global BUILD_SECONDS, BUILD_LOG
     out_dir = BUILD_ROOT / source_hash()
     lib_path = out_dir / LIB_NAME
     if lib_path.is_file():
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sources() if p.suffix == ".cu"]
+    nvcc = find_nvcc()
     t0 = time.perf_counter()
-    # Build under a temporary name and rename: a concurrent build never
-    # loads a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
-                           f"\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib_path)
+    # Objects and the library are built in a private directory and the
+    # library renamed into place: a concurrent build never loads a
+    # half-written library.
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        cu = [p for p in sources() if p.suffix == ".cu"]
+        objs = [str(Path(tmp) / f"{p.stem}.o") for p in cu]
+        logs = _run_all([[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", o,
+                          str(p)] for p, o in zip(cu, objs)])
+        so = str(Path(tmp) / LIB_NAME)
+        logs += _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", so, *objs]])
+        os.replace(so, lib_path)
     BUILD_SECONDS = time.perf_counter() - t0
-    BUILD_LOG = proc.stdout + proc.stderr
+    BUILD_LOG = "".join(logs)
     (out_dir / "build.log").write_text(BUILD_LOG)
     return lib_path
 

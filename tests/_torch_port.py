@@ -35,3 +35,26 @@ def jax_whisper(cfg, seed: int = 0):
 
     jp = jw.init_params(jax.random.PRNGKey(seed), cfg)
     return jp, from_jax_params(to_numpy(jp))
+
+
+def random_bank(cfg, num_adapters: int, r: int, seed: int = 0,
+                targets=("q_proj", "v_proj"), std: float = 0.05):
+    """(JAX bank, the same bank for the port): every A and B drawn N(0, std)
+    with numpy, so the deltas are not zero."""
+    import jax.numpy as jnp
+
+    from sar_tpu_torch.models import lora as tl
+
+    rng = np.random.default_rng(seed)
+    shapes = tl.init_lora(torch.Generator().manual_seed(0), cfg,
+                          tl.LoraConfig(r=r, target_modules=tuple(targets)),
+                          num_adapters)
+    np_bank = {side: {hook: {k: (rng.standard_normal(tuple(v.shape)) * std)
+                             .astype(np.float32) for k, v in e.items()}
+                      for hook, e in hooks.items()}
+               for side, hooks in shapes.items()}
+    jax_bank = {s: {h: {k: jnp.asarray(v) for k, v in e.items()}
+                    for h, e in hooks.items()} for s, hooks in np_bank.items()}
+    port_bank = {s: {h: {k: torch.from_numpy(v.copy()) for k, v in e.items()}
+                     for h, e in hooks.items()} for s, hooks in np_bank.items()}
+    return jax_bank, port_bank

@@ -1,4 +1,4 @@
-"""K1-K3 hand-written CUDA kernels against their plain PyTorch versions on
+"""K1-K4 hand-written CUDA kernels against their plain PyTorch versions on
 the card, in bf16, at small shapes (marked `cuda`: they need an NVIDIA GPU
 with nvcc and skip elsewhere; chip_smoke.py runs the same comparisons at
 whisper-small shapes). Run on the card with
@@ -59,6 +59,60 @@ def test_kv_init_kernel(dev, H):
     for a, b in ((got[1], want[1]), (got[3], want[3])):
         assert not a[..., S:].any()
         assert ((a[..., :S] - b[..., :S]).abs() / b[..., :S]).max().item() <= 1e-2
+
+
+def _assert_kv_rules(got, want, S):
+    """K2's rules: int8 |d| <= 1 on <= 5e-3 of entries, scales within rel
+    1e-2, pad rows 0 with scale 0."""
+    for a, b in ((got[0], want[0]), (got[2], want[2])):
+        d = (a.int() - b.int()).abs()
+        assert d.max().item() <= 1 and (d != 0).float().mean().item() <= 5e-3
+        assert not a[:, :, S:].any()
+    for a, b in ((got[1], want[1]), (got[3], want[3])):
+        assert not a[..., S:].any()
+        assert ((a[..., :S] - b[..., :S]).abs() / b[..., :S]).max().item() <= 1e-2
+
+
+# K4: the smallest legal shape and whisper-large-v3's width, ranks 8 (padded
+# to the kernel's 16), 16 and 64, per-sample and shared (broadcast) slices.
+@pytest.mark.parametrize("H", [2, 20])
+@pytest.mark.parametrize("r", [8, 16, 64])
+@pytest.mark.parametrize("shared", [False, True])
+def test_kv_init_lora_kernel(dev, H, r, shared):
+    from sar_tpu_torch.ops import kv_init
+    g = torch.Generator(device=dev).manual_seed(3)
+    L, B, S, S_pad = 2, 3, 100, 128
+    D = H * 64
+    x = _randn(g, dev, B, S_pad, D)
+    x[:, S:] = 0
+    wk, wv, bv = _randn(g, dev, L, D, D, std=0.05), _randn(g, dev, L, D, D, std=0.05), \
+        _randn(g, dev, L, D, std=0.05)
+    Bv = 1 if shared else B
+    va, vb = _randn(g, dev, L, Bv, D, r, std=0.1), _randn(g, dev, L, Bv, r, D, std=0.1)
+    n2, n4 = kv_init.LAUNCHES, kv_init.LORA_LAUNCHES
+    got = kv_init.fused_kv_init(x, wk, wv, bv, n_heads=H, t_valid=S, va=va, vb=vb,
+                                lora_scale=2.0)
+    want = kv_init.fused_kv_init_reference(x, wk, wv, bv, n_heads=H, t_valid=S,
+                                           va=va, vb=vb, lora_scale=2.0)
+    torch.cuda.synchronize()
+    assert (kv_init.LAUNCHES, kv_init.LORA_LAUNCHES) == (n2, n4 + 1)
+    _assert_kv_rules(got, want, S)
+    # The LoRA term moved V: the unadapted kernel's V differs.
+    plain = kv_init.fused_kv_init(x, wk, wv, bv, n_heads=H, t_valid=S)
+    assert (plain[2] != got[2]).any()
+
+
+def test_kv_init_lora_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    from sar_tpu_torch.ops import kv_init
+    L, B, S_pad, D = 1, 2, 64, 128
+    x = torch.zeros((B, S_pad, D), dtype=torch.bfloat16, device=dev)
+    w = torch.zeros((L, D, D), dtype=torch.bfloat16, device=dev)
+    bv = torch.zeros((L, D), dtype=torch.bfloat16, device=dev)
+    for r, Bv in ((65, 1), (16, 3)):
+        va = torch.zeros((L, Bv, D, r), dtype=torch.bfloat16, device=dev)
+        vb = torch.zeros((L, Bv, r, D), dtype=torch.bfloat16, device=dev)
+        with pytest.raises(ValueError):
+            kv_init.fused_kv_init(x, w, w, bv, n_heads=2, t_valid=50, va=va, vb=vb)
 
 
 @pytest.mark.parametrize("H", [4, 20])

@@ -133,21 +133,22 @@ def test_evaluator_from_audio_matches_jax_prep_dec(model):
     tokens, _ = jev._decode(jp, jev._prep(jp, feats), jev._prompt)
     want = jax_transcribe_tokens(tokens, CFG, prompt_len=int(jev._prompt.shape[0]))
 
-    ev = ASREvaluator(CFG, tp, language="english", max_new_tokens=10)
+    ev = ASREvaluator(CFG, tp, language="english", max_new_tokens=10,
+                      device="cpu")
     assert ev.flash is False and ev.device.type == "cpu"
     assert ev.from_audio(clips) == want
     texts = ASREvaluator(CFG, tp, CharTokenizer(CFG), language="english",
-                         max_new_tokens=10).from_audio(np.stack(
+                         max_new_tokens=10, device="cpu").from_audio(np.stack(
                              [tmel.pad_or_trim(t(c)).numpy() for c in clips]))
     assert texts == [JaxCharTokenizer(CFG).decode(r) for r in want]
 
 
 def test_evaluator_refuses_options_not_yet_ported(model):
     _, tp, _, _ = model
-    for kw in (dict(num_beams=4), dict(lora={}), dict(kv_int8=False),
+    for kw in (dict(num_beams=4), dict(kv_int8=False),
                dict(scores_int8=True), dict(kv_int4=True), dict(fallback=True)):
         with pytest.raises(NotImplementedError):
-            ASREvaluator(CFG, tp, **kw)
+            ASREvaluator(CFG, tp, device="cpu", **kw)
     with pytest.raises(NotImplementedError):
         tw.init_cache(tp, torch.zeros((1, 32, CFG.d_model)), CFG, 8, head_minor=False)
 
