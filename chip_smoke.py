@@ -11,8 +11,9 @@ Phases, each printing its own line(s); any failure raises and exits non-zero:
    process per source, all at once) and prints the seconds it took.
 3. kernels: K1 (encoder attention), K2 (cross-KV projection + int8
    quantization), K4 (K2 with a per-sample LoRA term on V, per-sample and
-   broadcast slices of a 4-adapter r=16 bank) and K3 (cross-attention
-   decode) at whisper-small shapes, batch 8, each against its plain
+   broadcast slices of a 4-adapter r=16 bank), K3 (cross-attention
+   decode) and K5 (K3 with the queries of 4, then 5, beams folded per
+   sample) at whisper-small shapes, batch 8, each against its plain
    PyTorch version on the card in bf16, with error limits, median
    CUDA-event times over 20 runs, the least time the card could take
    (bound) and, for K1, one library call computing the same function
@@ -32,13 +33,22 @@ Phases, each printing its own line(s); any failure raises and exits non-zero:
    fenced, all with the launch counters zeroed before and read after
    (K1, K4, K3 > 0, K2 = 0); then the routed plain path (kernels=False,
    flash=False) in lockstep and free running, and the LID overhead.
-6. result: one JSON line with every kernel's numbers, then the last line
+6. beam evaluation end to end: 16 synthetic whisper-small items through
+   the port's DataLoader and collator into ASREvaluator(num_beams=4,
+   64 new tokens).evaluate after one warm-up batch, printing WER/CER (of
+   random weights: the path, not the accuracy), RTFx and ms per
+   token-step, with the launch counters zeroed before and read after
+   (K1, K2, K5 > 0; K3, K4 = 0); then the first batch through the plain
+   path in lockstep (both paths decode from one beam state, which the
+   kernel path's selection advances) and free running.
+7. result: one JSON line with every kernel's numbers, then the last line
    {"ok": true, "device": {...}}.
 
-With --profile, the routed phase also runs PROFILE_STEPS steady-state
-decode steps of the greedy and of the routed path under torch.profiler
-(after the counted run) and prints, for each, the wall and device time
-per step, the device busy share and the kernels that take the most time.
+With --profile, the routed and beam phases also run PROFILE_STEPS
+steady-state decode steps of the greedy, routed and beam paths under
+torch.profiler (after the counted runs) and print, for each, the wall and
+device time per step, the device busy share and the kernels that take the
+most time.
 """
 
 from __future__ import annotations
@@ -80,6 +90,16 @@ ATTN_REL_TOL = 2e-2
 KV_FLIP_FRAC_TOL = 5e-3
 KV_SCALE_REL_TOL = 1e-2
 LOCKSTEP_MIN_AGREEMENT = 0.99
+# Beam lockstep: a disagreement whose top-2 gap is at most LOGIT_TIE_TOL in
+# both paths' own logits counts as a near tie (about half the max |dlogit|
+# of 3.8e-2 the greedy path shows between the kernel and plain paths).
+LOGIT_TIE_TOL = 2e-2
+# Beam cell: ASREvaluator(num_beams=BEAM_WIDTH) over BEAM_ITEMS synthetic
+# whisper-small items (the JAX package's synthetic source, full width), in
+# batches of BATCH. K5 is checked at the cell's width and at Whisper's usual 5.
+BEAM_WIDTH = 4
+BEAM_KERNEL_WIDTHS = (4, 5)
+BEAM_ITEMS = 16
 
 
 def fail(msg: str) -> None:
@@ -298,6 +318,39 @@ def phase_kernels(cfg, device, batch):
                      replaces="sar_tpu/ops/decode_cross.py:219",
                      max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
                      bound_ms=b_ms, bound_by=b_by, library_ms=None))
+
+    # K5: the beam-folded twin, q [B, K, D] over the same slabs; the beam
+    # phase's width, then Whisper's usual one. Checked on every layer and
+    # timed per call over a 12-layer sweep, as K3.
+    k5 = {}
+    for K in BEAM_KERNEL_WIDTHS:
+        qb = randn(batch, K, D, std=hd ** -0.5)
+        abs_err, rel_err = 0.0, 0.0
+        for layer in range(L):
+            o = decode_cross.cross_decode_attention_exact(qb, kq, ks, vq, vs, layer=layer, n_heads=H)
+            r = decode_cross.cross_decode_reference_exact(qb, kq, ks, vq, vs, layer=layer, n_heads=H)
+            a, rr = _attn_errors(o, r)
+            abs_err, rel_err = max(abs_err, a), max(rel_err, rr)
+        torch.cuda.synchronize()
+        def sweep_b(fn):
+            return lambda: [fn(qb, kq, ks, vq, vs, layer=layer, n_heads=H) for layer in range(L)]
+        ms = time_cuda(sweep_b(decode_cross.cross_decode_attention_exact)) / L
+        plain_ms = time_cuda(sweep_b(decode_cross.cross_decode_reference_exact)) / L
+        b_ms, b_by = bound(4.0 * batch * K * H * S * hd, slab_mb * 1e6 + 2 * 2 * batch * K * D)
+        print(f"K5 cross_decode_attention_exact beam-folded [B={batch}, K={K}, S_pad={S_pad}, "
+              f"D={D}, all {L} layers] bf16 q, s8 cache: max_abs_err {abs_err:.3e} max_rel_err "
+              f"{rel_err:.3e} (tol {ATTN_ABS_TOL}) | per call over a {L}-layer sweep: kernel "
+              f"{ms:.4f} ms plain {plain_ms:.4f} ms | {slab_mb:.1f} MB of int8 slab + scales -> "
+              f"{slab_mb / ms:.1f} GB/s | bound {b_ms:.4f} ms ({b_by}) | shared memory "
+              f"{decode_cross.beam_shared_bytes(K, S_pad)} B")
+        if abs_err > ATTN_ABS_TOL or rel_err > ATTN_REL_TOL:
+            fail(f"K5 (K={K}) disagrees with its plain version")
+        k5[K] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    rows.append(dict(name="cross_decode_attention_exact_beam", route="cuda",
+                     source="sar_tpu_torch/csrc/decode_cross.cu",
+                     replaces="sar_tpu/ops/decode_cross.py:219",
+                     library_ms=None, beam_width=BEAM_WIDTH, **k5[BEAM_WIDTH],
+                     other_widths={K: v for K, v in k5.items() if K != BEAM_WIDTH}))
     return rows
 
 
@@ -338,19 +391,20 @@ def decode_steps(tokens, cfg, prompt_len: int) -> int:
 
 
 KERNEL_NAMES = ("encoder_attention_hm", "fused_kv_init", "fused_kv_init_lora",
-                "cross_decode_attention_exact")
+                "cross_decode_attention_exact", "cross_decode_attention_exact_beam")
 
 
 def reset_counts():
     from sar_tpu_torch.ops import decode_cross, flash_enc, kv_init
     flash_enc.LAUNCHES = kv_init.LAUNCHES = kv_init.LORA_LAUNCHES = 0
-    decode_cross.LAUNCHES = 0
+    decode_cross.LAUNCHES = decode_cross.BEAM_LAUNCHES = 0
 
 
 def read_counts() -> dict:
     from sar_tpu_torch.ops import decode_cross, flash_enc, kv_init
     return dict(zip(KERNEL_NAMES, (flash_enc.LAUNCHES, kv_init.LAUNCHES,
-                                   kv_init.LORA_LAUNCHES, decode_cross.LAUNCHES)))
+                                   kv_init.LORA_LAUNCHES, decode_cross.LAUNCHES,
+                                   decode_cross.BEAM_LAUNCHES)))
 
 
 def check_counts(path: str, counts: dict, want_zero: tuple) -> None:
@@ -430,7 +484,8 @@ def phase_e2e(cfg, params, n_params, device, batch, n_batches, max_new_tokens,
     ms_tok = 1e3 * sum(o[2] for o in outs) / sum(o[1] for o in outs)
     print(f"e2e: {audio_s} audio-s in {wall:.3f} s -> RTFx {audio_s / wall:.1f} | "
           f"{ms_tok:.3f} ms/token-step (batch {batch}) | launches {json.dumps(counts)}")
-    check_counts("greedy", counts, want_zero=("fused_kv_init_lora",))
+    check_counts("greedy", counts, want_zero=("fused_kv_init_lora",
+                                              "cross_decode_attention_exact_beam"))
 
     # Lockstep: both paths fed the kernel path's tokens, argmax compared at
     # every generated position; then the plain path free-running.
@@ -567,7 +622,8 @@ def phase_routed(cfg, params, device, batch, max_new_tokens, profile=False):
           f"{t_dec * 1e3:.1f} ms for {steps} steps = {t_dec * 1e3 / steps:.3f} "
           f"ms/token-step at batch {batch}")
     print(f"routed launches {json.dumps(counts)}")
-    check_counts("routed", counts, want_zero=("fused_kv_init",))
+    check_counts("routed", counts, want_zero=("fused_kv_init",
+                                              "cross_decode_attention_exact_beam"))
 
     # LID overhead: tap (the first LID_LAYER + 1 encoder layers) + head.
     def lid():
@@ -621,6 +677,196 @@ def phase_routed(cfg, params, device, batch, max_new_tokens, profile=False):
     return counts
 
 
+def phase_beam(cfg, params, device, batch, max_new_tokens, profile=False):
+    """The evaluation workload with beams at full width: synthetic items ->
+    DataLoader + collator -> ASREvaluator(num_beams=BEAM_WIDTH).evaluate
+    (encoder K1 -> beam_decode: cache K2, every cross-attention K5) ->
+    corpus WER/CER; then the first batch through the plain path in lockstep
+    and free running. Returns the launch counts of the evaluate run."""
+    import numpy as np
+    import torch
+    from sar_tpu_torch.data import (CharTokenizer, DataLoader, SyntheticASRDataset,
+                                    create_collator)
+    from sar_tpu_torch.decode import beam as beam_lib
+    from sar_tpu_torch.evaluation import ASREvaluator
+    from sar_tpu_torch.models import whisper
+    from sar_tpu_torch.ops import mel as mel_ops
+
+    K = BEAM_WIDTH
+    t0 = time.perf_counter()
+    ds = SyntheticASRDataset(cfg, size=BEAM_ITEMS, language="english", seed=SEED)
+    loader = DataLoader(ds, batch, create_collator(cfg.sot_token_id, num_mels=cfg.num_mel_bins,
+                                                   num_frames=cfg.num_audio_frames,
+                                                   device=device),
+                        shuffle=False, drop_last=False)
+    ev = ASREvaluator(cfg, params, CharTokenizer(cfg), language="english",
+                      max_new_tokens=max_new_tokens, num_beams=K, device=device)
+    if ev.flash != "hm" or not ev.kernels:
+        fail(f"the beam evaluator did not pick the kernels (flash={ev.flash!r})")
+    first = next(iter(loader.one_epoch()))
+    feats = torch.as_tensor(first["input_features"]).to(device, torch.bfloat16)
+    P = int(ev._prompt.shape[0])
+    print(f"beam setup: {BEAM_ITEMS} synthetic {cfg.name} items, batches of {batch}, "
+          f"K={K}, {time.perf_counter() - t0:.1f} s")
+    ev.tokens(feats)                                   # warm-up batch, not counted
+    torch.cuda.synchronize()
+
+    steps = [0]
+    real_step = whisper.decode_step
+
+    def counting_step(*a, **k):
+        steps[0] += 1
+        return real_step(*a, **k)
+
+    reset_counts()
+    whisper.decode_step = counting_step
+    try:
+        t0 = time.perf_counter()
+        res = ev.evaluate(loader, return_predictions=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        whisper.decode_step = real_step
+    counts = read_counts()
+    if res["num_samples"] != BEAM_ITEMS or not all(
+            np.isfinite(res[m]) and res[m] >= 0 for m in ("wer", "cer")):
+        fail(f"beam evaluate: bad result {({k: res[k] for k in ('wer', 'cer', 'num_samples')})}")
+    audio_s = BEAM_ITEMS * mel_ops.CHUNK_SECONDS         # one 30 s window per item
+    print(f"beam evaluate: WER {res['wer']:.4f} CER {res['cer']:.4f} over "
+          f"{res['num_samples']} items (random weights: the path, not the accuracy) | "
+          f"{audio_s:.0f} audio-s in {wall:.3f} s -> RTFx {audio_s / wall:.1f} | "
+          f"{steps[0]} decode steps | launches {json.dumps(counts)}")
+    check_counts("beam", counts, want_zero=("fused_kv_init_lora",
+                                            "cross_decode_attention_exact"))
+    if counts["cross_decode_attention_exact_beam"] != steps[0] * cfg.decoder_layers:
+        fail("K5 was not launched once per layer of every beam decode step")
+
+    # The first batch fenced: encoder, then beam_decode (cache + loop).
+    def fenced(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    enc, t_enc = fenced(lambda: ev.encode(feats))
+    steps[0] = 0
+    whisper.decode_step = counting_step
+    try:
+        tok_k, t_dec = fenced(lambda: ev.beam(feats))
+    finally:
+        whisper.decode_step = real_step
+    n_steps = steps[0]
+    if tok_k.shape != (batch, ev.total) or tok_k.min() < 0 or tok_k.max() >= cfg.vocab_size:
+        fail(f"beam decode: bad token tensor {tuple(tok_k.shape)}")
+    print(f"beam batch 0: encode {t_enc * 1e3:.1f} ms, beam decode (cache + loop) "
+          f"{t_dec * 1e3:.1f} ms for {n_steps} steps = {t_dec * 1e3 / n_steps:.3f} "
+          f"ms/token-step at {batch} samples x {K} beams")
+
+    # Lockstep: the kernel path, the plain path and the plain path's twin
+    # with fp64 sums in the cross-attention (same rounding points) decode
+    # from one beam state (tokens and ancestry), which the kernel path's
+    # selection advances. The twin measures the noise floor: how often two
+    # correct implementations that differ only in summation order pick
+    # different argmaxes on beam rows (near ties of a random model).
+    plain = ASREvaluator(cfg, params, CharTokenizer(cfg), language="english",
+                         max_new_tokens=max_new_tokens, num_beams=K, device=device,
+                         flash=False, kernels=False)
+    total = ev.total
+    prompt = ev._prompt[None].expand(batch, -1)
+    cache_k = whisper.init_cache(params, enc, cfg, total, self_batch=batch * K)
+    cache_p = whisper.init_cache(params, plain.encode(feats), cfg, total,
+                                 self_batch=batch * K, kernels=False)
+    cache_t = cache_p._replace(**{f: getattr(cache_p, f).clone() for f in (
+        "self_k", "self_v", "self_k_scale", "self_v_scale")})
+    state = beam_lib.init_state(prompt, K, total, cfg.eos_token_id)
+    slots = torch.arange(K, device=device)
+    n = strict = near = best = twin = 0
+    flips_by_rank, max_dlogit = [0] * K, 0.0
+    plain_cross = whisper.cross_decode_reference_exact
+    with torch.no_grad():
+        for pos in range(total - 1):
+            if not bool(state.unsat.any()):
+                break
+            state.anc[:, :, pos] = slots
+            tok = state.run_seqs.reshape(batch * K, total)[:, pos]
+            lk, cache_k = whisper.decode_step(params, tok, pos, cache_k, cfg, beam_width=K,
+                                              ancestry=state.anc)
+            lp, cache_p = whisper.decode_step(params, tok, pos, cache_p, cfg, beam_width=K,
+                                              ancestry=state.anc, kernels=False)
+            whisper.cross_decode_reference_exact = _cross_reference_fp64
+            try:
+                lt, cache_t = whisper.decode_step(params, tok, pos, cache_t, cfg, beam_width=K,
+                                                  ancestry=state.anc, kernels=False)
+            finally:
+                whisper.cross_decode_reference_exact = plain_cross
+            if not (torch.isfinite(lk).all() and torch.isfinite(lp).all()):
+                fail(f"beam: non-finite logits at step {pos}")
+            if pos + 1 >= P:
+                tk, tp = lk.argmax(-1), lp.argmax(-1)
+                same = tk == tp
+                gap_k = lk.gather(1, tk[:, None]) - lk.gather(1, tp[:, None])
+                gap_p = lp.gather(1, tp[:, None]) - lp.gather(1, tk[:, None])
+                tie = (gap_k[:, 0] <= LOGIT_TIE_TOL) & (gap_p[:, 0] <= LOGIT_TIE_TOL)
+                n += batch * K
+                strict += int(same.sum())
+                near += int((same | tie).sum())
+                best += int(same.reshape(batch, K)[:, 0].sum())
+                twin += int((lt.argmax(-1) == tp).sum())
+                for r in torch.nonzero(~same).flatten().tolist():
+                    flips_by_rank[r % K] += 1
+                max_dlogit = max(max_dlogit, (lk - lp).abs().max().item())
+            state = beam_lib.beam_select(state, lk, pos, P, eos=cfg.eos_token_id)
+    replayed = torch.equal(state.fin_seqs[:, 0], tok_k)
+    tok_p = plain.tokens(feats)
+    free = (tok_k[:, P:] == tok_p[:, P:]).float().mean().item()
+    n = max(n, 1)
+    lock_best, lock_near = best / (n // K), near / n
+    print(f"beam vs plain path (batch 0, K={K}): lockstep argmax agreement {strict / n:.4f} "
+          f"({strict}/{n} row-steps; flips by beam rank {flips_by_rank}) against a noise "
+          f"floor of {twin / n:.4f} (plain vs its fp64-sum twin) | best beam's rows "
+          f"{lock_best:.4f} ({best}/{n // K}) and up to near ties (gap <= {LOGIT_TIE_TOL}) "
+          f"{lock_near:.4f}, each need >= {LOCKSTEP_MIN_AGREEMENT} | max |dlogit| "
+          f"{max_dlogit:.4e} | free-running token agreement {free:.4f} | the lockstep "
+          f"search {'reproduced' if replayed else 'did NOT reproduce'} the kernel path's tokens")
+    if lock_best < LOCKSTEP_MIN_AGREEMENT or lock_near < LOCKSTEP_MIN_AGREEMENT:
+        fail("the beam kernel path disagrees with the beam plain path")
+    if profile:
+        holder = {"state": beam_lib.init_state(prompt, K, total, cfg.eos_token_id)}
+
+        def beam_step(_tokens, pos, cache):
+            st = holder["state"]
+            st.anc[:, :, pos] = slots
+            logits, cache = whisper.decode_step(
+                params, st.run_seqs.reshape(batch * K, total)[:, pos], pos, cache, cfg,
+                beam_width=K, ancestry=st.anc)
+            holder["state"] = beam_lib.beam_select(st, logits, pos, P, eos=cfg.eos_token_id)
+            return logits, cache
+
+        cache_b = whisper.init_cache(params, enc, cfg, total, self_batch=batch * K)
+        for pos in range(P):                           # the prompt, unprofiled
+            _, cache_b = beam_step(None, pos, cache_b)
+        profile_steps("beam", beam_step, cache_b, tok_k, P)
+    return counts
+
+
+def _cross_reference_fp64(q, kq, ks, vq, vs, *, layer, n_heads, out_dtype=None):
+    """The plain beam-folded cross-attention with its sums in fp64 and the
+    same rounding points (pw and the output in q's dtype): the lockstep's
+    noise-floor twin."""
+    import torch
+    kq, ks, vq, vs = kq[layer], ks[layer], vq[layer], vs[layer]
+    B, K, D = q.shape
+    H, S = n_heads, kq.shape[1]
+    hd = D // H
+    st = torch.einsum("bkhd,bshd->bkhs", q.reshape(B, K, H, hd).double(),
+                      kq.reshape(B, S, H, hd).double()) * ks[:, None].double()
+    p = torch.softmax(torch.where(ks[:, None] > 0, st, -1e30), dim=-1)
+    pw = (p * vs[:, None].double()).float().to(q.dtype).double()
+    o = torch.einsum("bkhs,bshd->bkhd", pw, vq.reshape(B, S, H, hd).double())
+    return o.reshape(B, K, D).float().to(out_dtype or q.dtype)
+
+
 def profile_steps(name, step, cache, tokens, first_pos):
     """PROFILE_STEPS decode steps from `first_pos` (after PROFILE_STEPS
     untimed ones) under torch.profiler: wall and device ms per step,
@@ -666,7 +912,9 @@ def main() -> int:
     by_path = {"greedy": phase_e2e(cfg, params, n_params, device, BATCH, N_BATCHES,
                                    MAX_NEW_TOKENS),
                "routed": phase_routed(cfg, params, device, BATCH, MAX_NEW_TOKENS,
-                                      profile="--profile" in sys.argv[1:])}
+                                      profile="--profile" in sys.argv[1:]),
+               "beam": phase_beam(cfg, params, device, BATCH, MAX_NEW_TOKENS,
+                                  profile="--profile" in sys.argv[1:])}
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}
         r["launches"] = sum(r["launches_by_path"].values())

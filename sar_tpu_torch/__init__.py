@@ -13,8 +13,13 @@ banks (models/lora.py, the PEFT import in models/convert.py), the LID
 classifier (models/classifier.py), the AdapterRouter (models/router.py)
 and the micro-batching TranscriptionService (serving/service.py), whose
 cache build adds each utterance's cross_v LoRA term in the fused kernel's
-LoRA variant. Entry points run on the CUDA card unless given
-device="cpu" (device.py). The kernels are hand-written CUDA C++ for sm_90a
+LoRA variant — and beam search with the evaluation workload: beam_decode
+(decode/beam.py; the K beam queries of a sample share one read of its
+cross slab in the beam-folded decode kernel), ASREvaluator.evaluate with
+corpus WER/CER (training/metrics.py), the synthetic data pipeline
+(data/) and the evaluate CLI (scripts/evaluate_model.py). Entry points
+run on the CUDA card unless given device="cpu" (device.py). The kernels
+are hand-written CUDA C++ for sm_90a
 (`csrc/`), built at first use by `ops/_build.py`; every kernel has a plain
 PyTorch version beside it that CPU tensors take.
 """

@@ -16,8 +16,12 @@ Slice covered: `encode(flash="hm"|False)`, the int8 head-minor
 `init_cache` and `decode_step`, each with optional LoRA from an adapter
 bank (models/lora.py): one adapter for the whole batch, or one per
 utterance (`adapter_idx`, masked-dense routing, `lora_delta`). The cross_v
-LoRA term of the cache build rides kernel K4 (ops/kv_init.py). Beams, int4
-and LoRA dropout (training) raise NotImplementedError or are absent.
+LoRA term of the cache build rides kernel K4 (ops/kv_init.py). Beam search
+keeps one cross slab per sample and B*K self-cache rows (`self_batch`);
+`decode_step(beam_width=K, ancestry=...)` folds the K beam queries of a
+sample into one cross-attention call (kernel K5) and reads the never-moved
+self cache through the ancestry matrix (`_self_attention_beam`). int4 and
+LoRA dropout (training) raise NotImplementedError or are absent.
 """
 
 from __future__ import annotations
@@ -376,9 +380,14 @@ def init_cache(params: Params, enc_out: torch.Tensor, cfg: WhisperConfig,
                adapter_idx=None, lora_scale: float = 1.0,
                cross_kv_int8: bool = True,
                self_kv_int8: bool = True, head_minor: bool = True,
+               self_batch: int | None = None,
                kernels: bool = True) -> DecodeCache:
     """Project + quantize the cross K/V once per batch (fused_kv_init) and
     allocate the zeroed int8 self cache of `max_len` positions.
+
+    `self_batch` (default B) sizes the self cache apart from the cross
+    slabs: beam search keeps ONE cross slab per sample, shared by its K
+    beams, and B*K self-cache rows; `adapter_idx` stays per sample.
 
     A bank that adapts cross_v rides K4: its cross_v slices are gathered
     here once per batch (`a[:, adapter_idx]`, or `a[:, :1]` for one adapter
@@ -418,13 +427,14 @@ def init_cache(params: Params, enc_out: torch.Tensor, cfg: WhisperConfig,
         ck, cks, cv, cvs = fn(enc_pad, lay["cross_k"]["w"], lay["cross_v"]["w"],
                               lay["cross_v"]["b"], n_heads=H, t_valid=S, **kw)
     L = ck.shape[0]
+    SB = B if self_batch is None else self_batch
     dev = enc_out.device
     return DecodeCache(
-        self_k=torch.zeros((L, B, H, max_len, hd), dtype=torch.int8, device=dev),
-        self_v=torch.zeros((L, B, H, max_len, hd), dtype=torch.int8, device=dev),
+        self_k=torch.zeros((L, SB, H, max_len, hd), dtype=torch.int8, device=dev),
+        self_v=torch.zeros((L, SB, H, max_len, hd), dtype=torch.int8, device=dev),
         cross_k=ck, cross_v=cv, cross_k_scale=cks, cross_v_scale=cvs,
-        self_k_scale=torch.zeros((L, B, H, max_len), device=dev),
-        self_v_scale=torch.zeros((L, B, H, max_len), device=dev))
+        self_k_scale=torch.zeros((L, SB, H, max_len), device=dev),
+        self_v_scale=torch.zeros((L, SB, H, max_len), device=dev))
 
 
 def _cross_kv_torch(enc_pad, lay, dec_lora, n_heads, t_valid, ctx):
@@ -462,6 +472,41 @@ def _attention_int8(q, kq, ks, vq, vs, mask=None):
     return torch.matmul(pw.float(), vq.float()).to(dtype)
 
 
+def _self_attention_beam(qh, sk, sv, sks, svs, anc, pos: int,
+                         beam_width: int) -> torch.Tensor:
+    """Reorder-free beam self-attention over a slot-major int8 self cache.
+
+    Slot j's row t was written by the logical beam that held slot j at step
+    t and is never moved; anc [Bs, K, T] names the slot that wrote history
+    row t of CURRENT beam k. Scores are taken against all K slots, the
+    entries that are not (anc-selected and t <= pos) are masked, and the
+    softmax runs over the joint (slot, t) axis: one slot is live per t, so
+    it equals the per-beam softmax on the selected entries. Rounding points
+    as in the JAX package: fp32 scores from the compute-dtype q and the
+    int8 K, probabilities times `svs` cast to the compute dtype, fp32 PV.
+
+    qh [Bs*K, H, 1, hd] beam-major rows; sk/sv [Bs*K, H, T, hd] int8;
+    sks/svs [Bs*K, H, T] fp32 -> [Bs*K, H, 1, hd]."""
+    BK, H, T, hd = sk.shape
+    K = beam_width
+    Bs = BK // K
+    dtype = qh.dtype
+    q = qh[:, :, 0].reshape(Bs, K, H, hd).float()
+    scores = torch.einsum("bkhd,bjhtd->bhkjt", q,
+                          sk.reshape(Bs, K, H, T, hd).float())
+    scores = scores * sks.reshape(Bs, K, H, T).transpose(1, 2)[:, :, None]
+    slots = torch.arange(K, device=anc.device)
+    live = anc[:, None, :, None, :T] == slots[None, None, None, :, None]
+    live = live & (torch.arange(T, device=anc.device) <= pos)
+    scores = torch.where(live, scores, torch.finfo(torch.float32).min)
+    probs = torch.softmax(scores.reshape(Bs, H, K, K * T), dim=-1)
+    probs = probs.reshape(Bs, H, K, K, T)
+    pw = (probs * svs.reshape(Bs, K, H, T).transpose(1, 2)[:, :, None]).to(dtype)
+    out = torch.einsum("bhkjt,bjhtd->bkhd", pw.float(),
+                       sv.reshape(Bs, K, H, T, hd).float()).to(dtype)
+    return out.reshape(BK, H, 1, hd)
+
+
 def logits_weight(dec: Params) -> torch.Tensor:
     """fp32 token embedding for the logits (see cast_params)."""
     emb = dec["token_embed"]
@@ -472,6 +517,7 @@ def decode_step(params: Params, tokens: torch.Tensor, pos: int,
                 cache: DecodeCache, cfg: WhisperConfig, *,
                 lora: Params | None = None, adapter_idx=None,
                 lora_scale: float = 1.0,
+                beam_width: int = 1, ancestry: torch.Tensor | None = None,
                 kernels: bool = True) -> tuple[torch.Tensor, DecodeCache]:
     """One autoregressive step. tokens: [B] int64 at position `pos` (< the
     self cache's max_len). Returns (logits [B, V] fp32, cache), the self
@@ -480,9 +526,24 @@ def decode_step(params: Params, tokens: torch.Tensor, pos: int,
     The cross path goes through the decode kernel (ops/decode_cross.py);
     `kernels=False` runs its plain version on any device. `lora` adapts
     the decoder hooks it holds (self_q/k/v/o, cross_q/o; cross_k/v live in
-    the cache), per row when `adapter_idx` is given."""
+    the cache), per row when `adapter_idx` is given.
+
+    `beam_width` K > 1: rows are beam-major groups of K per sample (row
+    b*K+k = sample b, beam k) over a cache whose cross slabs hold ONE copy
+    per sample; the K queries of a sample are folded into one cross call
+    (q [B/K, K, D], kernel K5), so each slab is read once for its beams.
+    `ancestry` [B/K, K, max_len] (beam mode only) reads the self cache as
+    slot-major (`_self_attention_beam`); its column `pos` must be the
+    identity, since each beam writes its own slot at this step."""
     if cache.cross_k.dim() != 4 or cache.self_k_scale is None:
         raise NotImplementedError("decode_step takes the int8 head-minor cache")
+    if ancestry is not None and beam_width <= 1:
+        raise ValueError("ancestry (reorder-free beam self-attention) needs "
+                         "beam_width > 1")
+    B = tokens.shape[0]
+    if cache.cross_k.shape[1] * beam_width != B:
+        raise ValueError(f"{B} rows do not fold into beams of {beam_width} "
+                         f"over {cache.cross_k.shape[1]} cross slabs")
     dec = params["decoder"]
     H = cfg.decoder_heads
     dtype = dec["token_embed"].dtype
@@ -507,16 +568,25 @@ def decode_step(params: Params, tokens: torch.Tensor, pos: int,
         cache.self_v[l, :, :, pos] = vq[:, :, 0]
         cache.self_k_scale[l, :, :, pos] = ks[:, :, 0]
         cache.self_v_scale[l, :, :, pos] = vs[:, :, 0]
-        a = _attention_int8(split_heads(q, H), cache.self_k[l],
-                            cache.self_k_scale[l], cache.self_v[l],
-                            cache.self_v_scale[l], mask=pos_mask)
+        if ancestry is not None:
+            a = _self_attention_beam(split_heads(q, H), cache.self_k[l],
+                                     cache.self_v[l], cache.self_k_scale[l],
+                                     cache.self_v_scale[l], ancestry, pos,
+                                     beam_width)
+        else:
+            a = _attention_int8(split_heads(q, H), cache.self_k[l],
+                                cache.self_k_scale[l], cache.self_v[l],
+                                cache.self_v_scale[l], mask=pos_mask)
         x = x + _proj(merge_heads(a), p["self_o"], lo.get("self_o"), ctx)
-        # Cross-attention over the head-minor int8 slabs of layer l.
+        # Cross-attention over the head-minor int8 slabs of layer l; beam
+        # queries folded per sample ([B/K, K, D], K5) when beam_width > 1.
         h = layer_norm(x, p["cross_ln"]["scale"], p["cross_ln"]["bias"])
         q = _proj(h, p["cross_q"], lo.get("cross_q"), ctx) * scaling
-        o = cross(q[:, 0], cache.cross_k, cache.cross_k_scale, cache.cross_v,
+        qc = (q[:, 0].reshape(B // beam_width, beam_width, -1) if beam_width > 1
+              else q[:, 0])
+        o = cross(qc, cache.cross_k, cache.cross_k_scale, cache.cross_v,
                   cache.cross_v_scale, layer=l, n_heads=H)
-        x = x + _proj(o[:, None, :], p["cross_o"], lo.get("cross_o"), ctx)
+        x = x + _proj(o.reshape(B, 1, -1), p["cross_o"], lo.get("cross_o"), ctx)
         # MLP.
         h = layer_norm(x, p["mlp_ln"]["scale"], p["mlp_ln"]["bias"])
         h = F.gelu(linear(h, p["fc1"]))

@@ -53,6 +53,10 @@ SIGNATURES = {
     # q, kq, ks, vq, vs, out, L, B, S_pad, D, n_heads, layer, device, stream
     "sar_cross_decode_exact": [_P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _I, _P],
+    # q, kq, ks, vq, vs, out, L, B, K, S_pad, D, n_heads, layer, device,
+    # stream
+    "sar_cross_decode_exact_beam": [_P, _P, _P, _P, _P, _P,
+                                    _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

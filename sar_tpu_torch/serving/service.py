@@ -8,6 +8,9 @@ burst, rides the same two programs:
 
 - greedy: mel -> prep (encoder + int8 cross-KV cache, one optional
   adapter) -> the greedy loop with each row's own language prompt;
+- beam (`num_beams` > 1, no router): mel -> the encoder -> beam search
+  over a cache with one cross slab per utterance (kernel K5 folds each
+  utterance's beams into one cross-attention call), each row's own prompt;
 - routed (an `AdapterRouter` instead of a fixed language): mel -> LID at
   the classifier's tap layer -> the adapted encoder with each row's
   adapter -> the cache build (its cross_v term through kernel K4) -> the
@@ -18,8 +21,9 @@ A batch that fails hands its error to every request in it, and
 `torch.inference_mode()` itself (grad mode is per thread). The greedy
 service runs on the CUDA card unless `device` says otherwise; a routed one
 runs on the router's device, with the router's `flash` and `kernels`.
-Results are text when a tokenizer is given, else token-id lists. Beam
-search is the next slice (num_beams > 1 raises).
+Results are text when a tokenizer is given, else token-id lists. A
+routed service decodes greedily: asking it for beams raises, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -78,10 +82,9 @@ class TranscriptionService:
                  device: torch.device | str | None = None):
         if router is None and (cfg is None or params is None):
             raise ValueError("need cfg+params, or a router")
-        if num_beams > 1:
-            raise NotImplementedError(
-                "sar_tpu_torch TranscriptionService decodes greedily; beam "
-                "search is not yet ported")
+        if router is not None and num_beams > 1:
+            raise ValueError("routed serving decodes greedily "
+                             "(no beam-routed program)")
         if not kv_int8 or kv_int4 or scores_int8:
             raise NotImplementedError(
                 "sar_tpu_torch TranscriptionService decodes over the int8 "
@@ -107,11 +110,12 @@ class TranscriptionService:
             self._prompt_len = router.prompt_len
         else:
             self.cfg = cfg
-            # The greedy program is the evaluator's prep/dec pair; it also
+            # The greedy and beam programs are the evaluator's; it also
             # refuses the options the port has not got (kv_int4, ...).
             self._ev = ASREvaluator(
                 cfg, params, language=language, max_new_tokens=max_new_tokens,
-                lora=lora, lora_scale=lora_scale, kv_int8=kv_int8, flash=flash,
+                num_beams=num_beams, lora=lora, lora_scale=lora_scale,
+                kv_int8=kv_int8, flash=flash,
                 scores_int8=scores_int8, task=task, kv_int4=kv_int4,
                 device=device)
             self.device = self._ev.device
@@ -240,7 +244,7 @@ class TranscriptionService:
              for r in batch]
             + [self.cfg.prompt_ids(self.language, self.task)]
             * (self.batch_size - n), dtype=torch.int64, device=self.device)
-        return self._ev.dec(self._ev.prep(feats), prompts), [None] * n
+        return self._ev.tokens(feats, prompts), [None] * n
 
     def _process(self, batch: list[_Request]) -> None:
         try:

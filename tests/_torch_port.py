@@ -26,14 +26,21 @@ def t(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x))
 
 
-def jax_whisper(cfg, seed: int = 0):
-    """(JAX params, the same weights as port params), fp32, on the CPU."""
+def jax_whisper(cfg, seed: int = 0, w_scale: float = 1.0):
+    """(JAX params, the same weights as port params), fp32, on the CPU.
+    `w_scale` multiplies every weight matrix: at the init's std of 0.02 a
+    tiny random model says nearly the same thing whatever the input, and
+    larger weights make its outputs depend on the input."""
     import jax
 
     from sar_tpu.models import whisper as jw
     from sar_tpu_torch.models.convert import from_jax_params
 
     jp = jw.init_params(jax.random.PRNGKey(seed), cfg)
+    if w_scale != 1.0:
+        jp = jax.tree_util.tree_map_with_path(
+            lambda path, x: (x * w_scale if getattr(path[-1], "key", None) == "w"
+                             and x.ndim >= 2 else x), jp)
     return jp, from_jax_params(to_numpy(jp))
 
 

@@ -42,7 +42,8 @@ def test_build_key_covers_every_source():
     assert _build.source_hash() == _build.source_hash()
     assert set(_build.SIGNATURES) == {"sar_encoder_attention_hm",
                                       "sar_fused_kv_init", "sar_fused_kv_init_lora",
-                                      "sar_cross_decode_exact"}
+                                      "sar_cross_decode_exact",
+                                      "sar_cross_decode_exact_beam"}
     for name in _build.SIGNATURES:
         assert f'extern "C" int {name}(' in "".join(
             p.read_text() for p in _build.sources())

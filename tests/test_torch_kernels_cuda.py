@@ -1,8 +1,10 @@
-"""K1-K4 hand-written CUDA kernels against their plain PyTorch versions on
+"""K1-K5 hand-written CUDA kernels against their plain PyTorch versions on
 the card, in bf16, at small shapes (marked `cuda`: they need an NVIDIA GPU
 with nvcc and skip elsewhere; chip_smoke.py runs the same comparisons at
 whisper-small shapes). Run on the card with
 `python -m pytest tests/test_torch_kernels_cuda.py -m cuda -q`."""
+
+import dataclasses
 
 import pytest
 import torch
@@ -132,6 +134,80 @@ def test_cross_decode_kernel(dev, H):
         want = decode_cross.cross_decode_reference_exact(q, kq, ks, vq, vs, layer=layer, n_heads=H)
         torch.cuda.synchronize()
         assert (got.float() - want.float()).abs().max().item() <= 2e-2
+
+
+def _beam_cache(g, dev, L, B, S, S_pad, H):
+    """A kernel-layout int8 cache with pad rows (scale 0) past S."""
+    from sar_tpu_torch.ops import kv_init
+    D = H * 64
+    x = _randn(g, dev, B, S_pad, D)
+    x[:, S:] = 0
+    w = _randn(g, dev, L, D, D, std=0.05)
+    return kv_init.fused_kv_init_reference(
+        x, w, w, torch.zeros((L, D), dtype=torch.bfloat16, device=dev), n_heads=H, t_valid=S)
+
+
+# K5: beam widths 2, 4 (the smoke run's), 5 (Whisper's usual) and 8 (the
+# largest instance, 48 KB of scores: above the default shared-memory limit),
+# at d_model 128 and whisper-small's 768, S_pad 1536 with 36 pad rows, every
+# layer of a 3-layer cache (offsets > 0).
+@pytest.mark.parametrize("H", [2, 12])
+@pytest.mark.parametrize("K", [2, 4, 5, 8])
+def test_cross_decode_beam_kernel(dev, H, K):
+    from sar_tpu_torch.ops import decode_cross
+    g = torch.Generator(device=dev).manual_seed(4)
+    L, B, S, S_pad = 3, 2, 1500, 1536
+    kq, ks, vq, vs = _beam_cache(g, dev, L, B, S, S_pad, H)
+    q = _randn(g, dev, B, K, H * 64, std=0.125)
+    for layer in range(L):
+        n3, n5 = decode_cross.LAUNCHES, decode_cross.BEAM_LAUNCHES
+        got = decode_cross.cross_decode_attention_exact(q, kq, ks, vq, vs, layer=layer, n_heads=H)
+        want = decode_cross.cross_decode_reference_exact(q, kq, ks, vq, vs, layer=layer, n_heads=H)
+        torch.cuda.synchronize()
+        assert (decode_cross.LAUNCHES, decode_cross.BEAM_LAUNCHES) == (n3, n5 + 1)
+        assert got.shape == (B, K, H * 64) and torch.isfinite(got.float()).all()
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= 2e-2 and err <= 2e-2 * want.float().abs().max().item()
+
+
+def test_cross_decode_beam_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    from sar_tpu_torch.ops import decode_cross
+    L, B, S_pad, H = 1, 2, 128, 2
+    kq = torch.zeros((L, B, S_pad, H * 64), dtype=torch.int8, device=dev)
+    ks = torch.ones((L, B, H, S_pad), device=dev)
+    for K in (1, 9):
+        q = torch.zeros((B, K, H * 64), dtype=torch.bfloat16, device=dev)
+        with pytest.raises(ValueError, match="beam widths"):
+            decode_cross.cross_decode_attention_exact(q, kq, ks, kq, ks, layer=0, n_heads=H)
+    big = torch.zeros((L, B, 7296, H * 64), dtype=torch.int8, device=dev)
+    bigs = torch.ones((L, B, H, 7296), device=dev)
+    q = torch.zeros((B, 8, H * 64), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="shared"):
+        decode_cross.cross_decode_attention_exact(q, big, bigs, big, bigs, layer=0, n_heads=H)
+
+
+def test_beam_decode_kernels_agree_with_the_plain_path(dev):
+    """A short bf16 beam decode at d_model 128 (2 heads of 64): the kernel
+    path (K2 + K5) and the plain path pick the same tokens on most
+    positions (bf16 sums in another order can flip a near tie)."""
+    from sar_tpu_torch.decode import beam_decode
+    from sar_tpu_torch.models import whisper
+    from sar_tpu_torch.models.config import get_config
+    from sar_tpu_torch.ops import decode_cross
+    cfg = dataclasses.replace(get_config("whisper-test"), d_model=128, encoder_heads=2,
+                              decoder_heads=2, ffn_dim=256)
+    params = whisper.cast_params(
+        whisper.init_params(cfg, torch.Generator(device=dev).manual_seed(6), dev), torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(7)
+    enc = torch.randn((3, cfg.max_source_positions, cfg.d_model), generator=g,
+                      device=dev).to(torch.bfloat16)
+    prompt = cfg.prompt_ids("english")
+    n5 = decode_cross.BEAM_LAUNCHES
+    got = beam_decode(params, enc, cfg, prompt, num_beams=4, max_new_tokens=12)
+    assert decode_cross.BEAM_LAUNCHES > n5
+    want = beam_decode(params, enc, cfg, prompt, num_beams=4, max_new_tokens=12, kernels=False)
+    assert got.shape == want.shape and torch.equal(got[:, :len(prompt)], want[:, :len(prompt)])
+    assert (got == want).float().mean().item() >= 0.9
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):

@@ -141,9 +141,7 @@ def test_a_failed_batch_fans_its_error_out(world, monkeypatch):
 
 def test_options_not_yet_ported_raise(world, router):
     tp, _ = world
-    with pytest.raises(NotImplementedError):
-        TranscriptionService(CFG, tp, num_beams=2, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="greedily"):
         TranscriptionService(router=router, num_beams=2)
     with pytest.raises(NotImplementedError):
         TranscriptionService(CFG, tp, kv_int4=True, device="cpu")
