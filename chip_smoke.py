@@ -18,7 +18,12 @@ Phases, each printing its own line(s); any failure raises and exits non-zero:
    CUDA-event times over 20 runs, the least time the card could take
    (bound) and, for K1, one library call computing the same function
    (scaled_dot_product_attention with the key mask; the port never calls
-   it).
+   it). K6 (training's blockwise attention: forward, dQ, dK/dV) at the
+   three whisper-small training shapes (encoder 1500 x 1500, decoder
+   causal 448 x 448, cross 448 x 1500, batch 8), each against its plain
+   version and the output and gradients against autograd of the plain
+   attention, with SDPA forward and forward + backward as the library
+   yardstick.
 4. greedy end to end: random bf16 whisper-small (seeded), two batches of 8
    random 30 s clips through the port's ASREvaluator (mel ->
    encode(flash="hm") -> init_cache -> greedy, 64 new tokens), with the
@@ -41,14 +46,25 @@ Phases, each printing its own line(s); any failure raises and exits non-zero:
    (K1, K2, K5 > 0; K3, K4 = 0); then the first batch through the plain
    path in lockstep (both paths decode from one beam state, which the
    kernel path's selection advances) and free running.
-7. result: one JSON line with every kernel's numbers, then the last line
+7. train end to end: ASRTrainer.train on random bf16 whisper-small with a
+   fresh single-adapter bank (r=16, alpha=32, dropout 0.1, q_proj/v_proj),
+   synthetic items of 3000 frames, microbatches of 8 with labels padded to
+   448, 2-step accumulation, 3 optimizer steps after 1 warmup step, eval at
+   steps 0 and 3 over 8 items (32 new tokens), with the launch counters
+   zeroed before and read after (K6 forward, dQ and dK/dV at the counts the
+   design predicts; K1-K5 = 0); then ms per step, examples/s and a fenced
+   step's forward / backward / optimizer split; then one microbatch with a
+   nonzero-B bank and dropout 0 through the kernel path, the plain path
+   (flash_attention="off") and the plain path in fp32, comparing the loss
+   and every LoRA gradient.
+8. result: one JSON line with every kernel's numbers, then the last line
    {"ok": true, "device": {...}}.
 
 With --profile, the routed and beam phases also run PROFILE_STEPS
 steady-state decode steps of the greedy, routed and beam paths under
-torch.profiler (after the counted runs) and print, for each, the wall and
-device time per step, the device busy share and the kernels that take the
-most time.
+torch.profiler (after the counted runs), and the train phase one optimizer
+step, and print, for each, the wall and device time per step, the device
+busy share and the kernels that take the most time.
 """
 
 from __future__ import annotations
@@ -100,6 +116,35 @@ LOGIT_TIE_TOL = 2e-2
 BEAM_WIDTH = 4
 BEAM_KERNEL_WIDTHS = (4, 5)
 BEAM_ITEMS = 16
+# Train cell: the CLI's label length (the decoder's T), microbatches of
+# BATCH, TRAIN_ACCUM of them per step, TRAIN_STEPS steps after one warmup
+# step, eval over TRAIN_EVAL_ITEMS items at steps 0 and TRAIN_STEPS.
+TRAIN_LABEL_LEN = 448
+TRAIN_ACCUM, TRAIN_STEPS = 2, 3
+TRAIN_EVAL_ITEMS, TRAIN_EVAL_TOKENS = 8, 32
+# K6 against its plain version on the same bf16 inputs, max |kernel - plain|
+# over max |plain| (one bf16 ulp of the largest entry is 3.9e-3 to 7.8e-3):
+# - the forward kernel: it rounds the unnormalised p to bf16 (as the JAX
+#   kernel does), the plain version the normalised p; read 4.0e-3 to 5.1e-3
+#   at the three shapes;
+# - the dQ and dK/dV kernels, given the same lse and di: both sum the same
+#   bf16 products in fp32 in the same order; read 0 (bit for bit) in every
+#   run, so any wrong term (a dropped di, a missed tile) fails;
+# - the kernel path (custom op + autograd) against autograd of the plain
+#   attention: the gradients go through another formulation of the softmax
+#   backward; read 1.3e-3 to 7.5e-3.
+K6_FWD_REL_TOL = 1e-2
+K6_BWD_REL_TOL = 1e-3
+K6_PATH_GRAD_REL_TOL = 1.5e-2
+# One microbatch, kernel path vs plain path (bf16; random whisper-small, 24
+# layers of bf16 rounding in both): relative error of the loss, and per
+# LoRA leaf the cosine of the two gradients and their relative norm
+# difference. The kernel path read 8.2e-5, cosine 0.999957 and 1.3e-3; the
+# bf16 plain path against its fp32 twin, 1.5e-6, 0.999933 and 1.7e-3 (printed
+# each run as the noise floor). The limits sit about 10x above both.
+TRAIN_LOSS_REL_TOL = 1e-3
+TRAIN_GRAD_MIN_COS = 0.999
+TRAIN_GRAD_NORM_REL_TOL = 1e-2
 
 
 def fail(msg: str) -> None:
@@ -354,6 +399,274 @@ def phase_kernels(cfg, device, batch):
     return rows
 
 
+# K6 at the three attentions of a whisper-small training step: (label, Tq,
+# Tk, causal). The decoder's T is the CLI's label length.
+K6_SHAPES = (("encoder", 1500, 1500, False), ("decoder self", TRAIN_LABEL_LEN,
+                                               TRAIN_LABEL_LEN, True),
+             ("cross", TRAIN_LABEL_LEN, 1500, False))
+K6_REPLACES = "sar_tpu/ops/flash.py:52 flash_mha -> jax pallas/ops/tpu/flash_attention.py:"
+
+
+def phase_k6(cfg, device, batch):
+    """K6's three kernels at each training shape: the kernel path (custom op
+    + autograd) against autograd of the plain attention, each kernel against
+    its own plain version, times, bounds and SDPA's. Returns the three
+    kernel rows, each headed by the encoder shape, with every shape under
+    "shapes"."""
+    import torch
+    import torch.nn.functional as F
+    from sar_tpu_torch.ops import flash
+
+    g = torch.Generator(device=device).manual_seed(SEED + 3)
+    H, hd = cfg.encoder_heads, cfg.d_model // cfg.encoder_heads
+    per = {n: {} for n in K6_NAMES}
+    for label, Tq, Tk, causal in K6_SHAPES:
+        def heads(T, std):
+            x = torch.randn((batch, T, H * hd), generator=g, device=device) * std
+            return x.to(torch.bfloat16).view(batch, T, H, hd).transpose(1, 2)
+        q, k, v, do = heads(Tq, hd ** -0.5), heads(Tk, 1.0), heads(Tk, 1.0), heads(Tq, 1.0)
+
+        def with_grads(fn):
+            xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+            o = fn(*xs, causal=causal)
+            return (o, *torch.autograd.grad(o, xs, do))
+        got, want = with_grads(flash.flash_mha), with_grads(flash.flash_mha_reference)
+        torch.cuda.synchronize()
+        path_err = {n: _attn_errors(a, b) for n, a, b in zip(("o", "dq", "dk", "dv"), got, want)}
+        del got, want
+        # Each kernel on its own against its plain version, same inputs.
+        o_k, lse = flash.flash_attention_fwd(q, k, v, causal=causal)
+        di = (o_k.float() * do.float()).sum(-1).contiguous()
+        args = (q, k, v, do, lse, di)
+        fns = {"flash_attention_fwd": (lambda: flash.flash_attention_fwd(q, k, v, causal=causal),
+                                       lambda: flash.flash_attention_fwd_reference(q, k, v, causal=causal)),
+               "flash_attention_bwd_dq": (lambda: flash.flash_attention_bwd_dq(*args, causal=causal),
+                                          lambda: flash.flash_attention_bwd_dq_reference(*args, causal=causal)),
+               "flash_attention_bwd_dkv": (lambda: flash.flash_attention_bwd_dkv(*args, causal=causal),
+                                           lambda: flash.flash_attention_bwd_dkv_reference(*args, causal=causal))}
+        sdpa = lambda x, y, z: F.scaled_dot_product_attention(x, y, z, is_causal=causal, scale=1.0)
+
+        def sdpa_fwd_bwd():
+            xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+            return torch.autograd.grad(sdpa(*xs), xs, do)
+        lib = {"fwd": time_cuda(lambda: sdpa(q, k, v)), "fwd+bwd": time_cuda(sdpa_fwd_bwd)}
+        f = batch * H * Tq * Tk * hd * (0.5 if causal else 1.0)
+        qb, kb, rb = 2 * batch * H * Tq * hd, 2 * batch * H * Tk * hd, 4 * batch * H * Tq
+        bounds = {"flash_attention_fwd": bound(4 * f, 2 * qb + 2 * kb + rb),
+                  "flash_attention_bwd_dq": bound(6 * f, 3 * qb + 2 * kb + 2 * rb),
+                  "flash_attention_bwd_dkv": bound(8 * f, 2 * qb + 4 * kb + 2 * rb)}
+        bwd_bound = bound(10 * f, 3 * qb + 4 * kb + 2 * rb)
+        line = []
+        for name, (kern, plain) in fns.items():
+            a, b = kern(), plain()
+            a = a if isinstance(a, tuple) else (a,)
+            b = b if isinstance(b, tuple) else (b,)
+            err = max(_attn_errors(x, y)[1] for x, y in zip(a, b))
+            abs_err = max(_attn_errors(x, y)[0] for x, y in zip(a, b))
+            tol = K6_FWD_REL_TOL if name == "flash_attention_fwd" else K6_BWD_REL_TOL
+            if err > tol:
+                fail(f"K6 {name} ({label}) disagrees with its plain version: rel {err:.3e} "
+                     f"(tol {tol})")
+            del a, b
+            ms, plain_ms = time_cuda(kern), time_cuda(plain)
+            b_ms, b_by = bounds[name]
+            per[name][label] = dict(max_abs_err=abs_err, max_rel_err=err, ms=ms, plain_ms=plain_ms,
+                                    bound_ms=b_ms, bound_by=b_by,
+                                    library_ms=lib["fwd" if name == "flash_attention_fwd"
+                                                   else "fwd+bwd"])
+            line.append(f"{name[16:]} {ms:.3f} ms (plain {plain_ms:.3f}, bound {b_ms:.4f} "
+                        f"{b_by}, rel err {err:.2e}, tol {tol})")
+        path_tol = {n: K6_FWD_REL_TOL if n == "o" else K6_PATH_GRAD_REL_TOL for n in path_err}
+        print(f"K6 {label} [B={batch}, H={H}, Tq={Tq}, Tk={Tk}, causal={causal}] bf16: "
+              + " | ".join(line) + f" | whole backward bound (10 B.H.Tq.Tk.hd FLOPs) "
+              f"{bwd_bound[0]:.4f} ms"
+              f" | SDPA fwd {lib['fwd']:.3f} ms, fwd+bwd {lib['fwd+bwd']:.3f} ms | kernel path vs "
+              "plain autograd rel err " + ", ".join(f"{n} {e[1]:.2e} (tol {path_tol[n]})"
+                                                    for n, e in path_err.items()))
+        if any(e[1] > path_tol[n] for n, e in path_err.items()):
+            fail(f"K6 ({label}): the kernel path's output or gradients disagree with the plain "
+                 f"version's")
+        del q, k, v, do, o_k, lse, di
+    lines = {"flash_attention_fwd": "758 (forward, kernel :342)",
+             "flash_attention_bwd_dq": "1456 (backward dQ, kernel :1146)",
+             "flash_attention_bwd_dkv": "1121 (backward dK/dV, kernel :796)"}
+    return [dict(name=n, route="cuda", source="sar_tpu_torch/csrc/flash_attn.cu",
+                 replaces=K6_REPLACES + lines[n], **per[n]["encoder"], shapes=per[n])
+            for n in K6_NAMES]
+
+
+def phase_train(cfg, params, device, batch, profile=False):
+    """LoRA training at full width through ASRTrainer.train, the K6 counts
+    against the design's, the step's phase split, and one microbatch's loss
+    and LoRA gradients, kernel path against plain path. Returns the launch
+    counts of the train run."""
+    import numpy as np
+    import torch
+    from sar_tpu_torch.data import CharTokenizer, DataLoader, SyntheticASRDataset, create_collator
+    from sar_tpu_torch.models import lora as lora_lib
+    from sar_tpu_torch.training import ASRTrainer, Callback, TrainingArgs
+    from sar_tpu_torch.models.whisper import tree_leaves as leaves
+    from sar_tpu_torch.models.whisper import tree_map
+    from sar_tpu_torch.training.optim import apply_updates
+
+    class Recorder(Callback):
+        def __init__(self):
+            self.logs = []
+
+        def on_step_end(self, trainer, step, logs):
+            self.logs.append(logs)
+
+    t0 = time.perf_counter()
+    coll = create_collator(cfg.sot_token_id, pad_to_length=TRAIN_LABEL_LEN,
+                           num_mels=cfg.num_mel_bins, num_frames=cfg.num_audio_frames,
+                           device=device)
+    train_loader = DataLoader(SyntheticASRDataset(cfg, size=2 * batch, language="english",
+                                                  seed=SEED), batch, coll, seed=SEED)
+    eval_loader = DataLoader(SyntheticASRDataset(cfg, size=TRAIN_EVAL_ITEMS, language="english",
+                                                 seed=SEED + 1), batch, coll, shuffle=False,
+                             drop_last=False)
+    lcfg = lora_lib.LoraConfig(r=LORA_RANK, alpha=LORA_ALPHA, dropout=0.1,
+                               target_modules=("q_proj", "v_proj"))
+    g = torch.Generator(device=device).manual_seed(SEED + 4)
+    bank = lora_lib.init_lora(g, cfg, lcfg)
+    targs = dict(learning_rate=5e-4, warmup_steps=1, max_steps=TRAIN_STEPS,
+                 eval_steps=TRAIN_STEPS, gradient_accumulation_steps=TRAIN_ACCUM,
+                 max_new_tokens=TRAIN_EVAL_TOKENS, seed=SEED, device=str(device))
+    rec = Recorder()
+    tr = ASRTrainer(cfg, params, bank, lcfg, TrainingArgs(**targs), tokenizer=CharTokenizer(cfg),
+                    language="english", callbacks=[rec])
+    if not tr.flash or tr.compute_dtype != torch.bfloat16:
+        fail(f"the trainer did not pick K6 in bf16 (flash={tr.flash}, {tr.compute_dtype})")
+    n_train = sum(x.numel() for x in leaves(tr.lora))
+    torch.cuda.synchronize()
+    print(f"train setup: {cfg.name} bf16 base + LoRA r={LORA_RANK} q_proj/v_proj "
+          f"({n_train / 1e6:.2f} M trainable, fp32 masters), microbatch {batch} x "
+          f"{TRAIN_ACCUM}, labels {TRAIN_LABEL_LEN}, {TRAIN_STEPS} steps, "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    hist = tr.train(train_loader, eval_loader)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = hist["loss"]
+    gnorms = [lg["grad_norm"] for lg in rec.logs]
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses + gnorms)):
+        fail(f"train: losses {losses}, grad norms {gnorms}")
+    if any(not bool(b.abs().max() > 0) for b in
+           (e["b"] for side in tr.lora.values() for e in side.values())):
+        fail("train: a LoRA B stayed 0")
+    evals = hist["eval"]
+    if [e["step"] for e in evals] != [0, TRAIN_STEPS] or not all(
+            np.isfinite(e["eval_loss"]) and e["num_samples"] == TRAIN_EVAL_ITEMS
+            for e in evals):
+        fail(f"train: bad evaluations {evals}")
+    n_attn = cfg.encoder_layers + 2 * cfg.decoder_layers
+    n_eval_batches = -(-TRAIN_EVAL_ITEMS // batch)
+    want_bwd = TRAIN_STEPS * TRAIN_ACCUM * n_attn
+    want_fwd = want_bwd + len(evals) * n_eval_batches * cfg.encoder_layers
+    step_s = hist["step_seconds"]
+    ms_step = 1e3 * statistics.median(step_s[1:])
+    fmt = lambda xs, f: ", ".join(format(x, f) for x in xs)
+    print(f"train: {TRAIN_STEPS} steps in {wall:.2f} s with {len(evals)} evaluations | step "
+          f"wall {fmt([x * 1e3 for x in step_s], '.1f')} ms -> {ms_step:.1f} ms per optimizer "
+          f"step (median after the first) = {batch * TRAIN_ACCUM * 1e3 / ms_step:.2f} "
+          f"examples/s | losses {fmt(losses, '.4f')} | grad norms {fmt(gnorms, '.4e')} | "
+          f"eval_loss {fmt([e['eval_loss'] for e in evals], '.4f')}, WER "
+          f"{fmt([e['wer'] for e in evals], '.3f')} | peak memory {peak_gb:.1f} GB | "
+          f"launches {json.dumps(counts)}")
+    check_counts("train", counts, want_zero=KERNEL_NAMES[:5])
+    got = (counts["flash_attention_fwd"], counts["flash_attention_bwd_dq"],
+           counts["flash_attention_bwd_dkv"])
+    if got != (want_fwd, want_bwd, want_bwd):
+        fail(f"train: K6 launches {got}, the design predicts ({want_fwd}, {want_bwd}, "
+             f"{want_bwd}): one forward per attention (the checkpoint saves its output), one "
+             f"dQ and one dK/dV per attention, and the evaluation encoder's forwards")
+
+    # One more step with its phases fenced (not counted).
+    micro = [b for _, b in zip(range(TRAIN_ACCUM), train_loader.one_epoch())]
+    split = {"forward": 0.0, "backward": 0.0, "optimizer": 0.0}
+
+    def fence():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+    g_sum = None
+    for i, b in enumerate(micro):
+        t = fence()
+        loss = tr.microbatch_loss(b, i)
+        t1 = fence()
+        grads = torch.autograd.grad(loss, leaves(tr.lora))
+        t2 = fence()
+        split["forward"] += t1 - t
+        split["backward"] += t2 - t1
+        g_sum = grads if g_sum is None else [x + y for x, y in zip(g_sum, grads)]
+    it = iter(g_sum)
+    avg = tree_map(lambda _: next(it) / TRAIN_ACCUM, tr.lora)
+    t = fence()
+    updates, tr.opt_state = tr.tx.update(avg, tr.opt_state, tr.lora)
+    apply_updates(tr.lora, updates)
+    split["optimizer"] = fence() - t
+    total = sum(split.values())
+    print("train step split (fenced): " + ", ".join(
+        f"{k} {v * 1e3:.1f} ms ({v / total:.0%})" for k, v in split.items())
+        + f" = {total * 1e3:.1f} ms")
+    if profile:
+        from torch.profiler import ProfilerActivity
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            tr.train_step(micro)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+        print_profile("train step", prof, wall_ms, 1, top_k=8)
+    del tr, micro, avg, updates
+
+    # Kernel path vs plain path (and the plain path in fp32) on one
+    # microbatch, a bank with B != 0 and no dropout.
+    bank = tree_map(lambda x: x, bank)
+    for side in bank.values():
+        for e in side.values():
+            e["b"] = torch.randn(e["b"].shape, generator=g, device=device) * LORA_B_STD
+    lcfg0 = lora_lib.LoraConfig(r=LORA_RANK, alpha=LORA_ALPHA, dropout=0.0,
+                                target_modules=lcfg.target_modules)
+    batch0 = next(iter(train_loader.one_epoch()))
+    params32 = tree_map(lambda x: x.float(), params)
+    res = {}
+    for name, base, kw in (("kernel", params, dict(flash_attention="on")),
+                           ("plain", params, dict(flash_attention="off")),
+                           ("plain fp32", params32, dict(flash_attention="off",
+                                                         mixed_precision="no"))):
+        t = ASRTrainer(cfg, base, bank, lcfg0, TrainingArgs(**targs, **kw))
+        loss, grads = t.lora_grads(batch0, None)
+        res[name] = (float(loss), [x.float() for x in leaves(grads)])
+        del t
+    del params32
+
+    def compare(a, b):
+        la, ga = res[a]
+        lb, gb = res[b]
+        cos = [float(torch.nn.functional.cosine_similarity(x.flatten(), y.flatten(), dim=0))
+               for x, y in zip(ga, gb)]
+        dn = [abs(float(x.norm() - y.norm())) / float(y.norm()) for x, y in zip(ga, gb)]
+        return abs(la - lb) / abs(lb), min(cos), max(dn)
+    kp, k32, p32 = compare("kernel", "plain"), compare("kernel", "plain fp32"), \
+        compare("plain", "plain fp32")
+    print(f"train kernel vs plain path (one microbatch of {batch}, B ~ N(0, {LORA_B_STD}), "
+          f"dropout 0): loss {res['kernel'][0]:.6f} vs {res['plain'][0]:.6f}, rel err "
+          f"{kp[0]:.3e} (tol {TRAIN_LOSS_REL_TOL}) | {len(res['kernel'][1])} LoRA leaves: min "
+          f"cosine {kp[1]:.6f} (need >= {TRAIN_GRAD_MIN_COS}), max rel norm diff {kp[2]:.3e} "
+          f"(tol {TRAIN_GRAD_NORM_REL_TOL}) | against the fp32 plain path: kernel rel "
+          f"{k32[0]:.3e} cos {k32[1]:.6f} norm {k32[2]:.3e}; bf16 plain rel {p32[0]:.3e} cos "
+          f"{p32[1]:.6f} norm {p32[2]:.3e}")
+    if kp[0] > TRAIN_LOSS_REL_TOL or kp[1] < TRAIN_GRAD_MIN_COS or kp[2] > TRAIN_GRAD_NORM_REL_TOL:
+        fail("the train kernel path disagrees with the plain path")
+    return counts
+
+
 def _kv_errors(name, got, want, t_valid):
     """K2's rules for the (kq, ks, vq, vs) of K2 or K4 against the plain
     version: int8 |d| <= 1 on <= KV_FLIP_FRAC_TOL of entries, scales within
@@ -390,21 +703,25 @@ def decode_steps(tokens, cfg, prompt_len: int) -> int:
     return min(int(first.max()), total - 1)
 
 
+K6_NAMES = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 KERNEL_NAMES = ("encoder_attention_hm", "fused_kv_init", "fused_kv_init_lora",
-                "cross_decode_attention_exact", "cross_decode_attention_exact_beam")
+                "cross_decode_attention_exact", "cross_decode_attention_exact_beam",
+                *K6_NAMES)
 
 
 def reset_counts():
-    from sar_tpu_torch.ops import decode_cross, flash_enc, kv_init
+    from sar_tpu_torch.ops import decode_cross, flash, flash_enc, kv_init
     flash_enc.LAUNCHES = kv_init.LAUNCHES = kv_init.LORA_LAUNCHES = 0
     decode_cross.LAUNCHES = decode_cross.BEAM_LAUNCHES = 0
+    flash.LAUNCHES = flash.DQ_LAUNCHES = flash.DKV_LAUNCHES = 0
 
 
 def read_counts() -> dict:
-    from sar_tpu_torch.ops import decode_cross, flash_enc, kv_init
+    from sar_tpu_torch.ops import decode_cross, flash, flash_enc, kv_init
     return dict(zip(KERNEL_NAMES, (flash_enc.LAUNCHES, kv_init.LAUNCHES,
                                    kv_init.LORA_LAUNCHES, decode_cross.LAUNCHES,
-                                   decode_cross.BEAM_LAUNCHES)))
+                                   decode_cross.BEAM_LAUNCHES, flash.LAUNCHES,
+                                   flash.DQ_LAUNCHES, flash.DKV_LAUNCHES)))
 
 
 def check_counts(path: str, counts: dict, want_zero: tuple) -> None:
@@ -485,7 +802,7 @@ def phase_e2e(cfg, params, n_params, device, batch, n_batches, max_new_tokens,
     print(f"e2e: {audio_s} audio-s in {wall:.3f} s -> RTFx {audio_s / wall:.1f} | "
           f"{ms_tok:.3f} ms/token-step (batch {batch}) | launches {json.dumps(counts)}")
     check_counts("greedy", counts, want_zero=("fused_kv_init_lora",
-                                              "cross_decode_attention_exact_beam"))
+                                              "cross_decode_attention_exact_beam", *K6_NAMES))
 
     # Lockstep: both paths fed the kernel path's tokens, argmax compared at
     # every generated position; then the plain path free-running.
@@ -623,7 +940,7 @@ def phase_routed(cfg, params, device, batch, max_new_tokens, profile=False):
           f"ms/token-step at batch {batch}")
     print(f"routed launches {json.dumps(counts)}")
     check_counts("routed", counts, want_zero=("fused_kv_init",
-                                              "cross_decode_attention_exact_beam"))
+                                              "cross_decode_attention_exact_beam", *K6_NAMES))
 
     # LID overhead: tap (the first LID_LAYER + 1 encoder layers) + head.
     def lid():
@@ -737,7 +1054,7 @@ def phase_beam(cfg, params, device, batch, max_new_tokens, profile=False):
           f"{audio_s:.0f} audio-s in {wall:.3f} s -> RTFx {audio_s / wall:.1f} | "
           f"{steps[0]} decode steps | launches {json.dumps(counts)}")
     check_counts("beam", counts, want_zero=("fused_kv_init_lora",
-                                            "cross_decode_attention_exact"))
+                                            "cross_decode_attention_exact", *K6_NAMES))
     if counts["cross_decode_attention_exact_beam"] != steps[0] * cfg.decoder_layers:
         fail("K5 was not launched once per layer of every beam decode step")
 
@@ -872,7 +1189,6 @@ def profile_steps(name, step, cache, tokens, first_pos):
     untimed ones) under torch.profiler: wall and device ms per step,
     device busy share, top kernels by device time."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     pos = first_pos
     with torch.no_grad():
@@ -888,16 +1204,24 @@ def profile_steps(name, step, cache, tokens, first_pos):
                 pos += 1
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
+    print_profile(f"{name} decode", prof, wall_ms, PROFILE_STEPS)
+
+
+def print_profile(label, prof, wall_ms, n_steps, top_k=5):
+    """Wall and device ms per step, the device busy share, device ops per
+    step and the kernels that take the most device time, of a profiled
+    window of `n_steps` steps."""
+    from torch.autograd import DeviceType
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     dev_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     by_name: dict = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    print(f"profile {name} decode, {PROFILE_STEPS} steps (profiled): wall "
-          f"{wall_ms / PROFILE_STEPS:.3f} ms/step, device {dev_ms / PROFILE_STEPS:.3f} "
-          f"ms/step, busy {dev_ms / wall_ms:.1%}, {len(kernels) // PROFILE_STEPS} device "
-          f"ops/step | top: " + "; ".join(f"{n[:60]} {t / PROFILE_STEPS:.3f} ms/step"
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:top_k]
+    print(f"profile {label}, {n_steps} steps (profiled): wall "
+          f"{wall_ms / n_steps:.3f} ms/step, device {dev_ms / n_steps:.3f} "
+          f"ms/step, busy {dev_ms / wall_ms:.1%}, {len(kernels) // n_steps} device "
+          f"ops/step | top: " + "; ".join(f"{n[:60]} {t / n_steps:.3f} ms/step"
                                           for n, t in top))
 
 
@@ -907,21 +1231,24 @@ def main() -> int:
     from sar_tpu_torch.models.config import get_config
     phase_build()
     cfg = get_config(MODEL)
-    rows = phase_kernels(cfg, device, BATCH)
+    rows = phase_kernels(cfg, device, BATCH) + phase_k6(cfg, device, BATCH)
     params, n_params = make_model(cfg, device)
     by_path = {"greedy": phase_e2e(cfg, params, n_params, device, BATCH, N_BATCHES,
                                    MAX_NEW_TOKENS),
                "routed": phase_routed(cfg, params, device, BATCH, MAX_NEW_TOKENS,
                                       profile="--profile" in sys.argv[1:]),
                "beam": phase_beam(cfg, params, device, BATCH, MAX_NEW_TOKENS,
-                                  profile="--profile" in sys.argv[1:])}
+                                  profile="--profile" in sys.argv[1:]),
+               "train": phase_train(cfg, params, device, BATCH,
+                                    profile="--profile" in sys.argv[1:])}
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}
         r["launches"] = sum(r["launches_by_path"].values())
     print(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces", "launches",
                            "launches_by_path", "max_abs_err", "ms", "plain_ms",
-                           "bound_ms", "bound_by", "library_ms")} for r in rows]}))
+                           "bound_ms", "bound_by", "library_ms", "shapes") if k in r}
+        for r in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -17,11 +17,16 @@ LoRA variant — and beam search with the evaluation workload: beam_decode
 (decode/beam.py; the K beam queries of a sample share one read of its
 cross slab in the beam-folded decode kernel), ASREvaluator.evaluate with
 corpus WER/CER (training/metrics.py), the synthetic data pipeline
-(data/) and the evaluate CLI (scripts/evaluate_model.py). Entry points
-run on the CUDA card unless given device="cpu" (device.py). The kernels
-are hand-written CUDA C++ for sm_90a
-(`csrc/`), built at first use by `ops/_build.py`; every kernel has a plain
-PyTorch version beside it that CPU tensors take.
+(data/) and the evaluate CLI (scripts/evaluate_model.py) — and LoRA
+training: the teacher-forced forward with checkpointed layers and LoRA
+dropout (models/whisper.py), every attention of a step through the
+blockwise flash-attention kernels, forward and backward (ops/flash.py),
+ASRTrainer with the optax-equivalent clipped AdamW, checkpoints and
+callbacks (training/), WhisperLoRA (models/whisper_lora.py) and the train
+CLI (scripts/train_lora.py). Entry points run on the CUDA card unless
+given device="cpu" (device.py). The kernels are hand-written CUDA C++ for
+sm_90a (`csrc/`), built at first use by `ops/_build.py`; every kernel has
+a plain PyTorch version beside it that CPU tensors take.
 """
 
 __version__ = "0.1.0"

@@ -8,7 +8,9 @@ emitted EOS keep emitting EOS, and the loop stops early once every row has
 finished (one host sync per step reads that flag). Suppress-token masking
 is available and off by default.
 
-The self cache is allocated at the full length `total`: the reference's
+The cache is the int8 head-minor one by default, or the unquantized
+classic one (`cross_kv_int8=False, self_kv_int8=False`). The self cache
+is allocated at the full length `total`: the reference's
 `segment` option only shortens the self-attention buffers and yields tokens
 identical to `segment=0`. Sampling, timestamps, logprobs and segmenting
 wait for later slices of the port.
@@ -28,16 +30,23 @@ def greedy_decode(params: dict, enc_out: torch.Tensor, cfg: WhisperConfig,
                   lora: dict | None = None, adapter_idx=None,
                   lora_scale: float = 1.0,
                   suppress_ids: tuple[int, ...] = (),
+                  cross_kv_int8: bool = True, self_kv_int8: bool = True,
                   kernels: bool = True) -> torch.Tensor:
-    """Greedy decode over an int8 head-minor cache built from `enc_out`.
-    prompt_ids: [P] or [B, P] (e.g. cfg.prompt_ids(lang)). `lora` (a bank)
-    adapts the cache build and every step, with adapter 0 for the batch or
-    `adapter_idx` [B] per row. Returns [B, min(P + max_new_tokens,
-    max_target_positions)] int64; positions after EOS are EOS."""
+    """Greedy decode over a cache built from `enc_out`: the int8 head-minor
+    one (the default, serving's), or with cross_kv_int8 = self_kv_int8 =
+    False the unquantized classic one (the JAX package's default, which its
+    trainer's evaluation takes). prompt_ids: [P] or [B, P] (e.g.
+    cfg.prompt_ids(lang)). `lora` (a bank) adapts the cache build and every
+    step, with adapter 0 for the batch or `adapter_idx` [B] per row.
+    Returns [B, min(P + max_new_tokens, max_target_positions)] int64;
+    positions after EOS are EOS."""
     P = torch.as_tensor(prompt_ids).shape[-1]
     total = min(P + max_new_tokens, cfg.max_target_positions)
     cache = whisper.init_cache(params, enc_out, cfg, max_len=total, lora=lora,
                                adapter_idx=adapter_idx, lora_scale=lora_scale,
+                               cross_kv_int8=cross_kv_int8,
+                               self_kv_int8=self_kv_int8,
+                               head_minor=cross_kv_int8 and self_kv_int8,
                                kernels=kernels)
     return greedy_decode_from_cache(params, cache, cfg, prompt_ids, lora=lora,
                                     adapter_idx=adapter_idx,

@@ -28,6 +28,8 @@ import torch.nn.functional as F
 
 from sar_tpu_torch.models import convert
 from sar_tpu_torch.models.config import WhisperConfig
+from sar_tpu_torch.models.whisper import param_count as base_param_count
+from sar_tpu_torch.models.whisper import tree_leaves
 
 # target_modules name (PEFT convention) -> the per-stack hook keys.
 _TARGET_MAP = {
@@ -87,25 +89,30 @@ def init_lora(generator: torch.Generator, cfg: WhisperConfig,
     return bank
 
 
-def _leaves(tree: dict) -> list[torch.Tensor]:
-    out = []
-    for v in tree.values():
-        out.extend(_leaves(v) if isinstance(v, dict) else [v])
-    return out
-
-
 def map_with_path(fn, tree: dict, path=()) -> dict:
     """tree_map with the key path handed to `fn(path, leaf)`."""
     return {k: (map_with_path(fn, v, path + (k,)) if isinstance(v, dict)
                 else fn(path + (k,), v)) for k, v in tree.items()}
 
 
+def param_count(lora: dict) -> int:
+    return sum(x.numel() for x in tree_leaves(lora))
+
+
+def trainable_summary(lora: dict, base_params: dict) -> dict:
+    """The trainable share of base + adapter (the JAX package's log line)."""
+    n_lora, n_base = param_count(lora), base_param_count(base_params)
+    return {"trainable_params": n_lora,
+            "total_params": n_base + n_lora,
+            "trainable_percent": 100.0 * n_lora / (n_base + n_lora)}
+
+
 def num_adapters(lora: dict) -> int:
-    return _leaves(lora)[0].shape[1]
+    return tree_leaves(lora)[0].shape[1]
 
 
 def rank(lora: dict) -> int:
-    return _leaves(lora)[0].shape[-1]
+    return tree_leaves(lora)[0].shape[-1]
 
 
 def slice_adapter(lora: dict, index: int) -> dict:

@@ -1,5 +1,6 @@
-"""Whisper encoder and KV-cached decode step in PyTorch (counterpart of
-sar_tpu/models/whisper.py, inference path only).
+"""Whisper in PyTorch (counterpart of sar_tpu/models/whisper.py): the
+encoder, the teacher-forced decoder of training and the KV-cached decode
+step.
 
 Parameters are plain nested dicts of tensors with the JAX package's layout:
 per-stack layer weights are STACKED on a leading [L, ...] axis, linear
@@ -12,27 +13,38 @@ eps 1e-5), matmuls in the params' dtype, exact GELU, q = (h.Wq + bq) *
 hd^-0.5, no bias on the k projections, softmax in fp32, logits in fp32 from
 the compute-dtype operands.
 
-Slice covered: `encode(flash="hm"|False)`, the int8 head-minor
-`init_cache` and `decode_step`, each with optional LoRA from an adapter
-bank (models/lora.py): one adapter for the whole batch, or one per
-utterance (`adapter_idx`, masked-dense routing, `lora_delta`). The cross_v
-LoRA term of the cache build rides kernel K4 (ops/kv_init.py). Beam search
-keeps one cross slab per sample and B*K self-cache rows (`self_batch`);
-`decode_step(beam_width=K, ancestry=...)` folds the K beam queries of a
-sample into one cross-attention call (kernel K5) and reads the never-moved
-self cache through the ancestry matrix (`_self_attention_beam`). int4 and
-LoRA dropout (training) raise NotImplementedError or are absent.
+Covered: `encode(flash=False|True|"hm")`, `decode_train`, `forward`,
+`shift_tokens_right` and `cross_entropy_loss` (training: flash=True is the
+blockwise attention of ops/flash.py, kernel K6, forward and backward;
+`remat` checkpoints each layer, saving the plain matmuls and K6's output as
+the JAX package's policy does, `_remat`); the int8 head-minor `init_cache`
+and `decode_step` of serving, and the unquantized classic cache the
+trainer's evaluation decodes through. Each takes optional LoRA from an
+adapter bank (models/lora.py): one adapter for the whole batch, or one per
+utterance (`adapter_idx`, masked-dense routing, `lora_delta`), with the
+LoRA dropout of training (`lora_dropout`, masks drawn from a seed folded
+per side, layer and hook, so a checkpoint recompute draws the same masks).
+The cross_v LoRA term of the int8 cache build rides kernel K4
+(ops/kv_init.py). Beam search keeps one cross slab per sample and B*K
+self-cache rows (`self_batch`); `decode_step(beam_width=K, ancestry=...)`
+folds the K beam queries of a sample into one cross-attention call (kernel
+K5) and reads the never-moved self cache through the ancestry matrix
+(`_self_attention_beam`). int4 raises NotImplementedError.
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from sar_tpu_torch.models.config import WhisperConfig
+from sar_tpu_torch.ops import flash as flash_ops
 from sar_tpu_torch.ops.decode_cross import (cross_decode_attention_exact,
                                             cross_decode_reference_exact)
 from sar_tpu_torch.ops.flash_enc import encoder_attention_hm
@@ -66,34 +78,74 @@ def linear(x: torch.Tensor, p: Params) -> torch.Tensor:
 
 
 class LoraCtx(NamedTuple):
-    """LoRA at inference. `sel` [B, A] is the one-hot of the per-row
-    adapter index in the compute dtype (None: adapter 0 for every row),
-    made once per call of encode / init_cache / decode_step rather than
-    once per projection; `scale` = alpha / r."""
+    """LoRA of one call. `sel` [B, A] is the one-hot of the per-row adapter
+    index in the compute dtype (None: adapter 0 for every row), made once
+    per call of encode / decode_train / init_cache / decode_step rather
+    than once per projection; `scale` = alpha / r. `dropout` and `seed`
+    are training's LoRA dropout: inverted dropout on the branch input, its
+    masks drawn from `seed` folded with each hook's salt (None: no
+    dropout); `_layer_ctx` folds the layer in."""
     sel: torch.Tensor | None = None
     scale: float = 1.0
+    dropout: float = 0.0
+    seed: int | None = None
 
 
 def lora_ctx(lora: Params | None, adapter_idx, scale: float,
-             dtype: torch.dtype) -> LoraCtx:
+             dtype: torch.dtype, dropout: float = 0.0,
+             seed: int | None = None) -> LoraCtx:
     """The LoraCtx of one side's bank ({hook: {"a", "b"}}) for a call."""
     if lora is None or adapter_idx is None:
-        return LoraCtx(None, scale)
+        return LoraCtx(None, scale, dropout, seed)
     la = next(iter(lora.values()))["a"]                         # [L, A, d, r]
     idx = torch.as_tensor(adapter_idx, device=la.device).long()
-    return LoraCtx(F.one_hot(idx, la.shape[1]).to(dtype), scale)
+    return LoraCtx(F.one_hot(idx, la.shape[1]).to(dtype), scale, dropout, seed)
+
+
+_M64 = (1 << 64) - 1
+
+
+def fold_in(seed: int, data: int) -> int:
+    """A new 63-bit seed from `seed` and `data` (splitmix64 of their mix):
+    the counterpart of jax.random.fold_in for the port's integer seeds."""
+    z = (seed * 0x9E3779B97F4A7C15 + data + 0x632BE59BD9B4E019) & _M64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
+    return (z ^ (z >> 31)) >> 1
+
+
+def split_seed(seed: int | None) -> tuple[int | None, int | None]:
+    """(encoder seed, decoder seed) of a forward's dropout seed."""
+    if seed is None:
+        return None, None
+    return fold_in(seed, 0), fold_in(seed, 1)
+
+
+def dropout_keep(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
+    """The inverted-dropout multiplier of x's shape: keep / (1 - rate) with
+    P(keep) = 1 - rate, in x's dtype. Drawn from a generator of its own
+    seeded with `seed`, so the same seed gives the same mask wherever it is
+    drawn (a checkpoint recompute restores only the default generators)."""
+    g = torch.Generator(device=x.device).manual_seed(seed)
+    u = torch.rand(x.shape, generator=g, device=x.device)
+    return (u < 1.0 - rate).to(x.dtype) / (1.0 - rate)
 
 
 def lora_delta(x: torch.Tensor, la: torch.Tensor, lb: torch.Tensor,
-               ctx: LoraCtx) -> torch.Tensor:
+               ctx: LoraCtx, salt: int = 0) -> torch.Tensor:
     """`scale * (x @ A) @ B` for x [B, T, d_in]; la [A, d_in, r] and lb
     [A, r, d_out] are one layer's slice of a bank entry.
+
+    With ctx.seed set and ctx.dropout > 0, x is first multiplied by the
+    inverted-dropout mask of `fold_in(ctx.seed, salt)`.
 
     ctx.sel None: adapter 0 for every row. Otherwise MASKED-DENSE, as the
     JAX package: x against all A adapters as one [d_in, A*r] product, the
     rank blocks of the other adapters zeroed by the one-hot mask, then one
     [A*r, d_out] product. Both products round to x's dtype, as the einsums
     do there."""
+    if ctx.seed is not None and ctx.dropout > 0.0:
+        x = x * dropout_keep(x, fold_in(ctx.seed, salt), ctx.dropout)
     if ctx.sel is None:
         u = torch.matmul(x, la[0].to(x.dtype))
         return ctx.scale * torch.matmul(u, lb[0].to(x.dtype))
@@ -107,10 +159,10 @@ def lora_delta(x: torch.Tensor, la: torch.Tensor, lb: torch.Tensor,
 
 
 def _proj(x: torch.Tensor, p: Params, lora: Params | None,
-          ctx: LoraCtx) -> torch.Tensor:
+          ctx: LoraCtx, salt: int = 0) -> torch.Tensor:
     y = linear(x, p)
     if lora is not None:
-        y = y + lora_delta(x, lora["a"], lora["b"], ctx)
+        y = y + lora_delta(x, lora["a"], lora["b"], ctx, salt)
     return y
 
 
@@ -226,15 +278,25 @@ def init_params(cfg: WhisperConfig, generator: torch.Generator,
     return tree_map(lambda x: x.to(device or dev), params)
 
 
-def tree_map(fn, tree):
+def tree_map(fn, *trees):
+    """`fn` over the leaves of one or more nested dicts of the same keys."""
+    if isinstance(trees[0], dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a nested dict, in key order."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    return [tree]
 
 
 def param_count(params: Params) -> int:
+    """Parameters of a tree, without the port's fp32 logits copy of the
+    token embedding (`cast_params`)."""
     return sum(param_count(v) if isinstance(v, dict) else v.numel()
-               for v in params.values())
+               for k, v in params.items() if k != "token_embed_f32")
 
 
 def cast_params(params: Params, dtype: torch.dtype) -> Params:
@@ -263,26 +325,76 @@ def _layer(stack: Params, l: int) -> Params:
 # Encoder
 # ---------------------------------------------------------------------------
 
+def _mha(q, k, v, mask=None, *, causal=False, flash=False):
+    """Attention of [B, H, T, hd] heads: flash=True goes through the
+    blockwise K6 (ops/flash.py, forward and backward, the [Tq, Tk]
+    probabilities never exist); otherwise exact attention with the explicit
+    `mask`."""
+    if flash:
+        return flash_ops.flash_mha(q, k, v, causal=causal)
+    return attention(q, k, v, mask)
+
+
 def _enc_layer_apply(x, p, num_heads, flash=False, t_valid=None, lora=None,
                      ctx: LoraCtx = LoraCtx()):
     lo = lora or {}
     scaling = (x.shape[-1] // num_heads) ** -0.5
     h = layer_norm(x, p["attn_ln"]["scale"], p["attn_ln"]["bias"])
-    q = _proj(h, p["q"], lo.get("q"), ctx) * scaling
-    k = _proj(h, p["k"], lo.get("k"), ctx)
-    v = _proj(h, p["v"], lo.get("v"), ctx)
+    q = _proj(h, p["q"], lo.get("q"), ctx, 0) * scaling
+    k = _proj(h, p["k"], lo.get("k"), ctx, 1)
+    v = _proj(h, p["v"], lo.get("v"), ctx, 2)
     if flash == "hm":
         # Head-minor kernel on the residual layout: no split/merge copies;
         # `x` is padded to the kernel's T and keys >= t_valid are masked.
         a_m = encoder_attention_hm(q, k, v, n_heads=num_heads, t_valid=t_valid)
     else:
-        a = attention(split_heads(q, num_heads), split_heads(k, num_heads),
-                      split_heads(v, num_heads))
+        a = _mha(split_heads(q, num_heads), split_heads(k, num_heads),
+                 split_heads(v, num_heads), flash=flash)
         a_m = merge_heads(a)
-    x = x + _proj(a_m, p["o"], lo.get("o"), ctx)
+    x = x + _proj(a_m, p["o"], lo.get("o"), ctx, 3)
     h = layer_norm(x, p["mlp_ln"]["scale"], p["mlp_ln"]["bias"])
     h = F.gelu(linear(h, p["fc1"]))
     return x + linear(h, p["fc2"])
+
+
+def _layer_ctx(ctx: LoraCtx, layer: int) -> LoraCtx:
+    """Layer `layer`'s LoraCtx: the dropout seed folded with its index."""
+    if ctx.seed is None:
+        return ctx
+    return ctx._replace(seed=fold_in(ctx.seed, layer))
+
+
+# Ops whose outputs a selective checkpoint saves: the plain matmuls (the
+# projections and the FFN, which PyTorch's matmul lowers to mm / addmm)
+# and K6's forward. Batched products (bmm: the exact path's scores and
+# probabilities) are recomputed, as the JAX package's
+# dots_with_no_batch_dims_saveable policy does.
+_SAVED_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+              flash_ops.FLASH_OP)
+
+
+def _save_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(body, remat):
+    """A layer body under gradient checkpointing, as the JAX package's
+    `_remat`: remat=True saves the plain matmuls and K6's output and
+    recomputes the rest in the backward (elementwise ops, and the exact
+    path's attention), so with flash the backward never runs an attention
+    forward again; remat="full" recomputes everything; False runs `body`.
+    Outside autograd (no grad) there is nothing to checkpoint."""
+    if not remat:
+        return body
+    kw = {} if remat == "full" else dict(
+        context_fn=partial(create_selective_checkpoint_contexts, _save_policy))
+
+    def run(x, *args):
+        if not torch.is_grad_enabled():
+            return body(x, *args)
+        return checkpoint(body, x, *args, use_reentrant=False, **kw)
+    return run
 
 
 def encoder_front(enc: Params, mel: torch.Tensor) -> torch.Tensor:
@@ -300,43 +412,144 @@ def encoder_front(enc: Params, mel: torch.Tensor) -> torch.Tensor:
 def encoder_layers(enc: Params, x: torch.Tensor, cfg: WhisperConfig,
                    n_layers: int, *, flash: bool | str = False,
                    lora: Params | None = None,
-                   ctx: LoraCtx = LoraCtx()) -> torch.Tensor:
-    """The first `n_layers` encoder layers over x [B, T, d]. With
-    flash="hm" they run on T padded to `cross_pad_len(T)` (padded rows carry
-    garbage that masked keys keep out of real rows) and the pad is sliced
-    off after the last layer."""
-    if flash not in (False, "hm"):
+                   ctx: LoraCtx = LoraCtx(), remat=False) -> torch.Tensor:
+    """The first `n_layers` encoder layers over x [B, T, d]. flash=True
+    takes K6 (training); with flash="hm" the layers run on T padded to
+    `cross_pad_len(T)` (padded rows carry garbage that masked keys keep out
+    of real rows) and the pad is sliced off after the last layer."""
+    if flash not in (False, True, "hm"):
         raise NotImplementedError(
-            f"encode(flash={flash!r}): the port has False and 'hm'")
+            f"encode(flash={flash!r}): the port has False, True and 'hm'")
     T = x.shape[1]
     pad = cross_pad_len(T) - T if flash == "hm" else 0
     if pad:
         x = F.pad(x, (0, 0, 0, pad))
+
+    def body(x, l):
+        return _enc_layer_apply(x, _layer(enc["layers"], l), cfg.encoder_heads,
+                                flash=flash, t_valid=T,
+                                lora=_layer(lora, l) if lora else None,
+                                ctx=_layer_ctx(ctx, l))
+    body = _remat(body, remat)
     for l in range(n_layers):
-        x = _enc_layer_apply(x, _layer(enc["layers"], l), cfg.encoder_heads,
-                             flash=flash, t_valid=T,
-                             lora=_layer(lora, l) if lora else None, ctx=ctx)
+        x = body(x, l)
     return x[:, :T] if pad else x
 
 
 def encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig, *,
            lora: Params | None = None, adapter_idx=None,
-           lora_scale: float = 1.0,
+           lora_scale: float = 1.0, lora_dropout: float = 0.0,
+           dropout_seed: int | None = None, remat=False,
            flash: bool | str = False) -> torch.Tensor:
     """Encoder forward. mel: [B, num_mel_bins, T_frames] -> [B, T/2, d].
 
     flash: False = exact attention ([T, T] probabilities materialised);
-    "hm" = the head-minor attention kernel (ops/flash_enc.py), run on T
-    padded to `cross_pad_len(T)` with the pad sliced off after the stack.
-    `lora` (a bank) adapts the hooks q/k/v/o it holds, with adapter 0 for
-    every row or `adapter_idx` [B] per row."""
+    True = the blockwise kernel K6 (ops/flash.py, forward and backward: the
+    training path); "hm" = the head-minor attention kernel
+    (ops/flash_enc.py, inference only), run on T padded to
+    `cross_pad_len(T)` with the pad sliced off after the stack. `lora` (a
+    bank) adapts the hooks q/k/v/o it holds, with adapter 0 for every row
+    or `adapter_idx` [B] per row; `lora_dropout` with `dropout_seed` drops
+    the branch inputs (training). `remat` as `_remat`."""
     enc = params["encoder"]
     x = encoder_front(enc, mel)
     enc_lora = lora.get("encoder") if lora else None
-    ctx = lora_ctx(enc_lora, adapter_idx, lora_scale, x.dtype)
+    ctx = lora_ctx(enc_lora, adapter_idx, lora_scale, x.dtype, lora_dropout,
+                   dropout_seed)
     x = encoder_layers(enc, x, cfg, cfg.encoder_layers, flash=flash,
-                       lora=enc_lora, ctx=ctx)
+                       lora=enc_lora, ctx=ctx, remat=remat)
     return layer_norm(x, enc["ln"]["scale"], enc["ln"]["bias"])
+
+
+# ---------------------------------------------------------------------------
+# Decoder (teacher-forced)
+# ---------------------------------------------------------------------------
+
+def _dec_layer_apply(x, enc_out, p, lora, ctx, num_heads, causal_mask,
+                     flash=False):
+    scaling = (x.shape[-1] // num_heads) ** -0.5
+    lo = lora or {}
+    H = num_heads
+    # Self-attention (causal).
+    h = layer_norm(x, p["self_ln"]["scale"], p["self_ln"]["bias"])
+    q = _proj(h, p["self_q"], lo.get("self_q"), ctx, 0) * scaling
+    k = _proj(h, p["self_k"], lo.get("self_k"), ctx, 1)
+    v = _proj(h, p["self_v"], lo.get("self_v"), ctx, 2)
+    a = _mha(split_heads(q, H), split_heads(k, H), split_heads(v, H),
+             causal_mask, causal=True, flash=flash)
+    x = x + _proj(merge_heads(a), p["self_o"], lo.get("self_o"), ctx, 3)
+    # Cross-attention.
+    h = layer_norm(x, p["cross_ln"]["scale"], p["cross_ln"]["bias"])
+    q = _proj(h, p["cross_q"], lo.get("cross_q"), ctx, 4) * scaling
+    k = _proj(enc_out, p["cross_k"], lo.get("cross_k"), ctx, 5)
+    v = _proj(enc_out, p["cross_v"], lo.get("cross_v"), ctx, 6)
+    a = _mha(split_heads(q, H), split_heads(k, H), split_heads(v, H),
+             flash=flash)
+    x = x + _proj(merge_heads(a), p["cross_o"], lo.get("cross_o"), ctx, 7)
+    # MLP.
+    h = layer_norm(x, p["mlp_ln"]["scale"], p["mlp_ln"]["bias"])
+    h = F.gelu(linear(h, p["fc1"]))
+    return x + linear(h, p["fc2"])
+
+
+def decode_train(params: Params, enc_out: torch.Tensor, tokens: torch.Tensor,
+                 cfg: WhisperConfig, *, lora: Params | None = None,
+                 adapter_idx=None, lora_scale: float = 1.0,
+                 lora_dropout: float = 0.0, dropout_seed: int | None = None,
+                 remat=False, flash: bool = False) -> torch.Tensor:
+    """Teacher-forced decoder forward. tokens: [B, T] -> logits [B, T, V]
+    fp32 (products of the compute-dtype operands summed in fp32). flash=True
+    runs the causal self-attention (T x T) and the cross-attention
+    (T x S) through K6."""
+    dec = params["decoder"]
+    dtype = enc_out.dtype
+    T = tokens.shape[1]
+    x = dec["token_embed"][tokens].to(dtype) + dec["pos_embed"][:T].to(dtype)
+    causal = (None if flash else
+              torch.ones((T, T), dtype=torch.bool, device=x.device).tril()[None, None])
+    dec_lora = lora.get("decoder") if lora else None
+    ctx = lora_ctx(dec_lora, adapter_idx, lora_scale, dtype, lora_dropout,
+                   dropout_seed)
+
+    def body(x, l):
+        return _dec_layer_apply(x, enc_out, _layer(dec["layers"], l),
+                                _layer(dec_lora, l) if dec_lora else None,
+                                _layer_ctx(ctx, l), cfg.decoder_heads, causal,
+                                flash=flash)
+    body = _remat(body, remat)
+    for l in range(cfg.decoder_layers):
+        x = body(x, l)
+    x = layer_norm(x, dec["ln"]["scale"], dec["ln"]["bias"])
+    return torch.matmul(x.float(), logits_weight(dec).T)
+
+
+def forward(params: Params, mel: torch.Tensor, tokens: torch.Tensor,
+            cfg: WhisperConfig, *, dropout_seed: int | None = None,
+            **kw) -> torch.Tensor:
+    """Full teacher-forced forward: mel + decoder input tokens -> logits.
+    The dropout seed splits into one for each side, as the JAX package
+    splits its key."""
+    enc_seed, dec_seed = split_seed(dropout_seed)
+    enc_out = encode(params, mel, cfg, dropout_seed=enc_seed, **kw)
+    return decode_train(params, enc_out, tokens, cfg, dropout_seed=dec_seed,
+                        **kw)
+
+
+def shift_tokens_right(labels: torch.Tensor, start_token_id: int,
+                       pad_token_id: int) -> torch.Tensor:
+    """Decoder inputs from labels: prepend SOT, drop the last, -100 -> pad."""
+    inp = torch.cat([torch.full_like(labels[:, :1], start_token_id),
+                     labels[:, :-1]], dim=1)
+    return torch.where(inp == -100, torch.full_like(inp, pad_token_id), inp)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross entropy over the positions whose label is not -100."""
+    mask = labels != -100
+    safe = torch.where(mask, labels, torch.zeros_like(labels)).long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    return (nll * mask).sum() / mask.sum().clamp_min(1)
 
 
 # ---------------------------------------------------------------------------
@@ -349,13 +562,19 @@ def cross_pad_len(s: int) -> int:
 
 
 class DecodeCache(NamedTuple):
-    """Int8 KV cache for autoregressive decode (the head-minor variant of the
-    reference's DecodeCache).
+    """KV cache for autoregressive decode, in one of two variants of the
+    reference's DecodeCache.
 
-    Cross K/V are HEAD-MINOR [L, B, S_pad, H*hd] int8 with head-major
-    per-(row, head) scales [L, B, H, S_pad]; padded rows carry scale 0.
-    The self cache is classic [L, B, H, max_len, hd] int8 with scales
-    [L, B, H, max_len]; decode_step writes its column `pos` IN PLACE.
+    Int8 head-minor (serving): cross K/V are HEAD-MINOR [L, B, S_pad, H*hd]
+    int8 with head-major per-(row, head) scales [L, B, H, S_pad]; padded
+    rows carry scale 0. The self cache is classic [L, B, H, max_len, hd]
+    int8 with scales [L, B, H, max_len].
+
+    Unquantized classic (the trainer's evaluation): cross K/V
+    [L, B, H, S, hd] and self K/V [L, B, H, max_len, hd] in the compute
+    dtype; every scale is None.
+
+    decode_step writes the self cache's column `pos` IN PLACE.
     """
     self_k: torch.Tensor
     self_v: torch.Tensor
@@ -396,10 +615,19 @@ def init_cache(params: Params, enc_out: torch.Tensor, cfg: WhisperConfig,
     `quantize_rows`, as the JAX package takes its jnp body there.
 
     `kernels=False` runs the plain PyTorch version on any device (the
-    reference path the card's results are compared with)."""
+    reference path the card's results are compared with).
+
+    cross_kv_int8 = self_kv_int8 = head_minor = False builds the
+    unquantized classic cache instead (`_init_cache_plain`), the JAX
+    package's default, which its trainer's evaluation decodes through."""
+    if not (cross_kv_int8 or self_kv_int8 or head_minor):
+        return _init_cache_plain(params, enc_out, cfg, max_len, lora=lora,
+                                 adapter_idx=adapter_idx,
+                                 lora_scale=lora_scale, self_batch=self_batch)
     if not (cross_kv_int8 and self_kv_int8 and head_minor):
         raise NotImplementedError(
-            "the port's decode cache is the int8 head-minor variant only")
+            "the port's decode cache is the int8 head-minor variant or the "
+            "unquantized classic one")
     dec = params["decoder"]
     B, S, _ = enc_out.shape
     H, hd = cfg.decoder_heads, cfg.d_model // cfg.decoder_heads
@@ -435,6 +663,36 @@ def init_cache(params: Params, enc_out: torch.Tensor, cfg: WhisperConfig,
         cross_k=ck, cross_v=cv, cross_k_scale=cks, cross_v_scale=cvs,
         self_k_scale=torch.zeros((L, SB, H, max_len), device=dev),
         self_v_scale=torch.zeros((L, SB, H, max_len), device=dev))
+
+
+def _init_cache_plain(params: Params, enc_out: torch.Tensor,
+                      cfg: WhisperConfig, max_len: int, *,
+                      lora: Params | None = None, adapter_idx=None,
+                      lora_scale: float = 1.0,
+                      self_batch: int | None = None) -> DecodeCache:
+    """The unquantized classic cache (plain torch, as the JAX package's jnp
+    body): cross K/V [L, B, H, S, hd] in the compute dtype, each layer's
+    (adapted) projection of `enc_out`, and a zeroed self cache
+    [L, self_batch, H, max_len, hd]; no scales."""
+    lay = params["decoder"]["layers"]
+    B = enc_out.shape[0]
+    H, hd = cfg.decoder_heads, cfg.d_model // cfg.decoder_heads
+    dec_lora = lora.get("decoder") if lora else None
+    ctx = lora_ctx(dec_lora, adapter_idx, lora_scale, enc_out.dtype)
+    L = lay["cross_k"]["w"].shape[0]
+    ks, vs = [], []
+    for l in range(L):
+        p, lo = _layer(lay, l), (_layer(dec_lora, l) if dec_lora else {})
+        ks.append(split_heads(_proj(enc_out, p["cross_k"], lo.get("cross_k"), ctx, 5), H))
+        vs.append(split_heads(_proj(enc_out, p["cross_v"], lo.get("cross_v"), ctx, 6), H))
+    SB = B if self_batch is None else self_batch
+    shape = (L, SB, H, max_len, hd)
+    return DecodeCache(
+        self_k=torch.zeros(shape, dtype=enc_out.dtype, device=enc_out.device),
+        self_v=torch.zeros(shape, dtype=enc_out.dtype, device=enc_out.device),
+        cross_k=torch.stack(ks), cross_v=torch.stack(vs),
+        cross_k_scale=None, cross_v_scale=None,
+        self_k_scale=None, self_v_scale=None)
 
 
 def _cross_kv_torch(enc_pad, lay, dec_lora, n_heads, t_valid, ctx):
@@ -535,8 +793,13 @@ def decode_step(params: Params, tokens: torch.Tensor, pos: int,
     `ancestry` [B/K, K, max_len] (beam mode only) reads the self cache as
     slot-major (`_self_attention_beam`); its column `pos` must be the
     identity, since each beam writes its own slot at this step."""
-    if cache.cross_k.dim() != 4 or cache.self_k_scale is None:
-        raise NotImplementedError("decode_step takes the int8 head-minor cache")
+    plain_cache = cache.self_k_scale is None
+    if plain_cache and (cache.cross_k.dim() != 5 or beam_width != 1):
+        raise NotImplementedError(
+            "the unquantized classic cache decodes with beam width 1 only")
+    if not plain_cache and cache.cross_k.dim() != 4:
+        raise NotImplementedError("decode_step takes the int8 head-minor "
+                                  "cache or the unquantized classic one")
     if ancestry is not None and beam_width <= 1:
         raise ValueError("ancestry (reorder-free beam self-attention) needs "
                          "beam_width > 1")
@@ -559,33 +822,46 @@ def decode_step(params: Params, tokens: torch.Tensor, pos: int,
     for l in range(cache.self_k.shape[0]):
         p = _layer(dec["layers"], l)
         lo = _layer(dec_lora, l) if dec_lora else {}
-        # Self-attention against the int8 cache (row `pos` written first).
+        # Self-attention against the cache (row `pos` written first).
         h = layer_norm(x, p["self_ln"]["scale"], p["self_ln"]["bias"])
         q = _proj(h, p["self_q"], lo.get("self_q"), ctx) * scaling
-        kq, ks = quantize_kv(split_heads(_proj(h, p["self_k"], lo.get("self_k"), ctx), H))
-        vq, vs = quantize_kv(split_heads(_proj(h, p["self_v"], lo.get("self_v"), ctx), H))
-        cache.self_k[l, :, :, pos] = kq[:, :, 0]
-        cache.self_v[l, :, :, pos] = vq[:, :, 0]
-        cache.self_k_scale[l, :, :, pos] = ks[:, :, 0]
-        cache.self_v_scale[l, :, :, pos] = vs[:, :, 0]
-        if ancestry is not None:
-            a = _self_attention_beam(split_heads(q, H), cache.self_k[l],
-                                     cache.self_v[l], cache.self_k_scale[l],
-                                     cache.self_v_scale[l], ancestry, pos,
-                                     beam_width)
+        k = split_heads(_proj(h, p["self_k"], lo.get("self_k"), ctx), H)
+        v = split_heads(_proj(h, p["self_v"], lo.get("self_v"), ctx), H)
+        if plain_cache:
+            cache.self_k[l, :, :, pos] = k[:, :, 0]
+            cache.self_v[l, :, :, pos] = v[:, :, 0]
+            a = attention(split_heads(q, H), cache.self_k[l], cache.self_v[l],
+                          mask=pos_mask)
         else:
-            a = _attention_int8(split_heads(q, H), cache.self_k[l],
-                                cache.self_k_scale[l], cache.self_v[l],
-                                cache.self_v_scale[l], mask=pos_mask)
+            kq, ks = quantize_kv(k)
+            vq, vs = quantize_kv(v)
+            cache.self_k[l, :, :, pos] = kq[:, :, 0]
+            cache.self_v[l, :, :, pos] = vq[:, :, 0]
+            cache.self_k_scale[l, :, :, pos] = ks[:, :, 0]
+            cache.self_v_scale[l, :, :, pos] = vs[:, :, 0]
+            if ancestry is not None:
+                a = _self_attention_beam(split_heads(q, H), cache.self_k[l],
+                                         cache.self_v[l], cache.self_k_scale[l],
+                                         cache.self_v_scale[l], ancestry, pos,
+                                         beam_width)
+            else:
+                a = _attention_int8(split_heads(q, H), cache.self_k[l],
+                                    cache.self_k_scale[l], cache.self_v[l],
+                                    cache.self_v_scale[l], mask=pos_mask)
         x = x + _proj(merge_heads(a), p["self_o"], lo.get("self_o"), ctx)
-        # Cross-attention over the head-minor int8 slabs of layer l; beam
-        # queries folded per sample ([B/K, K, D], K5) when beam_width > 1.
+        # Cross-attention: exact over the classic cache, or over the
+        # head-minor int8 slabs of layer l, beam queries folded per sample
+        # ([B/K, K, D], K5) when beam_width > 1.
         h = layer_norm(x, p["cross_ln"]["scale"], p["cross_ln"]["bias"])
         q = _proj(h, p["cross_q"], lo.get("cross_q"), ctx) * scaling
-        qc = (q[:, 0].reshape(B // beam_width, beam_width, -1) if beam_width > 1
-              else q[:, 0])
-        o = cross(qc, cache.cross_k, cache.cross_k_scale, cache.cross_v,
-                  cache.cross_v_scale, layer=l, n_heads=H)
+        if plain_cache:
+            o = merge_heads(attention(split_heads(q, H), cache.cross_k[l],
+                                      cache.cross_v[l]))
+        else:
+            qc = (q[:, 0].reshape(B // beam_width, beam_width, -1)
+                  if beam_width > 1 else q[:, 0])
+            o = cross(qc, cache.cross_k, cache.cross_k_scale, cache.cross_v,
+                      cache.cross_v_scale, layer=l, n_heads=H)
         x = x + _proj(o.reshape(B, 1, -1), p["cross_o"], lo.get("cross_o"), ctx)
         # MLP.
         h = layer_norm(x, p["mlp_ln"]["scale"], p["mlp_ln"]["bias"])

@@ -38,8 +38,20 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LP = ctypes.POINTER(ctypes.c_longlong)   # a host array of int64 strides
 # C entry point -> argtypes (pointers and the stream as c_void_p, ints c_int).
 SIGNATURES = {
+    # q, k, v, o, lse, strides (q, k, v, o), B, H, Tq, Tk, causal, device,
+    # stream
+    "sar_flash_attn_fwd": [_P, _P, _P, _P, _P, _LP, _I, _I, _I, _I, _I, _I, _P],
+    # q, k, v, do, lse, di, dk, dv, strides (q, k, v, do, dk, dv), B, H, Tq,
+    # Tk, causal, device, stream
+    "sar_flash_attn_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _LP,
+                               _I, _I, _I, _I, _I, _I, _P],
+    # q, k, v, do, lse, di, dq, strides (q, k, v, do, dq), B, H, Tq, Tk,
+    # causal, device, stream
+    "sar_flash_attn_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _LP,
+                              _I, _I, _I, _I, _I, _I, _P],
     # q, k, v, out, B, T, D, n_heads, t_valid, device, stream
     "sar_encoder_attention_hm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, wk, wv, bv, kq, ks, vq, vs, L, B, S_pad, D, n_heads, t_valid,

@@ -218,3 +218,181 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     q = torch.zeros((1, 100, 128), dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError, match="multiple"):
         flash_enc.encoder_attention_hm(q, q, q, n_heads=2, t_valid=100)
+
+
+def _k6_inputs(dev, B, H, Tq, Tk, seed=8):
+    """q/k/v as the model makes them: [B, T, H*64] projections viewed as
+    [B, H, T, 64] (q pre-scaled), and an upstream gradient in o's layout."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def heads(T, std):
+        return _randn(g, dev, B, T, H * 64, std=std).view(B, T, H, 64).transpose(1, 2)
+    q, k, v = heads(Tq, 0.125), heads(Tk, 1.0), heads(Tk, 1.0)
+    return q, k, v, heads(Tq, 1.0)
+
+
+def _rel(got, want):
+    return ((got.float() - want.float()).abs().max().item()
+            / max(want.float().abs().max().item(), 1e-30))
+
+
+def _k6_errors(q, k, v, do, causal):
+    """The kernel path's output and gradients against the plain version's
+    (autograd of flash_mha_reference) on the same bf16 inputs, and both
+    against the fp32 truth (the plain version on the same values in fp32):
+    {name: (kernel vs plain, kernel vs truth, plain vs truth)}, each
+    max|a - b| / max|b|."""
+    from sar_tpu_torch.ops import flash
+
+    def run(fn, dtype):
+        xs = [t.detach().to(dtype).requires_grad_(True) for t in (q, k, v)]
+        o = fn(*xs, causal=causal)
+        return (o, *torch.autograd.grad(o, xs, do.to(dtype)))
+
+    n = (flash.LAUNCHES, flash.DKV_LAUNCHES, flash.DQ_LAUNCHES)
+    got = run(flash.flash_mha, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert (flash.LAUNCHES, flash.DKV_LAUNCHES, flash.DQ_LAUNCHES) == tuple(c + 1 for c in n)
+    want = run(flash.flash_mha_reference, torch.bfloat16)
+    truth = run(flash.flash_mha_reference, torch.float32)
+    out = {}
+    for name, a, b, t in zip(("o", "dq", "dk", "dv"), got, want, truth):
+        assert a.shape == b.shape and a.dtype == torch.bfloat16
+        assert torch.isfinite(a.float()).all()
+        out[name] = (_rel(a, b), _rel(a, t), _rel(b, t))
+    return out
+
+
+# K6 at the smallest tile, causal with a ragged tile, rectangular, a ragged
+# cross shape against whisper's 1500 keys, decoder self-attention at T=448
+# with B*H = 144 blocks per tile column (> 132 SMs), and the encoder's 1500.
+# Limits: the kernel within 2e-2 of the plain version (relative to its
+# largest entry), and no further from the fp32 truth than twice the plain
+# version's own distance (or 1e-2): both round p, ds and the outputs to
+# bf16, at other points and in another summation order.
+@pytest.mark.parametrize("B,H,Tq,Tk,causal", [
+    (2, 2, 128, 128, False), (1, 2, 100, 100, True), (2, 3, 100, 300, False),
+    (3, 4, 77, 1500, False), (2, 1, 1, 70, False), (12, 12, 448, 448, True),
+    (2, 12, 1500, 1500, False)])
+def test_flash_attention_kernels(dev, B, H, Tq, Tk, causal):
+    q, k, v, do = _k6_inputs(dev, B, H, Tq, Tk)
+    errs = _k6_errors(q, k, v, do, causal)
+    print(f"K6 B={B} H={H} Tq={Tq} Tk={Tk} causal={causal}: " + ", ".join(
+        f"{n} {a:.2e} (truth {t:.2e}, plain {p:.2e})" for n, (a, t, p) in errs.items()))
+    for name, (vs_plain, vs_truth, plain_vs_truth) in errs.items():
+        assert vs_plain <= 2e-2, name
+        assert vs_truth <= max(2 * plain_vs_truth, 1e-2), name
+
+
+def test_flash_attention_lse(dev):
+    from sar_tpu_torch.ops import flash
+    q, k, v, _ = _k6_inputs(dev, 2, 3, 200, 200)
+    for causal in (False, True):
+        o, lse = flash.flash_attention_fwd(q, k, v, causal=causal)
+        o_ref, lse_ref = flash.flash_attention_fwd_reference(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert (lse - lse_ref).abs().max().item() <= 1e-3
+        assert _rel(o, o_ref) <= 2e-2
+
+
+# The dQ and dK/dV kernels against their own plain versions, given the same
+# lse and di: both sum the same bf16 products in fp32 in the same order
+# (chip_smoke.py reads 0 at the whisper-small shapes), so the limit is
+# 1e-3 of the largest entry, under one bf16 ulp of it (3.9e-3 to 7.8e-3).
+@pytest.mark.parametrize("B,H,Tq,Tk,causal", [
+    (1, 2, 100, 100, True), (2, 3, 100, 300, False), (3, 4, 77, 1500, False)])
+def test_flash_attention_backward_kernels_match_their_plain_versions(dev, B, H, Tq, Tk, causal):
+    from sar_tpu_torch.ops import flash
+    q, k, v, do = _k6_inputs(dev, B, H, Tq, Tk)
+    o, lse = flash.flash_attention_fwd(q, k, v, causal=causal)
+    di = (o.float() * do.float()).sum(-1).contiguous()
+    args = (q, k, v, do, lse, di)
+    pairs = [(flash.flash_attention_bwd_dq(*args, causal=causal),
+              flash.flash_attention_bwd_dq_reference(*args, causal=causal))]
+    pairs += zip(flash.flash_attention_bwd_dkv(*args, causal=causal),
+                 flash.flash_attention_bwd_dkv_reference(*args, causal=causal))
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        assert _rel(got, want) <= 1e-3
+
+
+def test_flash_attention_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    from sar_tpu_torch.ops import flash
+    q, k, v, _ = _k6_inputs(dev, 1, 2, 64, 96)
+    with pytest.raises(ValueError, match="bfloat16"):
+        flash.flash_mha(q.float(), k.float(), v.float())
+    with pytest.raises(ValueError, match="causal"):
+        flash.flash_mha(q, k, v, causal=True)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash.flash_mha(q[..., :32], k[..., :32], v[..., :32])
+    odd = torch.zeros((1, 2, 64, 68), dtype=torch.bfloat16, device=dev)[..., :64]
+    with pytest.raises(ValueError, match="strides"):
+        flash.flash_attention_fwd(odd, k, v)
+
+
+def test_fp32_training_on_the_card_raises_unless_flash_is_off(dev):
+    """flash_attention="auto" is K6 on the card whatever the dtype: an fp32
+    run reaches the wrapper's bf16 check, which names the way out."""
+    from sar_tpu_torch.data import SyntheticASRDataset, create_collator
+    from sar_tpu_torch.models import lora as lora_lib
+    from sar_tpu_torch.models import whisper
+    from sar_tpu_torch.models.config import get_config
+    from sar_tpu_torch.training import ASRTrainer, TrainingArgs
+    cfg = dataclasses.replace(get_config("whisper-test"), d_model=128, encoder_heads=2,
+                              decoder_heads=2, ffn_dim=256, max_source_positions=300)
+    params = whisper.init_params(cfg, torch.Generator(device=dev).manual_seed(8), dev)
+    lcfg = lora_lib.LoraConfig(r=8, alpha=16, dropout=0.0)
+    bank = lora_lib.init_lora(torch.Generator(device=dev).manual_seed(9), cfg, lcfg)
+    ds = SyntheticASRDataset(cfg, size=2, num_words=3, seed=0)
+    batch = create_collator(cfg.sot_token_id, pad_to_length=24)([ds[i] for i in range(2)])
+    fp32 = dict(mixed_precision="no", device=str(dev))
+    with pytest.raises(ValueError, match="flash_attention off"):
+        ASRTrainer(cfg, params, bank, lcfg, TrainingArgs(**fp32)).lora_grads(batch, None)
+    tr = ASRTrainer(cfg, params, bank, lcfg, TrainingArgs(flash_attention="off", **fp32))
+    loss, _ = tr.lora_grads(batch, None)
+    assert torch.isfinite(loss)
+
+
+def test_training_step_kernels_agree_with_the_plain_path(dev):
+    """One bf16 LoRA training microbatch at d_model 128 (2 heads of 64)
+    through ASRTrainer with K6 (every attention, forward and backward,
+    under the selective checkpoint) and with exact attention: the losses
+    within 1e-2 relative and every LoRA gradient at cosine >= 0.99 with
+    norms within 5e-2 (bf16 rounding at other points in both)."""
+    import numpy as np
+
+    from sar_tpu_torch.data import SyntheticASRDataset, create_collator
+    from sar_tpu_torch.models import lora as lora_lib
+    from sar_tpu_torch.models import whisper
+    from sar_tpu_torch.models.config import get_config
+    from sar_tpu_torch.ops import flash
+    from sar_tpu_torch.training import ASRTrainer, TrainingArgs
+    from sar_tpu_torch.models.whisper import tree_leaves as leaves
+    cfg = dataclasses.replace(get_config("whisper-test"), d_model=128, encoder_heads=2,
+                              decoder_heads=2, ffn_dim=256, max_source_positions=300)
+    params = whisper.cast_params(
+        whisper.init_params(cfg, torch.Generator(device=dev).manual_seed(8), dev), torch.bfloat16)
+    lcfg = lora_lib.LoraConfig(r=8, alpha=16, dropout=0.0)
+    g = torch.Generator(device=dev).manual_seed(9)
+    bank = lora_lib.init_lora(g, cfg, lcfg)
+    for side in bank.values():
+        for e in side.values():
+            e["b"] = torch.randn(e["b"].shape, generator=g, device=dev) * 0.05
+    ds = SyntheticASRDataset(cfg, size=4, num_words=3, seed=0)
+    batch = create_collator(cfg.sot_token_id, pad_to_length=24)([ds[i] for i in range(4)])
+    res = {}
+    for mode in ("on", "off"):
+        tr = ASRTrainer(cfg, params, bank, lcfg, TrainingArgs(flash_attention=mode, device=str(dev)))
+        n = (flash.LAUNCHES, flash.DQ_LAUNCHES, flash.DKV_LAUNCHES)
+        loss, grads = tr.lora_grads(batch, None)
+        torch.cuda.synchronize()
+        launched = tuple(c - c0 for c, c0 in zip(
+            (flash.LAUNCHES, flash.DQ_LAUNCHES, flash.DKV_LAUNCHES), n))
+        n_attn = cfg.encoder_layers + 2 * cfg.decoder_layers
+        assert launched == ((n_attn,) * 3 if mode == "on" else (0, 0, 0))
+        res[mode] = (loss.item(), [x.float() for x in leaves(grads)])
+    (lk, gk), (lp, gp) = res["on"], res["off"]
+    assert np.isfinite(lk) and abs(lk - lp) <= 1e-2 * abs(lp)
+    for a, b in zip(gk, gp):
+        assert torch.nn.functional.cosine_similarity(a.flatten(), b.flatten(), dim=0) >= 0.99
+        assert abs(a.norm() - b.norm()) <= 5e-2 * b.norm()
