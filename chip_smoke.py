@@ -12,8 +12,9 @@ Phases, each printing its own line(s); any failure raises and exits non-zero:
 3. kernels: K1 (encoder attention), K2 (cross-KV projection + int8
    quantization), K4 (K2 with a per-sample LoRA term on V, per-sample and
    broadcast slices of a 4-adapter r=16 bank), K3 (cross-attention
-   decode) and K5 (K3 with the queries of 4, then 5, beams folded per
-   sample) at whisper-small shapes, batch 8, each against its plain
+   decode), K5 (K3 with the queries of 4, then 5, beams folded per
+   sample) and K7 (s8-scores cross-attention decode, greedy and 4 beams
+   folded) at whisper-small shapes, batch 8, each against its plain
    PyTorch version on the card in bf16, with error limits, median
    CUDA-event times over 20 runs, the least time the card could take
    (bound) and, for K1, one library call computing the same function
@@ -57,11 +58,21 @@ Phases, each printing its own line(s); any failure raises and exits non-zero:
    nonzero-B bank and dropout 0 through the kernel path, the plain path
    (flash_attention="off") and the plain path in fp32, comparing the loss
    and every LoRA gradient.
-8. result: one JSON line with every kernel's numbers, then the last line
+8. s8 end to end (the opt-in quantized decode): the greedy cell's two
+   batches through ASREvaluator(scores_int8=True), then one batch of 8 x 4
+   beams through ASREvaluator(num_beams=4, scores_int8=True), each with the
+   launch counters zeroed before and read after (K7 12 per decode step,
+   K3/K5 0), RTFx and ms per token-step; each against its plain path in
+   lockstep (greedy >= 0.99; beams: the best beam's rows and the near-tie
+   rule of phase 6); the gate's readings (s8-vs-exact token agreement, max
+   |logit delta| over the forced prompt steps), printed, not enforced; then
+   one greedy batch over the int4 cache (kv_int4=True, plain torch): its
+   token agreement with the exact int8 path and ms per token-step.
+9. result: one JSON line with every kernel's numbers, then the last line
    {"ok": true, "device": {...}}.
 
-With --profile, the routed and beam phases also run PROFILE_STEPS
-steady-state decode steps of the greedy, routed and beam paths under
+With --profile, the routed, beam and s8 phases also run PROFILE_STEPS
+steady-state decode steps of the greedy, routed, beam and s8 paths under
 torch.profiler (after the counted runs), and the train phase one optimizer
 step, and print, for each, the wall and device time per step, the device
 busy share and the kernels that take the most time.
@@ -93,6 +104,7 @@ PROFILE_STEPS = 10
 # larger of its FLOPs over the bf16 tensor-core rate and its bytes (each
 # input read once, each output written once) over the HBM rate.
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
 TIMING_RUNS = 20
 SPIN_CYCLES = 50_000_000  # ~25 ms at the H100's clock: longer than any fn's host dispatch
@@ -145,6 +157,16 @@ K6_PATH_GRAD_REL_TOL = 1.5e-2
 TRAIN_LOSS_REL_TOL = 1e-3
 TRAIN_GRAD_MIN_COS = 0.999
 TRAIN_GRAD_NORM_REL_TOL = 1e-2
+# K7 against its plain version on the same s8 inputs, max |kernel - plain|
+# and that over max |plain|: the integer sums are exact on both sides, so
+# what differs is the fp32 softmax's summation order, which moves a row's
+# scale ps by an ulp (or a re-quantized probability across a .5 boundary)
+# and with it the bf16 rounding of an output. Read 1.2e-4 / 1.25e-3 at
+# K=1 and 2.4e-4 / 2.35e-3 at K=4 (largest entries ~0.1; one bf16 ulp of
+# the largest entry is 3.9e-3 to 7.8e-3 of it): the limits sit ~4x above.
+S8_ABS_TOL = 1e-3
+S8_REL_TOL = 8e-3
+S8_BEAM_WIDTH = 4
 
 
 def fail(msg: str) -> None:
@@ -175,9 +197,9 @@ def time_cuda(fn, runs: int = TIMING_RUNS, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
+def bound(flops: float, nbytes: float, peak_ops: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
     """(least ms the card could take, what bounds it)."""
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    t_ops, t_bytes = flops / peak_ops, nbytes / PEAK_HBM_BYTES
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -396,6 +418,41 @@ def phase_kernels(cfg, device, batch):
                      replaces="sar_tpu/ops/decode_cross.py:219",
                      library_ms=None, beam_width=BEAM_WIDTH, **k5[BEAM_WIDTH],
                      other_widths={K: v for K, v in k5.items() if K != BEAM_WIDTH}))
+
+    # K7: s8 scores over the same slabs, the query quantized per (row,
+    # head) as decode_step does; greedy (q [B, D]) and 4 beams folded.
+    from sar_tpu_torch.models.whisper import quantize_kv
+    for K, row_name in ((1, "cross_decode_attention"), (S8_BEAM_WIDTH, "cross_decode_attention_beam")):
+        qq, qs = quantize_kv(randn(batch, K, H, hd, std=hd ** -0.5))
+        qq = qq.reshape(batch, K, D) if K > 1 else qq.reshape(batch, D)
+        qs = qs.reshape(batch, K * H, 1)
+        abs_err, rel_err = 0.0, 0.0
+        for layer in range(L):
+            o = decode_cross.cross_decode_attention(qq, qs, kq, ks, vq, vs, layer=layer, n_heads=H)
+            r = decode_cross.cross_decode_reference(qq, qs, kq, ks, vq, vs, layer=layer, n_heads=H)
+            a, rr = _attn_errors(o, r)
+            abs_err, rel_err = max(abs_err, a), max(rel_err, rr)
+        torch.cuda.synchronize()
+        def sweep_s8(fn):
+            return lambda: [fn(qq, qs, kq, ks, vq, vs, layer=layer, n_heads=H) for layer in range(L)]
+        ms = time_cuda(sweep_s8(decode_cross.cross_decode_attention)) / L
+        plain_ms = time_cuda(sweep_s8(decode_cross.cross_decode_reference)) / L
+        b_ms, b_by = bound(4.0 * batch * K * H * S * hd,
+                           slab_mb * 1e6 + batch * K * (D + 4 * H + 2 * D), PEAK_INT8_OPS)
+        print(f"K7 cross_decode_attention s8 [B={batch}, K={K}, S_pad={S_pad}, D={D}, all {L} "
+              f"layers] s8 q, s8 cache: max_abs_err {abs_err:.3e} max_rel_err {rel_err:.3e} "
+              f"(tol {S8_ABS_TOL} abs, {S8_REL_TOL} rel) | per call over a {L}-layer sweep: "
+              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms | {slab_mb:.1f} MB of int8 slab + scales -> "
+              f"{slab_mb / ms:.1f} GB/s | bound {b_ms:.4f} ms ({b_by}) | shared memory "
+              f"{decode_cross.s8_shared_bytes(K, S_pad)} B | library: none (no PyTorch call "
+              f"takes s8 attention with per-row scales and re-quantized probabilities)")
+        if abs_err > S8_ABS_TOL or rel_err > S8_REL_TOL:
+            fail(f"K7 (K={K}) disagrees with its plain version")
+        rows.append(dict(name=row_name, route="cuda",
+                         source="sar_tpu_torch/csrc/decode_cross_s8.cu",
+                         replaces="sar_tpu/ops/decode_cross.py:109", library_ms=None,
+                         beam_width=K, max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by))
     return rows
 
 
@@ -578,7 +635,7 @@ def phase_train(cfg, params, device, batch, profile=False):
           f"eval_loss {fmt([e['eval_loss'] for e in evals], '.4f')}, WER "
           f"{fmt([e['wer'] for e in evals], '.3f')} | peak memory {peak_gb:.1f} GB | "
           f"launches {json.dumps(counts)}")
-    check_counts("train", counts, want_zero=KERNEL_NAMES[:5])
+    check_counts("train", counts, want_zero=(*KERNEL_NAMES[:5], *K7_NAMES))
     got = (counts["flash_attention_fwd"], counts["flash_attention_bwd_dq"],
            counts["flash_attention_bwd_dkv"])
     if got != (want_fwd, want_bwd, want_bwd):
@@ -704,15 +761,17 @@ def decode_steps(tokens, cfg, prompt_len: int) -> int:
 
 
 K6_NAMES = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+K7_NAMES = ("cross_decode_attention", "cross_decode_attention_beam")
 KERNEL_NAMES = ("encoder_attention_hm", "fused_kv_init", "fused_kv_init_lora",
                 "cross_decode_attention_exact", "cross_decode_attention_exact_beam",
-                *K6_NAMES)
+                *K6_NAMES, *K7_NAMES)
 
 
 def reset_counts():
     from sar_tpu_torch.ops import decode_cross, flash, flash_enc, kv_init
     flash_enc.LAUNCHES = kv_init.LAUNCHES = kv_init.LORA_LAUNCHES = 0
     decode_cross.LAUNCHES = decode_cross.BEAM_LAUNCHES = 0
+    decode_cross.S8_LAUNCHES = decode_cross.S8_BEAM_LAUNCHES = 0
     flash.LAUNCHES = flash.DQ_LAUNCHES = flash.DKV_LAUNCHES = 0
 
 
@@ -721,7 +780,9 @@ def read_counts() -> dict:
     return dict(zip(KERNEL_NAMES, (flash_enc.LAUNCHES, kv_init.LAUNCHES,
                                    kv_init.LORA_LAUNCHES, decode_cross.LAUNCHES,
                                    decode_cross.BEAM_LAUNCHES, flash.LAUNCHES,
-                                   flash.DQ_LAUNCHES, flash.DKV_LAUNCHES)))
+                                   flash.DQ_LAUNCHES, flash.DKV_LAUNCHES,
+                                   decode_cross.S8_LAUNCHES,
+                                   decode_cross.S8_BEAM_LAUNCHES)))
 
 
 def check_counts(path: str, counts: dict, want_zero: tuple) -> None:
@@ -802,7 +863,8 @@ def phase_e2e(cfg, params, n_params, device, batch, n_batches, max_new_tokens,
     print(f"e2e: {audio_s} audio-s in {wall:.3f} s -> RTFx {audio_s / wall:.1f} | "
           f"{ms_tok:.3f} ms/token-step (batch {batch}) | launches {json.dumps(counts)}")
     check_counts("greedy", counts, want_zero=("fused_kv_init_lora",
-                                              "cross_decode_attention_exact_beam", *K6_NAMES))
+                                              "cross_decode_attention_exact_beam", *K6_NAMES,
+                                              *K7_NAMES))
 
     # Lockstep: both paths fed the kernel path's tokens, argmax compared at
     # every generated position; then the plain path free-running.
@@ -940,7 +1002,8 @@ def phase_routed(cfg, params, device, batch, max_new_tokens, profile=False):
           f"ms/token-step at batch {batch}")
     print(f"routed launches {json.dumps(counts)}")
     check_counts("routed", counts, want_zero=("fused_kv_init",
-                                              "cross_decode_attention_exact_beam", *K6_NAMES))
+                                              "cross_decode_attention_exact_beam", *K6_NAMES,
+                                              *K7_NAMES))
 
     # LID overhead: tap (the first LID_LAYER + 1 encoder layers) + head.
     def lid():
@@ -1054,7 +1117,8 @@ def phase_beam(cfg, params, device, batch, max_new_tokens, profile=False):
           f"{audio_s:.0f} audio-s in {wall:.3f} s -> RTFx {audio_s / wall:.1f} | "
           f"{steps[0]} decode steps | launches {json.dumps(counts)}")
     check_counts("beam", counts, want_zero=("fused_kv_init_lora",
-                                            "cross_decode_attention_exact", *K6_NAMES))
+                                            "cross_decode_attention_exact", *K6_NAMES,
+                                            *K7_NAMES))
     if counts["cross_decode_attention_exact_beam"] != steps[0] * cfg.decoder_layers:
         fail("K5 was not launched once per layer of every beam decode step")
 
@@ -1120,16 +1184,12 @@ def phase_beam(cfg, params, device, batch, max_new_tokens, profile=False):
             if not (torch.isfinite(lk).all() and torch.isfinite(lp).all()):
                 fail(f"beam: non-finite logits at step {pos}")
             if pos + 1 >= P:
-                tk, tp = lk.argmax(-1), lp.argmax(-1)
-                same = tk == tp
-                gap_k = lk.gather(1, tk[:, None]) - lk.gather(1, tp[:, None])
-                gap_p = lp.gather(1, tp[:, None]) - lp.gather(1, tk[:, None])
-                tie = (gap_k[:, 0] <= LOGIT_TIE_TOL) & (gap_p[:, 0] <= LOGIT_TIE_TOL)
+                same, near_ok = lockstep_rows(lk, lp)
                 n += batch * K
                 strict += int(same.sum())
-                near += int((same | tie).sum())
+                near += int(near_ok.sum())
                 best += int(same.reshape(batch, K)[:, 0].sum())
-                twin += int((lt.argmax(-1) == tp).sum())
+                twin += int((lt.argmax(-1) == lp.argmax(-1)).sum())
                 for r in torch.nonzero(~same).flatten().tolist():
                     flips_by_rank[r % K] += 1
                 max_dlogit = max(max_dlogit, (lk - lp).abs().max().item())
@@ -1165,6 +1225,224 @@ def phase_beam(cfg, params, device, batch, max_new_tokens, profile=False):
             _, cache_b = beam_step(None, pos, cache_b)
         profile_steps("beam", beam_step, cache_b, tok_k, P)
     return counts
+
+
+def lockstep_rows(lk, lp):
+    """Per row of two paths' logits [rows, V] fed the same tokens: argmax
+    equal, and equal up to a near tie (the top-2 gap at most LOGIT_TIE_TOL
+    in both paths' own logits)."""
+    tk, tp = lk.argmax(-1), lp.argmax(-1)
+    same = tk == tp
+    gap_k = lk.gather(1, tk[:, None]) - lk.gather(1, tp[:, None])
+    gap_p = lp.gather(1, tp[:, None]) - lp.gather(1, tk[:, None])
+    return same, same | ((gap_k[:, 0] <= LOGIT_TIE_TOL) & (gap_p[:, 0] <= LOGIT_TIE_TOL))
+
+
+def phase_s8(cfg, params, device, batch, n_batches, max_new_tokens, profile=False):
+    """The opt-in quantized decode at full width through ASREvaluator: the
+    greedy cell's clips with scores_int8 (K7, q [B, D]), one batch of beams
+    with scores_int8 (K7 beam-folded, the self cache reordered physically),
+    each counted and held against its plain path in lockstep; the gate's
+    readings against the exact path; one greedy batch over the int4 cache.
+    Returns the launch counts of the counted runs, summed."""
+    import torch
+    from sar_tpu_torch.decode import beam as beam_lib
+    from sar_tpu_torch.evaluation import ASREvaluator
+    from sar_tpu_torch.models import whisper
+    from sar_tpu_torch.ops import mel as mel_ops
+
+    g = torch.Generator(device=device).manual_seed(SEED + 1)      # the greedy cell's clips
+    audio = [torch.randn((batch, mel_ops.N_SAMPLES), generator=g, device=device) * 0.1
+             for _ in range(n_batches)]
+    L, K = cfg.decoder_layers, BEAM_WIDTH
+    kw = dict(language="hindi", max_new_tokens=max_new_tokens, device=device)
+    ev = ASREvaluator(cfg, params, scores_int8=True, **kw)
+    if ev.flash != "hm" or not ev.kernels or not ev.scores_int8:
+        fail(f"the s8 evaluator did not pick the kernels (flash={ev.flash!r})")
+    P = int(ev._prompt.shape[0])
+    steps = [0]
+    real_step = whisper.decode_step
+
+    def counting_step(*a, **k):
+        steps[0] += 1
+        return real_step(*a, **k)
+
+    def counted(fn):
+        """fn() with the launch counters zeroed before and read after and
+        its decode steps counted: (out, counts, steps, wall seconds)."""
+        torch.cuda.synchronize()
+        reset_counts()
+        steps[0] = 0
+        whisper.decode_step = counting_step
+        try:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            whisper.decode_step = real_step
+        return out, read_counts(), steps[0], wall
+
+    def mel(a):
+        return mel_ops.log_mel_spectrogram(a, cfg.num_mel_bins,
+                                           dtype=torch.bfloat16)[:, :, :cfg.num_audio_frames]
+
+    def greedy(evaluator, clips):
+        """mel -> prep -> dec per batch: [(tokens, fenced decode seconds)]."""
+        out = []
+        for a in clips:
+            cache = evaluator.prep(mel(a))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            tokens = evaluator.dec(cache)
+            torch.cuda.synchronize()
+            out.append((tokens, time.perf_counter() - t))
+        return out
+
+    def check_tokens(label, tokens, total):
+        if tokens.shape != (batch, total) or tokens.min() < 0 or tokens.max() >= cfg.vocab_size:
+            fail(f"{label}: bad token tensor {tuple(tokens.shape)}")
+
+    others = [k for k in KERNEL_NAMES if k not in ("encoder_attention_hm", "fused_kv_init")]
+    greedy(ev, audio[:1])                                          # warm-up, not counted
+    outs, c_greedy, n_steps, wall = counted(lambda: greedy(ev, audio))
+    for i, (tokens, _) in enumerate(outs):
+        check_tokens(f"s8 greedy batch {i}", tokens, ev.total)
+    audio_s = n_batches * batch * mel_ops.CHUNK_SECONDS
+    ms_tok = 1e3 * sum(t for _, t in outs) / n_steps
+    print(f"s8 greedy: {audio_s} audio-s in {wall:.3f} s -> RTFx {audio_s / wall:.1f} | "
+          f"{ms_tok:.3f} ms/token-step (batch {batch}, {n_steps} decode steps) | launches "
+          f"{json.dumps(c_greedy)}")
+    check_counts("s8 greedy", c_greedy,
+                 want_zero=tuple(k for k in others if k != "cross_decode_attention"))
+    if c_greedy["cross_decode_attention"] != L * n_steps:
+        fail(f"s8 greedy: K7 launched {c_greedy['cross_decode_attention']} times in "
+             f"{n_steps} decode steps, not {L} per step")
+
+    # Lockstep against the plain path (kernels=False, exact encoder), both
+    # fed the kernel path's tokens; then the gate's readings against the
+    # exact-scores path on the same batch.
+    plain = ASREvaluator(cfg, params, scores_int8=True, flash=False, kernels=False, **kw)
+    exact = ASREvaluator(cfg, params, **kw)
+    tok_k = outs[0][0]
+    f0 = mel(audio[0])
+    lock_steps = decode_steps(tok_k, cfg, P)
+    cache_k, cache_p = ev.prep(f0), plain.prep(f0)
+    agree, n, max_dlogit = 0, 0, 0.0
+    with torch.no_grad():
+        for pos in range(lock_steps):
+            lk, cache_k = whisper.decode_step(params, tok_k[:, pos], pos, cache_k, cfg,
+                                              scores_int8=True)
+            lp, cache_p = whisper.decode_step(params, tok_k[:, pos], pos, cache_p, cfg,
+                                              scores_int8=True, kernels=False)
+            if not (torch.isfinite(lk).all() and torch.isfinite(lp).all()):
+                fail(f"s8: non-finite logits at step {pos}")
+            if pos + 1 >= P:
+                agree += int((lk.argmax(-1) == lp.argmax(-1)).sum())
+                n += batch
+                max_dlogit = max(max_dlogit, (lk - lp).abs().max().item())
+        tok_x = exact.dec(exact.prep(f0))
+        cache_s, cache_x = ev.prep(f0), exact.prep(f0)
+        gate_dlogit = 0.0
+        for pos in range(min(4, P)):                   # the gate's probe: forced prompt steps
+            tok = ev._prompt[pos].expand(batch)
+            ls, cache_s = whisper.decode_step(params, tok, pos, cache_s, cfg, scores_int8=True)
+            lx, cache_x = whisper.decode_step(params, tok, pos, cache_x, cfg)
+            gate_dlogit = max(gate_dlogit, (ls - lx).abs().max().item())
+    lock = agree / max(n, 1)
+    rows_equal = (tok_k == tok_x).all(1).float().mean().item()
+    tok_equal = (tok_k[:, P:] == tok_x[:, P:]).float().mean().item()
+    print(f"s8 greedy vs plain path (batch 0): lockstep argmax agreement {lock:.4f} "
+          f"({agree}/{n} row-steps, need >= {LOCKSTEP_MIN_AGREEMENT}) | max |dlogit| "
+          f"{max_dlogit:.4e} | gate readings against exact scores (not enforced): rows "
+          f"equal {rows_equal:.4f}, tokens equal {tok_equal:.4f}, max |dlogit| over the "
+          f"{min(4, P)} forced prompt steps {gate_dlogit:.4e}")
+    if lock < LOCKSTEP_MIN_AGREEMENT:
+        fail("the s8 kernel path disagrees with the s8 plain path")
+    if profile:
+        step = lambda tok, pos, c: whisper.decode_step(params, tok, pos, c, cfg, scores_int8=True)
+        profile_steps("s8 greedy", step, ev.prep(f0), tok_k, P)
+
+    # Beams: one batch of `batch` samples x K beams, K7 beam-folded.
+    ev_b = ASREvaluator(cfg, params, scores_int8=True, num_beams=K, **kw)
+    tok_b, c_beam, n_beam, wall_b = counted(lambda: ev_b.tokens(f0))
+    check_tokens("s8 beam", tok_b, ev_b.total)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    enc = ev_b.encode(f0)
+    torch.cuda.synchronize()
+    t_enc = time.perf_counter() - t0
+    print(f"s8 beam (batch 0, {batch} samples x {K} beams): {batch * mel_ops.CHUNK_SECONDS} "
+          f"audio-s in {wall_b:.3f} s -> RTFx {batch * mel_ops.CHUNK_SECONDS / wall_b:.1f} | "
+          f"{1e3 * (wall_b - t_enc) / n_beam:.3f} ms/token-step over {n_beam} steps (cache + "
+          f"loop: the wall less a fenced encode of {t_enc * 1e3:.1f} ms) | launches "
+          f"{json.dumps(c_beam)}")
+    check_counts("s8 beam", c_beam,
+                 want_zero=tuple(k for k in others if k != "cross_decode_attention_beam"))
+    if c_beam["cross_decode_attention_beam"] != L * n_beam:
+        fail(f"s8 beam: K7 launched {c_beam['cross_decode_attention_beam']} times in "
+             f"{n_beam} decode steps, not {L} per step")
+
+    # Beam lockstep: kernel and plain paths decode from one beam state,
+    # which the kernel path's selection advances, each reordering its own
+    # self cache by it.
+    total = ev_b.total
+    prompt = ev_b._prompt[None].expand(batch, -1)
+    plain_b = ASREvaluator(cfg, params, scores_int8=True, num_beams=K, flash=False,
+                           kernels=False, **kw)
+    cache_k = whisper.init_cache(params, enc, cfg, total, self_batch=batch * K)
+    cache_p = whisper.init_cache(params, plain_b.encode(f0), cfg, total,
+                                 self_batch=batch * K, kernels=False)
+    state = beam_lib.init_state(prompt, K, total, cfg.eos_token_id)
+    slots = torch.arange(K, device=device)
+    n = strict = near = best = 0
+    with torch.no_grad():
+        for pos in range(total - 1):
+            if not bool(state.unsat.any()):
+                break
+            state.anc[:, :, pos] = slots
+            tok = state.run_seqs.reshape(batch * K, total)[:, pos]
+            lk, cache_k = whisper.decode_step(params, tok, pos, cache_k, cfg, scores_int8=True,
+                                              beam_width=K)
+            lp, cache_p = whisper.decode_step(params, tok, pos, cache_p, cfg, scores_int8=True,
+                                              beam_width=K, kernels=False)
+            if not (torch.isfinite(lk).all() and torch.isfinite(lp).all()):
+                fail(f"s8 beam: non-finite logits at step {pos}")
+            if pos + 1 >= P:
+                same, near_ok = lockstep_rows(lk, lp)
+                n += batch * K
+                strict += int(same.sum())
+                near += int(near_ok.sum())
+                best += int(same.reshape(batch, K)[:, 0].sum())
+            state = beam_lib.beam_select(state, lk, pos, P, eos=cfg.eos_token_id)
+            if pos + 1 >= P:
+                cache_k = beam_lib.reorder_self_cache(cache_k, state.anc[:, :, pos])
+                cache_p = beam_lib.reorder_self_cache(cache_p, state.anc[:, :, pos])
+    replayed = torch.equal(state.fin_seqs[:, 0], tok_b)
+    n = max(n, 1)
+    lock_best, lock_near = best / (n // K), near / n
+    print(f"s8 beam vs plain path (batch 0, K={K}): lockstep argmax agreement {strict / n:.4f} "
+          f"({strict}/{n} row-steps) | best beam's rows {lock_best:.4f} ({best}/{n // K}) and "
+          f"up to near ties (gap <= {LOGIT_TIE_TOL}) {lock_near:.4f}, each need >= "
+          f"{LOCKSTEP_MIN_AGREEMENT} | the lockstep search "
+          f"{'reproduced' if replayed else 'did NOT reproduce'} the kernel path's tokens")
+    if lock_best < LOCKSTEP_MIN_AGREEMENT or lock_near < LOCKSTEP_MIN_AGREEMENT:
+        fail("the s8 beam kernel path disagrees with the s8 beam plain path")
+    del cache_k, cache_p, state
+
+    # int4: one greedy batch over the nibble-packed cache (plain torch; the
+    # encoder is K1's), against the exact int8 path's tokens.
+    ev4 = ASREvaluator(cfg, params, kv_int4=True, **kw)
+    out4, c_int4, n4, _ = counted(lambda: greedy(ev4, audio[:1]))
+    tok4, t4 = out4[0]
+    check_tokens("int4 greedy", tok4, ev4.total)
+    check_counts("int4 greedy", c_int4, want_zero=(*others, "fused_kv_init"))
+    print(f"int4 greedy (batch 0): {1e3 * t4 / n4:.3f} ms/token-step over {n4} steps | "
+          f"against the exact int8 path: rows equal "
+          f"{(tok4 == tok_x).all(1).float().mean().item():.4f}, tokens equal "
+          f"{(tok4[:, P:] == tok_x[:, P:]).float().mean().item():.4f} | launches "
+          f"{json.dumps(c_int4)}")
+    return {k: c_greedy[k] + c_beam[k] + c_int4[k] for k in KERNEL_NAMES}
 
 
 def _cross_reference_fp64(q, kq, ks, vq, vs, *, layer, n_heads, out_dtype=None):
@@ -1240,7 +1518,9 @@ def main() -> int:
                "beam": phase_beam(cfg, params, device, BATCH, MAX_NEW_TOKENS,
                                   profile="--profile" in sys.argv[1:]),
                "train": phase_train(cfg, params, device, BATCH,
-                                    profile="--profile" in sys.argv[1:])}
+                                    profile="--profile" in sys.argv[1:]),
+               "s8": phase_s8(cfg, params, device, BATCH, N_BATCHES, MAX_NEW_TOKENS,
+                              profile="--profile" in sys.argv[1:])}
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}
         r["launches"] = sum(r["launches_by_path"].values())

@@ -31,11 +31,14 @@ Cross K/V are ONE copy per sample, shared by its K beams: `decode_step`
 folds the beam queries into one cross-attention call (kernel K5). The
 self cache holds B*K slots that are never moved: an ancestry matrix
 anc[b, k, t] (the slot that wrote row t of beam k's history) is composed
-per step with `torch.gather` instead of reordering the cache. The self
-cache is allocated at the full length `total`; the JAX package's `segment`
-only shortens its buffers and gives the same tokens, so the argument is
-accepted and changes nothing. `timestamps=True` and the physical-reorder
-path (int4 self-KV, `scores_int8`) are not ported and raise.
+per step with `torch.gather` instead of reordering the cache. The int4
+cache and `scores_int8` (kernel K7) keep the JAX package's physical
+reorder instead: after each step the self cache and its scales are
+gathered by the surviving beams' sources, within each sample (the cross
+slabs stay one per sample). The self cache is allocated at the full length
+`total`; the JAX package's `segment` only shortens its buffers and gives
+the same tokens, so the argument is accepted and changes nothing.
+`timestamps=True` is not ported and raises.
 """
 
 from __future__ import annotations
@@ -163,6 +166,19 @@ def beam_select(state: BeamState, logits: torch.Tensor, pos: int,
                      anc=anc)
 
 
+def reorder_self_cache(cache: whisper.DecodeCache,
+                       src: torch.Tensor) -> whisper.DecodeCache:
+    """The physical reorder of the int4 and scores_int8 beams: the self
+    cache and its scales gathered so that new beam k of sample b takes the
+    rows of beam src[b, k] ([B, K], within the sample); the cross slabs,
+    one per sample, stay."""
+    B, K = src.shape
+    rows = (torch.arange(B, device=src.device)[:, None] * K + src).reshape(-1)
+    return cache._replace(**{
+        f: getattr(cache, f).index_select(1, rows)
+        for f in ("self_k", "self_v", "self_k_scale", "self_v_scale")})
+
+
 @torch.no_grad()
 def beam_decode(params: dict, enc_out: torch.Tensor, cfg: WhisperConfig,
                 prompt_ids, *, num_beams: int = 4,
@@ -178,24 +194,24 @@ def beam_decode(params: dict, enc_out: torch.Tensor, cfg: WhisperConfig,
                 head_minor: bool | None = None,
                 kernels: bool = True) -> torch.Tensor:
     """Beam search over an int8 head-minor cache built from `enc_out`
-    [B, S, D]. prompt_ids: [P] or [B, P]. Returns the best beam of each
+    [B, S, D], or an int4 classic one (cross_kv_int4 = self_kv_int4 =
+    True). prompt_ids: [P] or [B, P]. Returns the best beam of each
     sample, [B, min(P + max_new_tokens, max_target_positions)] int64;
     positions after its EOS are EOS.
 
     `lora` (a bank) adapts the cache build and every step, with adapter 0
     for the batch or `adapter_idx` [B] per sample (repeated K times for the
-    steps). `kernels=False` runs the plain versions of the kernels on any
-    device. `segment` changes no token (see the module docstring)."""
+    steps). `scores_int8` decodes with s8 scores (kernel K7). `kernels=False`
+    runs the plain versions of the kernels on any device. `segment` changes
+    no token (see the module docstring)."""
     del segment
     if timestamps:
         raise NotImplementedError("beam_decode(timestamps=True) is not ported")
-    if cross_kv_int4 or self_kv_int4 or scores_int8:
+    int4 = cross_kv_int4 or self_kv_int4
+    if not int4 and (head_minor is False or not (cross_kv_int8 and self_kv_int8)):
         raise NotImplementedError(
-            "beam_decode keeps the reorder-free int8 self cache only; int4 "
-            "KV and scores_int8 (the physical-reorder path) are not ported")
-    if head_minor is False or not (cross_kv_int8 and self_kv_int8):
-        raise NotImplementedError(
-            "the port's decode cache is the int8 head-minor variant only")
+            "the port's beam cache is the int8 head-minor variant or the int4 "
+            "classic one")
     B = enc_out.shape[0]
     K = num_beams
     dev = enc_out.device
@@ -207,6 +223,8 @@ def beam_decode(params: dict, enc_out: torch.Tensor, cfg: WhisperConfig,
     eos = cfg.eos_token_id
     cache = whisper.init_cache(params, enc_out, cfg, max_len=total, lora=lora,
                                adapter_idx=adapter_idx, lora_scale=lora_scale,
+                               cross_kv_int4=cross_kv_int4,
+                               self_kv_int4=self_kv_int4, head_minor=head_minor,
                                self_batch=B * K, kernels=kernels)
     idx_k = (None if adapter_idx is None else
              torch.as_tensor(adapter_idx, device=dev).repeat_interleave(K))
@@ -217,6 +235,7 @@ def beam_decode(params: dict, enc_out: torch.Tensor, cfg: WhisperConfig,
                       if begin_suppress_ids else None)
     state = init_state(prompt, K, total, eos)
     slots = torch.arange(K, device=dev)
+    use_anc = K > 1 and not (int4 or scores_int8)
     for pos in range(total - 1):
         if not bool(state.unsat.any()):
             break
@@ -226,11 +245,15 @@ def beam_decode(params: dict, enc_out: torch.Tensor, cfg: WhisperConfig,
         logits, cache = whisper.decode_step(
             params, state.run_seqs.reshape(B * K, total)[:, pos], pos, cache,
             cfg, lora=lora, adapter_idx=idx_k, lora_scale=lora_scale,
-            beam_width=K, ancestry=state.anc if K > 1 else None,
-            kernels=kernels)
+            scores_int8=scores_int8, beam_width=K,
+            ancestry=state.anc if use_anc else None, kernels=kernels)
         state = beam_select(state, logits, pos, P,
                             length_penalty=length_penalty, eos=eos,
                             suppress=suppress, begin_suppress=begin_suppress)
+        if K > 1 and not use_anc and pos + 1 >= P:
+            # Physical reorder: after the selection, column `pos` of the
+            # ancestry holds each new beam's source slot (alive_src).
+            cache = reorder_self_cache(cache, state.anc[:, :, pos])
     # The finished slots stay sorted descending; slot 0 is the best (the
     # max-length finalization guarantees one exists).
     return state.fin_seqs[:, 0]

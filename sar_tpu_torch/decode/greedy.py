@@ -8,8 +8,10 @@ emitted EOS keep emitting EOS, and the loop stops early once every row has
 finished (one host sync per step reads that flag). Suppress-token masking
 is available and off by default.
 
-The cache is the int8 head-minor one by default, or the unquantized
-classic one (`cross_kv_int8=False, self_kv_int8=False`). The self cache
+The cache is the int8 head-minor one by default, the int4 classic one
+(`cross_kv_int4=True, self_kv_int4=True`), or the unquantized classic one
+(`cross_kv_int8=False, self_kv_int8=False`); `scores_int8` takes the
+decode steps over the int8 cache to s8 scores (kernel K7). The self cache
 is allocated at the full length `total`: the reference's
 `segment` option only shortens the self-attention buffers and yields tokens
 identical to `segment=0`. Sampling, timestamps, logprobs and segmenting
@@ -31,13 +33,18 @@ def greedy_decode(params: dict, enc_out: torch.Tensor, cfg: WhisperConfig,
                   lora_scale: float = 1.0,
                   suppress_ids: tuple[int, ...] = (),
                   cross_kv_int8: bool = True, self_kv_int8: bool = True,
+                  cross_kv_int4: bool = False, self_kv_int4: bool = False,
+                  scores_int8: bool = False,
                   kernels: bool = True) -> torch.Tensor:
     """Greedy decode over a cache built from `enc_out`: the int8 head-minor
-    one (the default, serving's), or with cross_kv_int8 = self_kv_int8 =
-    False the unquantized classic one (the JAX package's default, which its
-    trainer's evaluation takes). prompt_ids: [P] or [B, P] (e.g.
-    cfg.prompt_ids(lang)). `lora` (a bank) adapts the cache build and every
-    step, with adapter 0 for the batch or `adapter_idx` [B] per row.
+    one (the default, serving's), the int4 classic one (the int4 flags
+    supersede the int8 ones), or with cross_kv_int8 = self_kv_int8 = False
+    the unquantized classic one (the JAX package's default, which its
+    trainer's evaluation takes); the layout is `whisper.use_head_minor`'s.
+    `scores_int8` decodes over the int8 cache with s8 scores (K7).
+    prompt_ids: [P] or [B, P] (e.g. cfg.prompt_ids(lang)). `lora` (a bank)
+    adapts the cache build and every step, with adapter 0 for the batch or
+    `adapter_idx` [B] per row.
     Returns [B, min(P + max_new_tokens, max_target_positions)] int64;
     positions after EOS are EOS."""
     P = torch.as_tensor(prompt_ids).shape[-1]
@@ -46,11 +53,12 @@ def greedy_decode(params: dict, enc_out: torch.Tensor, cfg: WhisperConfig,
                                adapter_idx=adapter_idx, lora_scale=lora_scale,
                                cross_kv_int8=cross_kv_int8,
                                self_kv_int8=self_kv_int8,
-                               head_minor=cross_kv_int8 and self_kv_int8,
-                               kernels=kernels)
+                               cross_kv_int4=cross_kv_int4,
+                               self_kv_int4=self_kv_int4, kernels=kernels)
     return greedy_decode_from_cache(params, cache, cfg, prompt_ids, lora=lora,
                                     adapter_idx=adapter_idx,
                                     lora_scale=lora_scale,
+                                    scores_int8=scores_int8,
                                     suppress_ids=suppress_ids, kernels=kernels)
 
 
@@ -59,10 +67,12 @@ def greedy_decode_from_cache(params: dict, cache: whisper.DecodeCache,
                              cfg: WhisperConfig, prompt_ids, *,
                              lora: dict | None = None, adapter_idx=None,
                              lora_scale: float = 1.0,
+                             scores_int8: bool = False,
                              suppress_ids: tuple[int, ...] = (),
                              kernels: bool = True) -> torch.Tensor:
     """The decode loop alone, from a prepared DecodeCache; the total length
-    is the self cache's max_len. The self cache is written in place."""
+    is the self cache's max_len. The self cache is written in place.
+    `scores_int8` needs the int8 cache (see whisper.decode_step)."""
     B = cache.cross_k.shape[1]
     dev = cache.cross_k.device
     prompt = torch.as_tensor(prompt_ids, dtype=torch.int64, device=dev)
@@ -84,6 +94,7 @@ def greedy_decode_from_cache(params: dict, cache: whisper.DecodeCache,
                                             cfg, lora=lora,
                                             adapter_idx=adapter_idx,
                                             lora_scale=lora_scale,
+                                            scores_int8=scores_int8,
                                             kernels=kernels)
         if suppress is not None:
             logits[:, suppress] = torch.finfo(torch.float32).min

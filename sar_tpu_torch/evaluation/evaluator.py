@@ -1,15 +1,18 @@
 """Batched transcription and corpus WER/CER (counterpart of
-sar_tpu/evaluation/evaluator.py::ASREvaluator, int8-KV greedy and beam
-decoding, with or without one LoRA adapter).
+sar_tpu/evaluation/evaluator.py::ASREvaluator, int8-KV or int4-KV greedy
+and beam decoding, with or without one LoRA adapter).
 
 Greedy runs two phases per batch, as in the reference: `prep` (encoder +
-the int8 head-minor cross-KV cache) and `dec` (the greedy loop over that
-cache). Beam search (`num_beams` > 1) runs the encoder alone and then
+the int8 head-minor cross-KV cache, or the int4 classic one) and `dec`
+(the greedy loop over that cache). Beam search (`num_beams` > 1) runs the encoder alone and then
 `beam_decode`, which builds its own cache (one cross slab per sample,
 B*K self-cache rows). `evaluate` transcribes a dataloader's split and
 returns corpus WER/CER; `evaluate_per_sample`, `analyze` and
-`save_results` are the JAX evaluator's. Meshes, temperature fallback,
-int4 KV, int8 scores and a bf16 cache are not ported and raise
+`save_results` are the JAX evaluator's. The opt-in quantized decode is
+the JAX evaluator's too: `scores_int8` (s8 scores over the int8 cache,
+kernel K7) and `kv_int4` (the nibble-packed int4 cache, which supersedes
+kv_int8), with its checks (`quantized_decode_options`). Meshes,
+temperature fallback and a bf16 cache are not ported and raise
 NotImplementedError.
 
 The evaluator runs on the CUDA card unless `device` says otherwise (see
@@ -39,8 +42,24 @@ from sar_tpu_torch.training.metrics import (analyze_errors, compute_metrics,
 logger = logging.getLogger(__name__)
 
 
+def quantized_decode_options(kv_int8: bool, kv_int4: bool,
+                             scores_int8: bool) -> tuple[bool, bool]:
+    """The JAX evaluator's rules for the quantized decode flags: int4
+    supersedes int8, and scores_int8 needs the int8 cache (so it does not
+    compose with int4). Returns the effective (kv_int8, kv_int4); raises
+    ValueError with the JAX package's messages."""
+    kv_int8 = kv_int8 and not kv_int4
+    if scores_int8 and kv_int4:
+        raise ValueError("scores_int8 (the s8-MXU path) does not compose "
+                         "with an int4-packed KV cache")
+    if scores_int8 and not kv_int8:
+        raise ValueError("scores_int8 requires kv_int8=True")
+    return kv_int8, kv_int4
+
+
 class ASREvaluator:
-    """Greedy or beam int8-KV transcription of whole batches on one device.
+    """Greedy or beam int8-KV (or int4-KV) transcription of whole batches
+    on one device.
 
     `lora` is a bank whose adapter 0 adapts every row (a single adapter, as
     the JAX evaluator takes it), with `lora_scale` = alpha / r; its cross_v
@@ -56,16 +75,22 @@ class ASREvaluator:
                  task: str = "transcribe", kv_int4: bool = False,
                  device: torch.device | str | None = None,
                  kernels: bool = True):
-        lacking = {"kv_int8=False": not kv_int8, "mesh": mesh is not None,
-                   "scores_int8": scores_int8, "fallback": fallback,
-                   "kv_int4": kv_int4}
+        lacking = {"kv_int8=False (a bf16 cache)": not (kv_int8 or kv_int4),
+                   "mesh": mesh is not None, "fallback": fallback}
         missing = [name for name, asked in lacking.items() if asked]
         if missing:
             raise NotImplementedError(
-                f"sar_tpu_torch ASREvaluator has int8-KV greedy and beam "
-                f"decoding only; not yet ported: {', '.join(missing)}")
+                f"sar_tpu_torch ASREvaluator has int8-KV and int4-KV greedy "
+                f"and beam decoding only; not yet ported: {', '.join(missing)}")
         if num_beams < 1:
             raise ValueError(f"num_beams must be >= 1, got {num_beams}")
+        self.kv_int8, self.kv_int4 = quantized_decode_options(
+            kv_int8, kv_int4, scores_int8)
+        if scores_int8 and num_beams > 1:
+            logger.info("beams + scores_int8 fold each sample's beams into "
+                        "one s8 cross-attention call (K7) and reorder the "
+                        "self cache physically each step")
+        self.scores_int8 = scores_int8
         self.cfg = cfg
         self.device = resolve_device(device)
         self.params = tree_to(params, self.device)
@@ -101,6 +126,8 @@ class ASREvaluator:
         return whisper.init_cache(self.params, self.encode(mel), self.cfg,
                                   max_len=self.total, lora=self.lora,
                                   lora_scale=self.lora_scale,
+                                  cross_kv_int4=self.kv_int4,
+                                  self_kv_int4=self.kv_int4,
                                   kernels=self.kernels)
 
     def dec(self, cache: whisper.DecodeCache, prompts=None) -> torch.Tensor:
@@ -111,6 +138,7 @@ class ASREvaluator:
         return greedy_decode_from_cache(self.params, cache, self.cfg, prompts,
                                         lora=self.lora,
                                         lora_scale=self.lora_scale,
+                                        scores_int8=self.scores_int8,
                                         kernels=self.kernels)
 
     def beam(self, mel: torch.Tensor, prompts=None) -> torch.Tensor:
@@ -120,7 +148,9 @@ class ASREvaluator:
         return beam_decode(self.params, self.encode(mel), self.cfg, prompts,
                            num_beams=self.num_beams,
                            max_new_tokens=self.max_new_tokens, lora=self.lora,
-                           lora_scale=self.lora_scale, kernels=self.kernels)
+                           lora_scale=self.lora_scale,
+                           cross_kv_int4=self.kv_int4, self_kv_int4=self.kv_int4,
+                           scores_int8=self.scores_int8, kernels=self.kernels)
 
     def tokens(self, mel: torch.Tensor, prompts=None) -> torch.Tensor:
         """One batch's tokens [B, total]: beam search when num_beams > 1,

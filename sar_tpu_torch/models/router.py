@@ -109,14 +109,17 @@ class AdapterRouter:
 
     @torch.no_grad()
     def cache(self, enc: torch.Tensor, adapter_idx: torch.Tensor,
-              max_new_tokens: int = 256) -> whisper.DecodeCache:
+              max_new_tokens: int = 256,
+              kv_int4: bool = False) -> whisper.DecodeCache:
         """The int8 head-minor cache of the adapted encoder output, with
-        each row's cross_v adapter (kernel K4)."""
+        each row's cross_v adapter (kernel K4); or, with `kv_int4`, the
+        int4 classic one (plain torch projections)."""
         total = min(self.prompt_len + max_new_tokens,
                     self.cfg.max_target_positions)
         return whisper.init_cache(self.base_params, enc, self.cfg, total,
                                   lora=self._bank, adapter_idx=adapter_idx,
                                   lora_scale=self.lora_cfg.scale,
+                                  cross_kv_int4=kv_int4, self_kv_int4=kv_int4,
                                   kernels=self.kernels)
 
     def decode_from_cache(self, cache: whisper.DecodeCache,
@@ -129,10 +132,10 @@ class AdapterRouter:
             lora_scale=self.lora_cfg.scale, kernels=self.kernels)
 
     def decode(self, enc: torch.Tensor, adapter_idx: torch.Tensor,
-               max_new_tokens: int = 256) -> torch.Tensor:
+               max_new_tokens: int = 256, kv_int4: bool = False) -> torch.Tensor:
         """Routed greedy decode: `cache`, then `decode_from_cache`."""
         return self.decode_from_cache(
-            self.cache(enc, adapter_idx, max_new_tokens), adapter_idx)
+            self.cache(enc, adapter_idx, max_new_tokens, kv_int4), adapter_idx)
 
     @torch.no_grad()
     def step(self, tokens: torch.Tensor, pos: int, cache: whisper.DecodeCache,

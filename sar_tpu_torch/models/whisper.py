@@ -29,7 +29,17 @@ The cross_v LoRA term of the int8 cache build rides kernel K4
 self-cache rows (`self_batch`); `decode_step(beam_width=K, ancestry=...)`
 folds the K beam queries of a sample into one cross-attention call (kernel
 K5) and reads the never-moved self cache through the ancestry matrix
-(`_self_attention_beam`). int4 raises NotImplementedError.
+(`_self_attention_beam`).
+
+The opt-in quantized decode: `decode_step(scores_int8=True)` over the int8
+head-minor cache quantizes the cross query and the probabilities too, so
+both cross contractions are s8 x s8 with exact integer sums (kernel K7,
+`_cross_attention_int8_mxu`), and the self-attention takes the same math
+in plain torch (`_attention_int8_mxu`). `init_cache(cross_kv_int4=True,
+self_kv_int4=True)` builds the classic nibble-packed int4 cache
+(`quantize_kv4`: [.., hd/2] s8 bytes, two int4 lanes each), which
+`decode_step` tells apart by its hd/2 axis and reads with `_attention_int4`
+(plain torch, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -45,8 +55,11 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from sar_tpu_torch.models.config import WhisperConfig
 from sar_tpu_torch.ops import flash as flash_ops
-from sar_tpu_torch.ops.decode_cross import (cross_decode_attention_exact,
-                                            cross_decode_reference_exact)
+from sar_tpu_torch.ops.decode_cross import (cross_decode_attention,
+                                            cross_decode_attention_exact,
+                                            cross_decode_reference,
+                                            cross_decode_reference_exact,
+                                            int_einsum)
 from sar_tpu_torch.ops.flash_enc import encoder_attention_hm
 from sar_tpu_torch.ops.kv_init import (fused_kv_init, fused_kv_init_reference,
                                       quantize_rows)
@@ -562,13 +575,17 @@ def cross_pad_len(s: int) -> int:
 
 
 class DecodeCache(NamedTuple):
-    """KV cache for autoregressive decode, in one of two variants of the
+    """KV cache for autoregressive decode, in one of three variants of the
     reference's DecodeCache.
 
     Int8 head-minor (serving): cross K/V are HEAD-MINOR [L, B, S_pad, H*hd]
     int8 with head-major per-(row, head) scales [L, B, H, S_pad]; padded
     rows carry scale 0. The self cache is classic [L, B, H, max_len, hd]
     int8 with scales [L, B, H, max_len].
+
+    Int4 classic (the `kv_int4` opt-in): cross K/V [L, B, H, S, hd/2] and
+    self K/V [L, B, H, max_len, hd/2], nibble-packed s8 (`quantize_kv4`),
+    with scales [L, B, H, S] and [L, B, H, max_len].
 
     Unquantized classic (the trainer's evaluation): cross K/V
     [L, B, H, S, hd] and self K/V [L, B, H, max_len, hd] in the compute
@@ -594,13 +611,52 @@ def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return q.to(torch.int8), scale
 
 
+def quantize_kv4(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row int4, nibble-packed: x [.., S, hd] -> ([.., S, hd/2]
+    s8 bytes carrying two int4 lanes, [.., S] scales). Packing is by
+    contiguous HALVES of the row, not interleaved pairs: the low nibble of
+    byte j holds lane j, the high nibble lane hd/2 + j (two's complement).
+    The bytes are assembled in int32, where every value fits, and equal the
+    JAX package's int8 shifts bit for bit."""
+    hd = x.shape[-1]
+    if hd % 2:
+        raise ValueError("int4 packing needs an even head_dim")
+    x32 = x.float()
+    scale = x32.abs().amax(-1).clamp_min(1e-8) / 7.0
+    q = torch.clamp(torch.round(x32 / scale[..., None]), -7, 7).int()
+    packed = (q[..., hd // 2:] << 4) | (q[..., :hd // 2] & 15)   # in [-112, 127]
+    return packed.to(torch.int8), scale
+
+
+def unpack_kv4(p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Inverse of quantize_kv4's packing: [.., hd/2] bytes -> (low-half
+    lanes, high-half lanes), both s8 in [-8, 7]: the low nibble
+    sign-extended, the high nibble by an arithmetic shift."""
+    p32 = p.int()
+    lo = ((p32 & 15) ^ 8) - 8
+    return lo.to(torch.int8), (p32 >> 4).to(torch.int8)
+
+
+def use_head_minor(*, cross_kv_int8: bool, self_kv_int8: bool,
+                   cross_kv_int4: bool = False,
+                   self_kv_int4: bool = False) -> bool:
+    """The cross-KV layout of a decode path: head-minor slabs (the layout
+    K3, K5 and K7 stream) for a full int8 KV cache, the classic layout
+    for int4 packing or an unquantized cache. The JAX package also keeps
+    a classic int8 layout (for a CPU run without scores_int8, and meshes);
+    the port's int8 cache is head-minor on every device."""
+    return (cross_kv_int8 and self_kv_int8
+            and not (cross_kv_int4 or self_kv_int4))
+
+
 def init_cache(params: Params, enc_out: torch.Tensor, cfg: WhisperConfig,
                max_len: int, *, lora: Params | None = None,
                adapter_idx=None, lora_scale: float = 1.0,
                cross_kv_int8: bool = True,
-               self_kv_int8: bool = True, head_minor: bool = True,
+               self_kv_int8: bool = True, head_minor: bool | None = None,
                self_batch: int | None = None,
-               kernels: bool = True) -> DecodeCache:
+               kernels: bool = True, cross_kv_int4: bool = False,
+               self_kv_int4: bool = False) -> DecodeCache:
     """Project + quantize the cross K/V once per batch (fused_kv_init) and
     allocate the zeroed int8 self cache of `max_len` positions.
 
@@ -617,17 +673,32 @@ def init_cache(params: Params, enc_out: torch.Tensor, cfg: WhisperConfig,
     `kernels=False` runs the plain PyTorch version on any device (the
     reference path the card's results are compared with).
 
-    cross_kv_int8 = self_kv_int8 = head_minor = False builds the
-    unquantized classic cache instead (`_init_cache_plain`), the JAX
-    package's default, which its trainer's evaluation decodes through."""
-    if not (cross_kv_int8 or self_kv_int8 or head_minor):
-        return _init_cache_plain(params, enc_out, cfg, max_len, lora=lora,
-                                 adapter_idx=adapter_idx,
-                                 lora_scale=lora_scale, self_batch=self_batch)
+    `head_minor` defaults to `use_head_minor`'s choice. cross_kv_int8 =
+    self_kv_int8 = False builds the unquantized classic cache instead
+    (`_init_cache_classic`), the JAX package's default, which its trainer's
+    evaluation decodes through; cross_kv_int4 = self_kv_int4 = True (which
+    supersede the int8 flags) the classic int4 one."""
+    int4 = cross_kv_int4 or self_kv_int4
+    if head_minor is None:
+        head_minor = use_head_minor(cross_kv_int8=cross_kv_int8,
+                                    self_kv_int8=self_kv_int8,
+                                    cross_kv_int4=cross_kv_int4,
+                                    self_kv_int4=self_kv_int4)
+    if head_minor and int4:
+        raise ValueError("head_minor (the s8-kernel layout) does not support "
+                         "int4 packing")
+    if int4 and not (cross_kv_int4 and self_kv_int4):
+        raise NotImplementedError("the port's int4 cache packs the cross and "
+                                  "the self K/V both")
+    if int4 or not (cross_kv_int8 or self_kv_int8 or head_minor):
+        return _init_cache_classic(params, enc_out, cfg, max_len, lora=lora,
+                                   adapter_idx=adapter_idx,
+                                   lora_scale=lora_scale,
+                                   self_batch=self_batch, int4=int4)
     if not (cross_kv_int8 and self_kv_int8 and head_minor):
         raise NotImplementedError(
-            "the port's decode cache is the int8 head-minor variant or the "
-            "unquantized classic one")
+            "the port's decode cache is the int8 head-minor variant, the "
+            "int4 classic one or the unquantized classic one")
     dec = params["decoder"]
     B, S, _ = enc_out.shape
     H, hd = cfg.decoder_heads, cfg.d_model // cfg.decoder_heads
@@ -665,15 +736,17 @@ def init_cache(params: Params, enc_out: torch.Tensor, cfg: WhisperConfig,
         self_v_scale=torch.zeros((L, SB, H, max_len), device=dev))
 
 
-def _init_cache_plain(params: Params, enc_out: torch.Tensor,
-                      cfg: WhisperConfig, max_len: int, *,
-                      lora: Params | None = None, adapter_idx=None,
-                      lora_scale: float = 1.0,
-                      self_batch: int | None = None) -> DecodeCache:
-    """The unquantized classic cache (plain torch, as the JAX package's jnp
-    body): cross K/V [L, B, H, S, hd] in the compute dtype, each layer's
-    (adapted) projection of `enc_out`, and a zeroed self cache
-    [L, self_batch, H, max_len, hd]; no scales."""
+def _init_cache_classic(params: Params, enc_out: torch.Tensor,
+                        cfg: WhisperConfig, max_len: int, *,
+                        lora: Params | None = None, adapter_idx=None,
+                        lora_scale: float = 1.0,
+                        self_batch: int | None = None,
+                        int4: bool = False) -> DecodeCache:
+    """A classic-layout cache (plain torch, as the JAX package's jnp body):
+    each layer's (adapted) projection of `enc_out` split into heads, cross
+    K/V [L, B, H, S, hd] in the compute dtype and a zeroed self cache
+    [L, self_batch, H, max_len, hd] with no scales; or, with `int4`, both
+    nibble-packed by `quantize_kv4` ([.., hd/2] s8, fp32 scales)."""
     lay = params["decoder"]["layers"]
     B = enc_out.shape[0]
     H, hd = cfg.decoder_heads, cfg.d_model // cfg.decoder_heads
@@ -685,14 +758,20 @@ def _init_cache_plain(params: Params, enc_out: torch.Tensor,
         p, lo = _layer(lay, l), (_layer(dec_lora, l) if dec_lora else {})
         ks.append(split_heads(_proj(enc_out, p["cross_k"], lo.get("cross_k"), ctx, 5), H))
         vs.append(split_heads(_proj(enc_out, p["cross_v"], lo.get("cross_v"), ctx, 6), H))
+    ck, cv = torch.stack(ks), torch.stack(vs)
+    cks = cvs = None
+    if int4:
+        (ck, cks), (cv, cvs) = quantize_kv4(ck), quantize_kv4(cv)
     SB = B if self_batch is None else self_batch
-    shape = (L, SB, H, max_len, hd)
+    dev = enc_out.device
+    shape = (L, SB, H, max_len, hd // 2 if int4 else hd)
+    dtype = torch.int8 if int4 else enc_out.dtype
     return DecodeCache(
-        self_k=torch.zeros(shape, dtype=enc_out.dtype, device=enc_out.device),
-        self_v=torch.zeros(shape, dtype=enc_out.dtype, device=enc_out.device),
-        cross_k=torch.stack(ks), cross_v=torch.stack(vs),
-        cross_k_scale=None, cross_v_scale=None,
-        self_k_scale=None, self_v_scale=None)
+        self_k=torch.zeros(shape, dtype=dtype, device=dev),
+        self_v=torch.zeros(shape, dtype=dtype, device=dev),
+        cross_k=ck, cross_v=cv, cross_k_scale=cks, cross_v_scale=cvs,
+        self_k_scale=torch.zeros(shape[:4], device=dev) if int4 else None,
+        self_v_scale=torch.zeros(shape[:4], device=dev) if int4 else None)
 
 
 def _cross_kv_torch(enc_pad, lay, dec_lora, n_heads, t_valid, ctx):
@@ -728,6 +807,61 @@ def _attention_int8(q, kq, ks, vq, vs, mask=None):
     probs = torch.softmax(scores, dim=-1)
     pw = (probs * vs[:, :, None, :]).to(dtype)
     return torch.matmul(pw.float(), vq.float()).to(dtype)
+
+
+def _attention_int8_mxu(q, kq, ks, vq, vs, mask=None):
+    """s8 twin of _attention_int8 (the self-attention of `scores_int8`):
+    the query row and the probabilities are also quantized per row to s8,
+    so both products are s8 x s8 with exact integer sums (`int_einsum`),
+    scaled after the product. Plain torch, as in the JAX package."""
+    qq, qs = quantize_kv(q)                                       # [B,H,1,hd], [B,H,1]
+    scores = int_einsum("bhqd,bhsd->bhqs", qq, kq) * qs[..., None] * ks[:, :, None, :]
+    if mask is not None:
+        scores = torch.where(mask, scores, torch.finfo(torch.float32).min)
+    probs = torch.softmax(scores, dim=-1)
+    pq, ps = quantize_kv(probs * vs[:, :, None, :])               # [B,H,1,S], [B,H,1]
+    return (int_einsum("bhqs,bhsd->bhqd", pq, vq) * ps[..., None]).to(q.dtype)
+
+
+def _attention_int4(q, kp, ks, vp, vs, mask=None):
+    """int4 twin of _attention_int8: kp/vp nibble-PACKED [B,H,S,hd/2]
+    (quantize_kv4), ks/vs [B,H,S] fp32; q [B,H,Q,hd] -> [B,H,Q,hd]. Each
+    product splits into two half-width products over the unpacked nibble
+    planes: scores = q_lo . k_lo + q_hi . k_hi, out = concat(p . v_lo,
+    p . v_hi); the scales multiply outside, as in the int8 path."""
+    dtype = q.dtype
+    hd2 = kp.shape[-1]
+    kl, kh = unpack_kv4(kp)
+    scores = (torch.matmul(q[..., :hd2].float(), kl.float().transpose(-1, -2))
+              + torch.matmul(q[..., hd2:].float(), kh.float().transpose(-1, -2)))
+    scores = scores * ks[:, :, None, :]
+    if mask is not None:
+        scores = torch.where(mask, scores, torch.finfo(torch.float32).min)
+    probs = torch.softmax(scores, dim=-1)
+    pw = (probs * vs[:, :, None, :]).to(dtype).float()
+    vl, vh = unpack_kv4(vp)
+    return torch.cat([torch.matmul(pw, vl.float()), torch.matmul(pw, vh.float())],
+                     dim=-1).to(dtype)
+
+
+def _cross_attention_int8_mxu(q, kq, ks, vq, vs, *, layer: int, n_heads: int,
+                              beam_width: int = 1,
+                              kernels: bool = True) -> torch.Tensor:
+    """The cross-attention of `scores_int8` over layer `layer` of the
+    head-minor slabs (kq/vq [L, B/K, S_pad, D], ks/vs [L, B/K, H, S_pad]):
+    the pre-scaled query q [B, 1, D] is quantized per (row, head), the K
+    beams of a sample folded into one call (qq [B/K, K, D], qs
+    [B/K, K*H, 1], row k*H + h), then kernel K7 or, with kernels=False, its
+    plain version. Returns [B, 1, D] in q's dtype. The counterpart of the
+    JAX package's jnp twin and of its fused s8 kernel's call."""
+    B, _, D = q.shape
+    K, H = beam_width, n_heads
+    qq, qs = quantize_kv(q.reshape(B // K, K, H, D // H))
+    fn = cross_decode_attention if kernels else cross_decode_reference
+    o = fn(qq.reshape(B // K, K, D) if K > 1 else qq.reshape(B, D),
+           qs.reshape(B // K, K * H, 1), kq, ks, vq, vs, layer=layer,
+           n_heads=H, out_dtype=q.dtype)
+    return o.reshape(B, 1, D)
 
 
 def _self_attention_beam(qh, sk, sv, sks, svs, anc, pos: int,
@@ -774,41 +908,57 @@ def logits_weight(dec: Params) -> torch.Tensor:
 def decode_step(params: Params, tokens: torch.Tensor, pos: int,
                 cache: DecodeCache, cfg: WhisperConfig, *,
                 lora: Params | None = None, adapter_idx=None,
-                lora_scale: float = 1.0,
+                lora_scale: float = 1.0, scores_int8: bool = False,
                 beam_width: int = 1, ancestry: torch.Tensor | None = None,
                 kernels: bool = True) -> tuple[torch.Tensor, DecodeCache]:
     """One autoregressive step. tokens: [B] int64 at position `pos` (< the
     self cache's max_len). Returns (logits [B, V] fp32, cache), the self
     cache updated in place at column `pos`.
 
-    The cross path goes through the decode kernel (ops/decode_cross.py);
-    `kernels=False` runs its plain version on any device. `lora` adapts
-    the decoder hooks it holds (self_q/k/v/o, cross_q/o; cross_k/v live in
-    the cache), per row when `adapter_idx` is given.
+    The cross path over the int8 head-minor cache goes through a decode
+    kernel (ops/decode_cross.py): K3/K5, or K7 with `scores_int8`, which
+    also takes the self-attention to s8 (`_attention_int8_mxu`);
+    `kernels=False` runs the kernels' plain versions on any device. An int4
+    cache (told apart by its hd/2 axis) is read by `_attention_int4`.
+    `lora` adapts the decoder hooks it holds (self_q/k/v/o, cross_q/o;
+    cross_k/v live in the cache), per row when `adapter_idx` is given.
 
     `beam_width` K > 1: rows are beam-major groups of K per sample (row
     b*K+k = sample b, beam k) over a cache whose cross slabs hold ONE copy
     per sample; the K queries of a sample are folded into one cross call
-    (q [B/K, K, D], kernel K5), so each slab is read once for its beams.
-    `ancestry` [B/K, K, max_len] (beam mode only) reads the self cache as
+    (q [B/K, K, D], kernel K5 or K7), so each slab is read once for its
+    beams. `ancestry` [B/K, K, max_len] (beam mode only, not with int4 or
+    scores_int8, whose beams reorder the self cache) reads the self cache as
     slot-major (`_self_attention_beam`); its column `pos` must be the
     identity, since each beam writes its own slot at this step."""
+    H = cfg.decoder_heads
+    half = cfg.d_model // H // 2
     plain_cache = cache.self_k_scale is None
+    self_int4 = not plain_cache and cache.self_k.shape[-1] == half
+    cross_int4 = (cache.cross_k_scale is not None and cache.cross_k.dim() == 5
+                  and cache.cross_k.shape[-1] == half)
     if plain_cache and (cache.cross_k.dim() != 5 or beam_width != 1):
         raise NotImplementedError(
             "the unquantized classic cache decodes with beam width 1 only")
-    if not plain_cache and cache.cross_k.dim() != 4:
+    if not plain_cache and not cross_int4 and cache.cross_k.dim() != 4:
         raise NotImplementedError("decode_step takes the int8 head-minor "
-                                  "cache or the unquantized classic one")
-    if ancestry is not None and beam_width <= 1:
+                                  "cache, the int4 classic one or the "
+                                  "unquantized classic one")
+    if scores_int8 and (plain_cache or cache.cross_k_scale is None):
+        raise ValueError("scores_int8 requires an int8 KV cache "
+                         "(cross_kv_int8=True and self_kv_int8=True)")
+    if scores_int8 and (self_int4 or cross_int4):
+        raise ValueError("scores_int8 (the s8-MXU path) does not compose "
+                         "with int4-packed KV")
+    if ancestry is not None and (beam_width <= 1 or self_int4 or scores_int8):
         raise ValueError("ancestry (reorder-free beam self-attention) needs "
-                         "beam_width > 1")
+                         "beam_width > 1 and does not compose with int4 "
+                         "self-KV or scores_int8")
     B = tokens.shape[0]
     if cache.cross_k.shape[1] * beam_width != B:
         raise ValueError(f"{B} rows do not fold into beams of {beam_width} "
                          f"over {cache.cross_k.shape[1]} cross slabs")
     dec = params["decoder"]
-    H = cfg.decoder_heads
     dtype = dec["token_embed"].dtype
     max_len = cache.self_k.shape[3]
     x = dec["token_embed"][tokens][:, None, :].to(dtype)         # [B, 1, d]
@@ -816,6 +966,9 @@ def decode_step(params: Params, tokens: torch.Tensor, pos: int,
     pos_mask = (torch.arange(max_len, device=x.device) <= pos)[None, None, None, :]
     scaling = (cfg.d_model // H) ** -0.5
     cross = cross_decode_attention_exact if kernels else cross_decode_reference_exact
+    self_attn = (_attention_int4 if self_int4 else
+                 _attention_int8_mxu if scores_int8 else _attention_int8)
+    quant = quantize_kv4 if self_int4 else quantize_kv
     dec_lora = lora.get("decoder") if lora else None
     ctx = lora_ctx(dec_lora, adapter_idx, lora_scale, dtype)
 
@@ -833,8 +986,8 @@ def decode_step(params: Params, tokens: torch.Tensor, pos: int,
             a = attention(split_heads(q, H), cache.self_k[l], cache.self_v[l],
                           mask=pos_mask)
         else:
-            kq, ks = quantize_kv(k)
-            vq, vs = quantize_kv(v)
+            kq, ks = quant(k)
+            vq, vs = quant(v)
             cache.self_k[l, :, :, pos] = kq[:, :, 0]
             cache.self_v[l, :, :, pos] = vq[:, :, 0]
             cache.self_k_scale[l, :, :, pos] = ks[:, :, 0]
@@ -845,18 +998,29 @@ def decode_step(params: Params, tokens: torch.Tensor, pos: int,
                                          cache.self_v_scale[l], ancestry, pos,
                                          beam_width)
             else:
-                a = _attention_int8(split_heads(q, H), cache.self_k[l],
-                                    cache.self_k_scale[l], cache.self_v[l],
-                                    cache.self_v_scale[l], mask=pos_mask)
+                a = self_attn(split_heads(q, H), cache.self_k[l],
+                              cache.self_k_scale[l], cache.self_v[l],
+                              cache.self_v_scale[l], mask=pos_mask)
         x = x + _proj(merge_heads(a), p["self_o"], lo.get("self_o"), ctx)
-        # Cross-attention: exact over the classic cache, or over the
-        # head-minor int8 slabs of layer l, beam queries folded per sample
-        # ([B/K, K, D], K5) when beam_width > 1.
+        # Cross-attention: exact over the classic cache, int4 over the
+        # packed classic slabs, or over the head-minor int8 slabs of layer
+        # l (K3/K5 exact, K7 with scores_int8); beam queries are folded per
+        # sample ([B/K, K, ...]) when beam_width > 1.
         h = layer_norm(x, p["cross_ln"]["scale"], p["cross_ln"]["bias"])
         q = _proj(h, p["cross_q"], lo.get("cross_q"), ctx) * scaling
         if plain_cache:
             o = merge_heads(attention(split_heads(q, H), cache.cross_k[l],
                                       cache.cross_v[l]))
+        elif cross_int4:
+            qh = q.reshape(B // beam_width, beam_width, H, -1).transpose(1, 2)
+            a = _attention_int4(qh, cache.cross_k[l], cache.cross_k_scale[l],
+                                cache.cross_v[l], cache.cross_v_scale[l])
+            o = a.transpose(1, 2).reshape(B, 1, -1)
+        elif scores_int8:
+            o = _cross_attention_int8_mxu(q, cache.cross_k, cache.cross_k_scale,
+                                          cache.cross_v, cache.cross_v_scale,
+                                          layer=l, n_heads=H,
+                                          beam_width=beam_width, kernels=kernels)
         else:
             qc = (q[:, 0].reshape(B // beam_width, beam_width, -1)
                   if beam_width > 1 else q[:, 0])

@@ -69,6 +69,10 @@ SIGNATURES = {
     # stream
     "sar_cross_decode_exact_beam": [_P, _P, _P, _P, _P, _P,
                                     _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # qq, qs, kq, ks, vq, vs, out, L, B, K, S_pad, D, n_heads, layer,
+    # device, stream
+    "sar_cross_decode_s8": [_P, _P, _P, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -10,8 +10,11 @@ sar_tpu_torch adapter directory or a PEFT one (or its parent holding an
 `adapter/` subdirectory), or `none` for the base model. Runs on the CUDA
 card unless `--device` says otherwise. Real Whisper weights and corpora
 wait for files in the repository, so `--model` whisper-test with the
-`synthetic` source is what runs today. Flags of the JAX script that the
-port has not got (meshes, fallback, int8 scores, ...) fail with a message.
+`synthetic` source is what runs today. `--attn_scores int8` (s8 scores,
+kernel K7) and `--kv_cache int4` (the nibble-packed cache) are the opt-in
+quantized decode, refused together as the evaluator refuses them. Flags of
+the JAX script that the port has not got (meshes, fallback, a bf16 cache,
+...) fail with a message.
 """
 
 from __future__ import annotations
@@ -26,8 +29,8 @@ import torch
 logger = logging.getLogger("evaluate_model")
 
 # Flags of the JAX script the port does not have yet.
-NOT_PORTED = ("--attn_scores", "--platform", "--dp", "--tp", "--dcn_dp",
-              "--best_of", "--fallback", "--cache_dir")
+NOT_PORTED = ("--platform", "--dp", "--tp", "--dcn_dp", "--best_of",
+              "--fallback", "--cache_dir")
 
 
 def parse_args(argv=None):
@@ -52,7 +55,13 @@ def parse_args(argv=None):
                    help="fp16 runs in bf16, as in the JAX script")
     p.add_argument("--kv_cache", type=str, default="int8",
                    choices=["int8", "bf16", "int4"],
-                   help="the port has the int8 cache only")
+                   help="int8 (default) or int4 (nibble-packed, opt-in); the "
+                        "port has no bf16 cache")
+    p.add_argument("--attn_scores", type=str, default="bf16",
+                   choices=["bf16", "int8"],
+                   help="int8: s8 query and probabilities in the decode's "
+                        "attention (kernel K7 on the card; approximate, opt-in, "
+                        "needs --kv_cache int8)")
     p.add_argument("--output_dir", type=str, default=None)
     p.add_argument("--save_predictions", action="store_true")
     p.add_argument("--per_sample", action="store_true",
@@ -68,9 +77,16 @@ def parse_args(argv=None):
     if given:
         p.error(f"{', '.join(given)}: not ported to sar_tpu_torch yet "
                 f"(use scripts/evaluate_model.py, the JAX version)")
-    if args.kv_cache != "int8":
-        p.error(f"--kv_cache {args.kv_cache}: sar_tpu_torch has the int8 "
-                f"cache only")
+    if args.kv_cache == "bf16":
+        p.error("--kv_cache bf16: sar_tpu_torch has the int8 and int4 "
+                "caches only")
+    from sar_tpu_torch.evaluation.evaluator import quantized_decode_options
+    try:
+        quantized_decode_options(args.kv_cache == "int8", args.kv_cache == "int4",
+                                 args.attn_scores == "int8")
+    except ValueError as e:
+        p.error(f"--attn_scores {args.attn_scores} --kv_cache {args.kv_cache}: "
+                f"{e} (sar_tpu_torch ASREvaluator)")
     return args
 
 
@@ -118,6 +134,9 @@ def main(argv=None) -> dict:
                              max_new_tokens=args.max_new_tokens,
                              num_beams=args.num_beams, lora=lora,
                              lora_scale=lora_scale, task=args.task,
+                             kv_int8=args.kv_cache == "int8",
+                             kv_int4=args.kv_cache == "int4",
+                             scores_int8=args.attn_scores == "int8",
                              device=device)
     need_preds = args.save_predictions or args.per_sample
     results = evaluator.evaluate(loader, return_predictions=need_preds)

@@ -16,6 +16,10 @@ burst, rides the same two programs:
   adapter -> the cache build (its cross_v term through kernel K4) -> the
   routed greedy loop with each row's language prompt.
 
+The precision options are the evaluator's (`kv_int4`, `scores_int8`, with
+its checks); a routed service decodes over the int4 cache when asked, and
+turns `scores_int8` off with a warning, as the JAX service does.
+
 A batch that fails hands its error to every request in it, and
 `stats()["errors"]` counts such batches. The worker runs under
 `torch.inference_mode()` itself (grad mode is per thread). The greedy
@@ -39,7 +43,8 @@ import numpy as np
 import torch
 
 from sar_tpu_torch.decode.greedy import transcribe_tokens
-from sar_tpu_torch.evaluation.evaluator import ASREvaluator
+from sar_tpu_torch.evaluation.evaluator import (ASREvaluator,
+                                                quantized_decode_options)
 from sar_tpu_torch.ops import mel as mel_ops
 
 logger = logging.getLogger(__name__)
@@ -85,11 +90,18 @@ class TranscriptionService:
         if router is not None and num_beams > 1:
             raise ValueError("routed serving decodes greedily "
                              "(no beam-routed program)")
-        if not kv_int8 or kv_int4 or scores_int8:
+        if not (kv_int8 or kv_int4):
             raise NotImplementedError(
-                "sar_tpu_torch TranscriptionService decodes over the int8 "
-                "KV cache only; kv_int8=False, kv_int4 and scores_int8 are "
-                "not yet ported")
+                "sar_tpu_torch TranscriptionService decodes over the int8 or "
+                "the int4 KV cache; kv_int8=False (a bf16 cache) is not yet "
+                "ported")
+        kv_int8, kv_int4 = quantized_decode_options(kv_int8, kv_int4,
+                                                    scores_int8)
+        if scores_int8 and router is not None:
+            logger.warning("scores_int8 applies to the non-routed serving "
+                           "programs; decoding with bf16 scores")
+            scores_int8 = False
+        self.kv_int4 = kv_int4
         if router is not None and task != "transcribe":
             raise ValueError("routed serving is transcription-only (the "
                              "router's adapters are transcription-trained)")
@@ -111,7 +123,7 @@ class TranscriptionService:
         else:
             self.cfg = cfg
             # The greedy and beam programs are the evaluator's; it also
-            # refuses the options the port has not got (kv_int4, ...).
+            # refuses the options the port has not got (meshes, ...).
             self._ev = ASREvaluator(
                 cfg, params, language=language, max_new_tokens=max_new_tokens,
                 num_beams=num_beams, lora=lora, lora_scale=lora_scale,
@@ -237,7 +249,8 @@ class TranscriptionService:
         if self.router is not None:
             idx, _ = self.router.route(feats)
             tokens = self.router.decode(self.router.encode(feats, idx), idx,
-                                        self.max_new_tokens)
+                                        self.max_new_tokens,
+                                        kv_int4=self.kv_int4)
             return tokens, [self.router.languages[i] for i in idx[:n].tolist()]
         prompts = torch.tensor(
             [self.cfg.prompt_ids(r.language or self.language, self.task)

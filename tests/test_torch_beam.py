@@ -148,8 +148,7 @@ def test_beam_select_alone_advances_the_state(model):
 
 def test_options_not_ported_raise(model):
     _, tp, enc = model
-    for kw in (dict(timestamps=True), dict(self_kv_int4=True), dict(scores_int8=True),
-               dict(head_minor=False)):
+    for kw in (dict(timestamps=True), dict(head_minor=False)):
         with pytest.raises(NotImplementedError):
             beam_decode(tp, t(enc), CFG, PROMPT, num_beams=2, max_new_tokens=2, **kw)
     with pytest.raises(ValueError):

@@ -236,8 +236,8 @@ def test_evaluate_cli_in_process(model, tmp_path, capsys):
                              "synthetic", "--device", "cpu"])
 
 
-@pytest.mark.parametrize("extra", [["--fallback"], ["--attn_scores", "int8"], ["--tp", "2"],
-                                   ["--kv_cache", "bf16"]])
+@pytest.mark.parametrize("extra", [["--fallback"], ["--attn_scores", "int8", "--kv_cache", "int4"],
+                                   ["--tp", "2"], ["--kv_cache", "bf16"]])
 def test_evaluate_cli_refuses_flags_not_ported(extra, capsys):
     from sar_tpu_torch.scripts import evaluate_model
     with pytest.raises(SystemExit):
@@ -268,6 +268,7 @@ def test_new_port_modules_import_neither_jax_nor_sar_tpu():
             "import sar_tpu_torch.decode.beam, sar_tpu_torch.data, sar_tpu_torch.models.base\n"
             "import sar_tpu_torch.training.metrics, sar_tpu_torch.utils.native\n"
             "import sar_tpu_torch.scripts.evaluate_model, sar_tpu_torch.evaluation\n"
+            "import sar_tpu_torch.scripts.s8_gate\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
             "       or m == 'sar_tpu' or m.startswith('sar_tpu.')]\n"
             "print(bad)\n")

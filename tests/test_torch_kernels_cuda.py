@@ -1,4 +1,4 @@
-"""K1-K5 hand-written CUDA kernels against their plain PyTorch versions on
+"""K1-K7 hand-written CUDA kernels against their plain PyTorch versions on
 the card, in bf16, at small shapes (marked `cuda`: they need an NVIDIA GPU
 with nvcc and skip elsewhere; chip_smoke.py runs the same comparisons at
 whisper-small shapes). Run on the card with
@@ -186,6 +186,74 @@ def test_cross_decode_beam_wrapper_refuses_what_the_kernel_does_not_take(dev):
         decode_cross.cross_decode_attention_exact(q, big, bigs, big, bigs, layer=0, n_heads=H)
 
 
+def _s8_query(g, dev, B, K, H, folded):
+    """A pre-scaled bf16 query quantized per (row, head) as decode_step
+    does: qq [B, D] (or [B, K, D]) s8 and qs [B, K*H, 1] fp32."""
+    from sar_tpu_torch.models import whisper
+    q = _randn(g, dev, B, K, H * 64, std=0.125)
+    qq, qs = whisper.quantize_kv(q.reshape(B, K, H, 64))
+    qq = qq.reshape(B, K, H * 64) if folded else qq.reshape(B, H * 64)
+    return qq, qs.reshape(B, K * H, 1)
+
+
+# K7: greedy (K=1, q [B, D]) and beam widths 2, 4 and 8 (the largest
+# instance: 60 KB of scores and s8 probabilities, above the default
+# shared-memory limit), at d_model 128, whisper-small's 768 and
+# whisper-large-v3's 1280, S_pad 1536 with 36 pad rows, every layer of a
+# 3-layer cache. Limit: 2e-2 absolute and relative to the largest entry
+# (the bf16 output, and a re-quantized probability that a softmax summed
+# in another order can move across a .5 boundary).
+@pytest.mark.parametrize("H", [2, 12, 20])
+@pytest.mark.parametrize("K", [1, 2, 4, 8])
+def test_cross_decode_s8_kernel(dev, H, K):
+    from sar_tpu_torch.ops import decode_cross
+    g = torch.Generator(device=dev).manual_seed(5)
+    L, B, S, S_pad = 3, 2, 1500, 1536
+    kq, ks, vq, vs = _beam_cache(g, dev, L, B, S, S_pad, H)
+    qq, qs = _s8_query(g, dev, B, K, H, folded=K > 1)
+    for layer in range(L):
+        n = (decode_cross.S8_LAUNCHES, decode_cross.S8_BEAM_LAUNCHES)
+        got = decode_cross.cross_decode_attention(qq, qs, kq, ks, vq, vs, layer=layer,
+                                                  n_heads=H)
+        want = decode_cross.cross_decode_reference(qq, qs, kq, ks, vq, vs, layer=layer,
+                                                   n_heads=H)
+        torch.cuda.synchronize()
+        assert (decode_cross.S8_LAUNCHES, decode_cross.S8_BEAM_LAUNCHES) == \
+            (n[0] + (K == 1), n[1] + (K > 1))
+        assert got.shape == qq.shape and got.dtype == torch.bfloat16
+        assert torch.isfinite(got.float()).all()
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= 2e-2 and err <= 2e-2 * want.float().abs().max().item()
+
+
+def test_cross_decode_s8_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    from sar_tpu_torch.ops import decode_cross
+    g = torch.Generator(device=dev).manual_seed(6)
+    L, B, S_pad, H = 1, 2, 128, 2
+    kq = torch.zeros((L, B, S_pad, H * 64), dtype=torch.int8, device=dev)
+    ks = torch.ones((L, B, H, S_pad), device=dev)
+    qq, qs = _s8_query(g, dev, B, 9, H, folded=True)
+    with pytest.raises(ValueError, match="beam widths"):
+        decode_cross.cross_decode_attention(qq, qs, kq, ks, kq, ks, layer=0, n_heads=H)
+    qq, qs = _s8_query(g, dev, B, 1, H, folded=False)
+    with pytest.raises(ValueError, match="bfloat16"):
+        decode_cross.cross_decode_attention(qq, qs, kq, ks, kq, ks, layer=0, n_heads=H,
+                                            out_dtype=torch.float32)
+    with pytest.raises(ValueError, match="qs"):
+        decode_cross.cross_decode_attention(qq, qs[:, :1].contiguous(), kq, ks, kq, ks, layer=0,
+                                            n_heads=H)
+    with pytest.raises(ValueError, match="int8"):
+        decode_cross.cross_decode_attention(qq.float(), qs, kq, ks, kq, ks, layer=0, n_heads=H)
+    with pytest.raises(ValueError, match="layer"):
+        decode_cross.cross_decode_attention(qq, qs, kq, ks, kq, ks, layer=1, n_heads=H)
+    # 8 rows of 5824 fp32 scores and s8 probabilities: 232,960 B > one block.
+    big = torch.zeros((L, B, 5824, H * 64), dtype=torch.int8, device=dev)
+    bigs = torch.ones((L, B, H, 5824), device=dev)
+    qq, qs = _s8_query(g, dev, B, 8, H, folded=True)
+    with pytest.raises(ValueError, match="shared"):
+        decode_cross.cross_decode_attention(qq, qs, big, bigs, big, bigs, layer=0, n_heads=H)
+
+
 def test_beam_decode_kernels_agree_with_the_plain_path(dev):
     """A short bf16 beam decode at d_model 128 (2 heads of 64): the kernel
     path (K2 + K5) and the plain path pick the same tokens on most
@@ -208,6 +276,52 @@ def test_beam_decode_kernels_agree_with_the_plain_path(dev):
     want = beam_decode(params, enc, cfg, prompt, num_beams=4, max_new_tokens=12, kernels=False)
     assert got.shape == want.shape and torch.equal(got[:, :len(prompt)], want[:, :len(prompt)])
     assert (got == want).float().mean().item() >= 0.9
+
+
+@pytest.mark.parametrize("num_beams", [1, 4])
+def test_s8_decode_kernels_agree_with_the_plain_path(dev, num_beams):
+    """A short bf16 `scores_int8` decode at d_model 128 (2 heads of 64),
+    greedy and 4 beams (the physical-reorder path): K7 runs once per layer
+    of every step, K3/K5 not at all, and the kernel path (K2 + K7) and the
+    plain path pick the same tokens on most positions (a softmax summed in
+    another order can move a re-quantized probability, and flip a near
+    tie). The int4 cache runs on the card too (plain torch, no decode
+    kernel)."""
+    from sar_tpu_torch.decode import beam_decode, greedy_decode
+    from sar_tpu_torch.models import whisper
+    from sar_tpu_torch.models.config import get_config
+    from sar_tpu_torch.ops import decode_cross
+    cfg = dataclasses.replace(get_config("whisper-test"), d_model=128, encoder_heads=2,
+                              decoder_heads=2, ffn_dim=256)
+    params = whisper.cast_params(
+        whisper.init_params(cfg, torch.Generator(device=dev).manual_seed(6), dev), torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(8)
+    enc = torch.randn((3, cfg.max_source_positions, cfg.d_model), generator=g,
+                      device=dev).to(torch.bfloat16)
+    prompt = cfg.prompt_ids("english")
+
+    def run(**kw):
+        if num_beams == 1:
+            return greedy_decode(params, enc, cfg, prompt, max_new_tokens=12, **kw)
+        return beam_decode(params, enc, cfg, prompt, num_beams=num_beams, max_new_tokens=12, **kw)
+
+    def counts():
+        return (decode_cross.S8_LAUNCHES, decode_cross.S8_BEAM_LAUNCHES,
+                decode_cross.LAUNCHES, decode_cross.BEAM_LAUNCHES)
+    n = counts()
+    got = run(scores_int8=True)
+    torch.cuda.synchronize()
+    s8, s8_beam, k3, k5 = (c - c0 for c, c0 in zip(counts(), n))
+    launched = s8 if num_beams == 1 else s8_beam
+    assert launched > 0 and launched % cfg.decoder_layers == 0
+    assert (k3, k5) == (0, 0) and (s8_beam if num_beams == 1 else s8) == 0
+    want = run(scores_int8=True, kernels=False)
+    assert got.shape == want.shape and torch.equal(got[:, :len(prompt)], want[:, :len(prompt)])
+    assert (got == want).float().mean().item() >= 0.9
+    n = counts()
+    int4 = run(cross_kv_int4=True, self_kv_int4=True)
+    assert counts() == n and int4.shape == got.shape
+    assert torch.equal(int4, run(cross_kv_int4=True, self_kv_int4=True, kernels=False))
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):

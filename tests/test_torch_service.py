@@ -144,7 +144,12 @@ def test_options_not_yet_ported_raise(world, router):
     with pytest.raises(ValueError, match="greedily"):
         TranscriptionService(router=router, num_beams=2)
     with pytest.raises(NotImplementedError):
-        TranscriptionService(CFG, tp, kv_int4=True, device="cpu")
+        TranscriptionService(CFG, tp, kv_int8=False, device="cpu")
+    # The int4 cache is ported: the service runs over it.
+    with TranscriptionService(CFG, tp, kv_int4=True, batch_size=1, max_new_tokens=NEW,
+                              device="cpu") as svc:
+        out = svc.transcribe(np.zeros(4000, np.float32), timeout=300.0)
+    assert isinstance(out, list) and len(out) <= NEW
     with pytest.raises(ValueError):
         TranscriptionService(router=router, task="translate")
 

@@ -145,8 +145,7 @@ def test_evaluator_from_audio_matches_jax_prep_dec(model):
 
 def test_evaluator_refuses_options_not_yet_ported(model):
     _, tp, _, _ = model
-    for kw in (dict(kv_int8=False),
-               dict(scores_int8=True), dict(kv_int4=True), dict(fallback=True)):
+    for kw in (dict(kv_int8=False), dict(fallback=True)):
         with pytest.raises(NotImplementedError):
             ASREvaluator(CFG, tp, device="cpu", **kw)
     with pytest.raises(NotImplementedError):
