@@ -24,10 +24,18 @@ Phases, each printing its own line(s); any failure raises and exits non-zero:
    causal 448 x 448, cross 448 x 1500, batch 8), each against its plain
    version and the output and gradients against autograd of the plain
    attention, with SDPA forward and forward + backward as the library
-   yardstick.
+   yardstick. Then, on the random model of phase 4, K8 (the fused pre-LN
+   + q/k/v projection + attention of encode(flash="fq")) on layer 0's
+   params, x [8, 1536, 768] with 1500 valid rows, with two composite
+   yardsticks (the hm route it replaces: plain LN and projections + K1;
+   and F.layer_norm + 3 addmm + SDPA); K9 (the parked s8 self decode) over
+   a 12-layer head-minor int8 self cache of max_len 448 at valid lengths
+   1, 67 and 448; K10 (the parked flash decode) at the cross shape
+   (H=12, S=1500), full and masked, with SDPA of one query row. K9 and
+   K10 have no caller in either package and launch on no path.
 4. greedy end to end: random bf16 whisper-small (seeded), two batches of 8
    random 30 s clips through the port's ASREvaluator (mel ->
-   encode(flash="hm") -> init_cache -> greedy, 64 new tokens), with the
+   encode(flash="hm") -> the int8 cache -> greedy, 64 new tokens), with the
    launch counters zeroed before and read after; then the first batch
    through the plain path, compared in lockstep (both paths fed the same
    tokens) and free running.
@@ -35,8 +43,8 @@ Phases, each printing its own line(s); any failure raises and exits non-zero:
    q_proj/v_proj, nonzero B) and a random LID head (layer 3, mean
    pooling) behind an AdapterRouter, 16 requests of 30 s audio submitted
    from 4 threads to a TranscriptionService (batches of 8, 64 new tokens),
-   then router.generate with adapters [0,1,2,3,0,1,2,3] with its phases
-   fenced, all with the launch counters zeroed before and read after
+   then the service's routed program with adapters [0,1,2,3,0,1,2,3]
+   with its phases fenced, all with the launch counters zeroed before and read after
    (K1, K4, K3 > 0, K2 = 0); then the routed plain path (kernels=False,
    flash=False) in lockstep and free running, and the LID overhead.
 6. beam evaluation end to end: 16 synthetic whisper-small items through
@@ -68,7 +76,19 @@ Phases, each printing its own line(s); any failure raises and exits non-zero:
    |logit delta| over the forced prompt steps), printed, not enforced; then
    one greedy batch over the int4 cache (kv_int4=True, plain torch): its
    token agreement with the exact int8 path and ms per token-step.
-9. result: one JSON line with every kernel's numbers, then the last line
+9. fq end to end: the greedy cell's two batches through
+   ASREvaluator(flash="fq") with the launch counters zeroed before and
+   read after (K8 12 per batch, K1 0, K2 1 per batch, K3 12 per step),
+   and through ASREvaluator(flash="hm") in the same run (RTFx, prep ms
+   and ms per token-step of each); the card's fq encoder against its
+   plain route (kernels=False), the hm one's as the noise floor; the fq
+   tokens in lockstep with the hm path (both round differently; rows
+   equal reported); one batch with an encoder q/v adapter and
+   flash="fq" (the downgrade: K8 0, K1 12); then one batch of 8 x 4
+   beams through beam_decode with its defaults, the JAX package's
+   unquantized classic cache in plain torch (every counter 0), ms per
+   token-step.
+10. result: one JSON line with every kernel's numbers, then the last line
    {"ok": true, "device": {...}}.
 
 With --profile, the routed, beam and s8 phases also run PROFILE_STEPS
@@ -167,6 +187,13 @@ TRAIN_GRAD_NORM_REL_TOL = 1e-2
 S8_ABS_TOL = 1e-3
 S8_REL_TOL = 8e-3
 S8_BEAM_WIDTH = 4
+# K9 (the parked s8 self decode) at whisper-small's max_len, valid lengths
+# 1, a middle one and max_len; K10 (the parked flash decode) at the cross
+# shape, full and masked to K10_MASKED_LEN. K9 fails only where both its
+# absolute and relative errors pass the K7 limits (its outputs reach ~3,
+# where one bf16 ulp is 1.6e-2).
+K9_LENGTHS = (1, 67, 448)
+K10_MASKED_LEN = 750
 
 
 def fail(msg: str) -> None:
@@ -635,7 +662,7 @@ def phase_train(cfg, params, device, batch, profile=False):
           f"eval_loss {fmt([e['eval_loss'] for e in evals], '.4f')}, WER "
           f"{fmt([e['wer'] for e in evals], '.3f')} | peak memory {peak_gb:.1f} GB | "
           f"launches {json.dumps(counts)}")
-    check_counts("train", counts, want_zero=(*KERNEL_NAMES[:5], *K7_NAMES))
+    check_counts("train", counts, want_zero=(*KERNEL_NAMES[:5], *K7_NAMES, *OFF_PATH))
     got = (counts["flash_attention_fwd"], counts["flash_attention_bwd_dq"],
            counts["flash_attention_bwd_dkv"])
     if got != (want_fwd, want_bwd, want_bwd):
@@ -762,27 +789,37 @@ def decode_steps(tokens, cfg, prompt_len: int) -> int:
 
 K6_NAMES = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 K7_NAMES = ("cross_decode_attention", "cross_decode_attention_beam")
+# K8 runs on the fq path only; K9 and K10 have no caller in either package
+# (checked and timed in phase_kernels_k8_k10, launched on no path).
+OFF_PATH = ("encoder_attention_fused", "self_decode_attention", "decode_attention")
 KERNEL_NAMES = ("encoder_attention_hm", "fused_kv_init", "fused_kv_init_lora",
                 "cross_decode_attention_exact", "cross_decode_attention_exact_beam",
-                *K6_NAMES, *K7_NAMES)
+                *K6_NAMES, *K7_NAMES, *OFF_PATH)
+INT8 = dict(cross_kv_int8=True, self_kv_int8=True)   # the int8 head-minor cache
 
 
 def reset_counts():
     from sar_tpu_torch.ops import decode_cross, flash, flash_enc, kv_init
-    flash_enc.LAUNCHES = kv_init.LAUNCHES = kv_init.LORA_LAUNCHES = 0
+    from sar_tpu_torch.ops.attic import attention, decode_self
+    flash_enc.LAUNCHES = flash_enc.FUSED_LAUNCHES = 0
+    kv_init.LAUNCHES = kv_init.LORA_LAUNCHES = 0
     decode_cross.LAUNCHES = decode_cross.BEAM_LAUNCHES = 0
     decode_cross.S8_LAUNCHES = decode_cross.S8_BEAM_LAUNCHES = 0
     flash.LAUNCHES = flash.DQ_LAUNCHES = flash.DKV_LAUNCHES = 0
+    decode_self.LAUNCHES = attention.LAUNCHES = 0
 
 
 def read_counts() -> dict:
     from sar_tpu_torch.ops import decode_cross, flash, flash_enc, kv_init
+    from sar_tpu_torch.ops.attic import attention, decode_self
     return dict(zip(KERNEL_NAMES, (flash_enc.LAUNCHES, kv_init.LAUNCHES,
                                    kv_init.LORA_LAUNCHES, decode_cross.LAUNCHES,
                                    decode_cross.BEAM_LAUNCHES, flash.LAUNCHES,
                                    flash.DQ_LAUNCHES, flash.DKV_LAUNCHES,
                                    decode_cross.S8_LAUNCHES,
-                                   decode_cross.S8_BEAM_LAUNCHES)))
+                                   decode_cross.S8_BEAM_LAUNCHES,
+                                   flash_enc.FUSED_LAUNCHES, decode_self.LAUNCHES,
+                                   attention.LAUNCHES)))
 
 
 def check_counts(path: str, counts: dict, want_zero: tuple) -> None:
@@ -864,7 +901,7 @@ def phase_e2e(cfg, params, n_params, device, batch, n_batches, max_new_tokens,
           f"{ms_tok:.3f} ms/token-step (batch {batch}) | launches {json.dumps(counts)}")
     check_counts("greedy", counts, want_zero=("fused_kv_init_lora",
                                               "cross_decode_attention_exact_beam", *K6_NAMES,
-                                              *K7_NAMES))
+                                              *K7_NAMES, *OFF_PATH))
 
     # Lockstep: both paths fed the kernel path's tokens, argmax compared at
     # every generated position; then the plain path free-running.
@@ -938,7 +975,7 @@ def phase_routed(cfg, params, device, batch, max_new_tokens, profile=False):
             :, :, :cfg.num_audio_frames]
 
     feats = features(clips[:batch])
-    router.generate(feats, adapter_idx=idx, max_new_tokens=max_new_tokens)  # warm-up
+    router.decode(router.encode(feats, idx), idx, max_new_tokens)  # warm-up
     torch.cuda.synchronize()
 
     reset_counts()
@@ -1003,7 +1040,7 @@ def phase_routed(cfg, params, device, batch, max_new_tokens, profile=False):
     print(f"routed launches {json.dumps(counts)}")
     check_counts("routed", counts, want_zero=("fused_kv_init",
                                               "cross_decode_attention_exact_beam", *K6_NAMES,
-                                              *K7_NAMES))
+                                              *K7_NAMES, *OFF_PATH))
 
     # LID overhead: tap (the first LID_LAYER + 1 encoder layers) + head.
     def lid():
@@ -1036,7 +1073,7 @@ def phase_routed(cfg, params, device, batch, max_new_tokens, profile=False):
             agree += int((lk.argmax(-1) == lp.argmax(-1)).sum())
             n += batch
             max_dlogit = max(max_dlogit, (lk - lp).abs().max().item())
-    tok_p = plain.generate(feats, adapter_idx=idx, max_new_tokens=max_new_tokens)
+    tok_p = plain.decode(plain.encode(feats, idx), idx, max_new_tokens)
     free = (tok_k[:, P:] == tok_p[:, P:]).float().mean().item()
     lock = agree / max(n, 1)
     print(f"routed vs plain routed path: lockstep argmax agreement {lock:.4f} "
@@ -1047,7 +1084,8 @@ def phase_routed(cfg, params, device, batch, max_new_tokens, profile=False):
     if profile:
         from sar_tpu_torch.models import whisper
         P = router.prompt_len
-        cache_g = whisper.init_cache(params, router.encode(feats, idx), cfg, P + max_new_tokens)
+        cache_g = whisper.init_cache(params, router.encode(feats, idx), cfg, P + max_new_tokens,
+                                     **INT8)
         cache_r = router.cache(router.encode(feats, idx), idx, max_new_tokens)
         for name, step, cache in (
                 ("greedy", lambda tok, pos, c: whisper.decode_step(params, tok, pos, c, cfg),
@@ -1118,7 +1156,7 @@ def phase_beam(cfg, params, device, batch, max_new_tokens, profile=False):
           f"{steps[0]} decode steps | launches {json.dumps(counts)}")
     check_counts("beam", counts, want_zero=("fused_kv_init_lora",
                                             "cross_decode_attention_exact", *K6_NAMES,
-                                            *K7_NAMES))
+                                            *K7_NAMES, *OFF_PATH))
     if counts["cross_decode_attention_exact_beam"] != steps[0] * cfg.decoder_layers:
         fail("K5 was not launched once per layer of every beam decode step")
 
@@ -1155,9 +1193,9 @@ def phase_beam(cfg, params, device, batch, max_new_tokens, profile=False):
                          flash=False, kernels=False)
     total = ev.total
     prompt = ev._prompt[None].expand(batch, -1)
-    cache_k = whisper.init_cache(params, enc, cfg, total, self_batch=batch * K)
+    cache_k = whisper.init_cache(params, enc, cfg, total, self_batch=batch * K, **INT8)
     cache_p = whisper.init_cache(params, plain.encode(feats), cfg, total,
-                                 self_batch=batch * K, kernels=False)
+                                 self_batch=batch * K, kernels=False, **INT8)
     cache_t = cache_p._replace(**{f: getattr(cache_p, f).clone() for f in (
         "self_k", "self_v", "self_k_scale", "self_v_scale")})
     state = beam_lib.init_state(prompt, K, total, cfg.eos_token_id)
@@ -1220,7 +1258,7 @@ def phase_beam(cfg, params, device, batch, max_new_tokens, profile=False):
             holder["state"] = beam_lib.beam_select(st, logits, pos, P, eos=cfg.eos_token_id)
             return logits, cache
 
-        cache_b = whisper.init_cache(params, enc, cfg, total, self_batch=batch * K)
+        cache_b = whisper.init_cache(params, enc, cfg, total, self_batch=batch * K, **INT8)
         for pos in range(P):                           # the prompt, unprofiled
             _, cache_b = beam_step(None, pos, cache_b)
         profile_steps("beam", beam_step, cache_b, tok_k, P)
@@ -1390,9 +1428,9 @@ def phase_s8(cfg, params, device, batch, n_batches, max_new_tokens, profile=Fals
     prompt = ev_b._prompt[None].expand(batch, -1)
     plain_b = ASREvaluator(cfg, params, scores_int8=True, num_beams=K, flash=False,
                            kernels=False, **kw)
-    cache_k = whisper.init_cache(params, enc, cfg, total, self_batch=batch * K)
+    cache_k = whisper.init_cache(params, enc, cfg, total, self_batch=batch * K, **INT8)
     cache_p = whisper.init_cache(params, plain_b.encode(f0), cfg, total,
-                                 self_batch=batch * K, kernels=False)
+                                 self_batch=batch * K, kernels=False, **INT8)
     state = beam_lib.init_state(prompt, K, total, cfg.eos_token_id)
     slots = torch.arange(K, device=device)
     n = strict = near = best = 0
@@ -1503,14 +1541,332 @@ def print_profile(label, prof, wall_ms, n_steps, top_k=5):
                                           for n, t in top))
 
 
+def phase_kernels_k8_k10(cfg, params, device, batch):
+    """K8 (fused LN + q/k/v + attention) on the random model's layer-0
+    params, K9 (s8 self decode) and K10 (flash decode) at whisper-small
+    shapes, each against its plain version, with times, bounds and the
+    yardsticks (K8: the hm route it replaces and a library composite;
+    K10: SDPA with one query row). Returns their three rows."""
+    import torch
+    import torch.nn.functional as F
+    from sar_tpu_torch.models.whisper import cross_pad_len, layer_norm, linear, quantize_kv, tree_map
+    from sar_tpu_torch.ops import flash_enc
+    from sar_tpu_torch.ops.attic import attention, decode_self
+
+    g = torch.Generator(device=device).manual_seed(SEED + 5)
+    bf16 = torch.bfloat16
+    D, H = cfg.d_model, cfg.encoder_heads
+    hd = D // H
+    S = cfg.max_source_positions
+    T = cross_pad_len(S)
+    rows = []
+
+    # K8: a pre-LN residual with zero pad rows, layer 0's LN and q/k/v.
+    p = tree_map(lambda a: a[0], params["encoder"]["layers"])
+    x = torch.randn((batch, T, D), generator=g, device=device).to(bf16)
+    x[:, S:] = 0
+    args = (x, p["attn_ln"]["scale"], p["attn_ln"]["bias"], p["q"]["w"], p["q"]["b"],
+            p["k"]["w"], p["v"]["w"], p["v"]["b"])
+    k8 = lambda: flash_enc.encoder_attention_fused(*args, n_heads=H, t_valid=S)
+    k8_plain = lambda: flash_enc.encoder_attention_fused_reference(*args, n_heads=H, t_valid=S)
+    got, want = k8(), k8_plain()
+    torch.cuda.synchronize()
+    abs_err, rel_err = _attn_errors(got[:, :S], want[:, :S])
+
+    def hm_route():
+        """What "fq" replaces: the layer's plain LN and projections, then K1."""
+        h = layer_norm(x, p["attn_ln"]["scale"], p["attn_ln"]["bias"])
+        return flash_enc.encoder_attention_hm(linear(h, p["q"]) * hd ** -0.5, linear(h, p["k"]),
+                                              linear(h, p["v"]), n_heads=H, t_valid=S)
+    lns, lnb = p["attn_ln"]["scale"].to(bf16), p["attn_ln"]["bias"].to(bf16)
+    zero = torch.zeros(D, dtype=bf16, device=device)
+    key_mask = (torch.arange(T, device=device) < S)[None, None, None, :]
+
+    def library():
+        """F.layer_norm, three addmm and SDPA with the key mask."""
+        h = F.layer_norm(x, (D,), lns, lnb, eps=1e-5).view(-1, D)
+        heads = lambda y: y.view(batch, T, H, hd).transpose(1, 2)
+        q = heads(torch.addmm(p["q"]["b"], h, p["q"]["w"]))
+        k = heads(torch.addmm(zero, h, p["k"]["w"]))
+        v = heads(torch.addmm(p["v"]["b"], h, p["v"]["w"]))
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=key_mask)
+    hm_err = _attn_errors(hm_route()[:, :S], want[:, :S])[0]
+    lib_err = _attn_errors(library().transpose(1, 2).reshape(batch, T, D)[:, :S], want[:, :S])[0]
+    ms, plain_ms = time_cuda(k8), time_cuda(k8_plain)
+    hm_ms, library_ms = time_cuda(hm_route), time_cuda(library)
+    b_ms, b_by = bound(6.0 * batch * S * D * D + 4.0 * batch * H * S * S * hd,
+                       2 * batch * T * D * 2 + 3 * D * D * 2 + 2 * D * 2 + 2 * D * 4)
+    print(f"K8 encoder_attention_fused [B={batch}, T_pad={T}, D={D}, H={H}, t_valid={S}] "
+          f"bf16, layer 0's params: max_abs_err {abs_err:.3e} max_rel_err {rel_err:.3e} (tol "
+          f"{ATTN_ABS_TOL}) | kernel {ms:.3f} ms plain {plain_ms:.3f} ms | composite: the hm "
+          f"route (plain LN + 3 projections + K1) {hm_ms:.3f} ms, max_abs_err vs plain "
+          f"{hm_err:.3e} | library composite (F.layer_norm + 3 addmm + SDPA, key mask) "
+          f"{library_ms:.3f} ms, max_abs_err vs plain {lib_err:.3e} | bound {b_ms:.4f} ms ({b_by})")
+    if abs_err > ATTN_ABS_TOL or rel_err > ATTN_REL_TOL:
+        fail("K8 disagrees with its plain version")
+    rows.append(dict(name="encoder_attention_fused", route="cuda",
+                     source="sar_tpu_torch/csrc/flash_enc.cu",
+                     replaces="sar_tpu/ops/flash_enc.py:261", max_abs_err=abs_err, ms=ms,
+                     plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+                     extra={"hm_route_ms": hm_ms, "library": "composite: F.layer_norm + 3 "
+                            "addmm + scaled_dot_product_attention"}))
+    del x, args, got, want
+
+    # K9: an s8 self cache of every decoder layer at max_len, valid lengths
+    # 1, 67 and max_len, each checked on every layer and timed per call
+    # over a sweep of the layers (the slabs of all layers exceed the L2).
+    L, Hd, Sm = cfg.decoder_layers, cfg.decoder_heads, cfg.max_target_positions
+    Dd = Hd * 64
+    kq, ks = quantize_kv(torch.randn((L, batch, Sm, Hd, 64), generator=g, device=device))
+    vq, vs = quantize_kv(torch.randn((L, batch, Sm, Hd, 64), generator=g, device=device))
+    qq, qs = quantize_kv(torch.randn((batch, Hd, 1, 64), generator=g, device=device) * 0.125)
+    cache = (qq[:, :, 0].reshape(batch, Dd).contiguous(), qs.contiguous(),
+             kq.reshape(L, batch, Sm, Dd), ks.transpose(2, 3).contiguous(),
+             vq.reshape(L, batch, Sm, Dd), vs.transpose(2, 3).contiguous())
+    del kq, ks, vq, vs
+    by_len = {}
+    for n in K9_LENGTHS:
+        abs_err, rel_err = 0.0, 0.0
+        for layer in range(L):
+            o = decode_self.self_decode_attention(*cache, n, layer=layer, n_heads=Hd)
+            r = decode_self.self_decode_reference(*cache, n, layer=layer, n_heads=Hd)
+            a, rr = _attn_errors(o, r)
+            abs_err, rel_err = max(abs_err, a), max(rel_err, rr)
+        torch.cuda.synchronize()
+        if abs_err > S8_ABS_TOL and rel_err > S8_REL_TOL:
+            fail(f"K9 (n={n}) disagrees with its plain version")
+        sweep = lambda fn: lambda: [fn(*cache, n, layer=layer, n_heads=Hd) for layer in range(L)]
+        ms = time_cuda(sweep(decode_self.self_decode_attention)) / L
+        plain_ms = time_cuda(sweep(decode_self.self_decode_reference)) / L
+        b_ms, b_by = bound(4.0 * batch * Hd * n * 64,
+                           2 * batch * n * Dd + 2 * 4 * batch * Hd * n + batch * Dd
+                           + 4 * batch * Hd + 2 * batch * Dd, PEAK_INT8_OPS)
+        by_len[n] = dict(max_abs_err=abs_err, max_rel_err=rel_err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by)
+        print(f"K9 self_decode_attention s8 [L={L}, B={batch}, max_len={Sm}, D={Dd}, n={n}, all "
+              f"{L} layers]: max_abs_err {abs_err:.3e} max_rel_err {rel_err:.3e} (tol "
+              f"{S8_ABS_TOL} abs or {S8_REL_TOL} rel) | per call over a {L}-layer sweep: kernel "
+              f"{ms:.4f} ms plain {plain_ms:.4f} ms | bound {b_ms:.5f} ms ({b_by}) | library: none")
+    rows.append(dict(name="self_decode_attention", route="cuda",
+                     source="sar_tpu_torch/csrc/decode_self.cu",
+                     replaces="sar_tpu/ops/attic/decode_self.py:80", library_ms=None,
+                     **{k: v for k, v in by_len[Sm].items() if k != "max_rel_err"},
+                     extra={"by_valid_len": by_len, "standalone": "no caller in either package"}))
+    del cache
+
+    # K10: q [B, H, 64] against the cross shape's k/v [B, H, S, 64], full
+    # and masked to K10_MASKED_LEN, each with SDPA of one query row.
+    q = (torch.randn((batch, H, 64), generator=g, device=device) * 0.125).to(bf16)
+    k = torch.randn((batch, H, S, 64), generator=g, device=device).to(bf16)
+    v = torch.randn((batch, H, S, 64), generator=g, device=device).to(bf16)
+    variants = {}
+    for label, n in (("full", None), ("masked", K10_MASKED_LEN)):
+        got = attention.decode_attention(q, k, v, n)
+        want = attention.decode_attention_reference(q, k, v, n)
+        torch.cuda.synchronize()
+        abs_err, rel_err = _attn_errors(got, want)
+        if abs_err > ATTN_ABS_TOL or rel_err > ATTN_REL_TOL:
+            fail(f"K10 ({label}) disagrees with its plain version")
+        mask = None if n is None else (torch.arange(S, device=device) < n)[None, None, None, :]
+        sdpa = lambda: F.scaled_dot_product_attention(q[:, :, None], k, v, attn_mask=mask,
+                                                      scale=1.0)
+        lib_err = _attn_errors(sdpa()[:, :, 0], want)[0]
+        ms = time_cuda(lambda: attention.decode_attention(q, k, v, n))
+        plain_ms = time_cuda(lambda: attention.decode_attention_reference(q, k, v, n))
+        library_ms = time_cuda(sdpa)
+        rows_read = S if n is None else n
+        b_ms, b_by = bound(4.0 * batch * H * rows_read * 64,
+                           2 * batch * H * rows_read * 64 * 2 + 2 * batch * H * 64 * 2)
+        variants[label] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                               bound_by=b_by, library_ms=library_ms)
+        print(f"K10 decode_attention {label} [B={batch}, H={H}, S={S}"
+              f"{'' if n is None else f', valid_len={n}'}] bf16: max_abs_err {abs_err:.3e} "
+              f"max_rel_err {rel_err:.3e} (tol {ATTN_ABS_TOL}) | kernel {ms:.4f} ms plain "
+              f"{plain_ms:.4f} ms | library (SDPA, one query row) {library_ms:.4f} ms, "
+              f"max_abs_err vs plain {lib_err:.3e} | bound {b_ms:.5f} ms ({b_by})")
+    rows.append(dict(name="decode_attention", route="cuda",
+                     source="sar_tpu_torch/csrc/decode_attention.cu",
+                     replaces="sar_tpu/ops/attic/attention.py:64", **variants["full"],
+                     extra={"masked": variants["masked"],
+                            "standalone": "no caller in either package"}))
+    return rows
+
+
+def phase_fq(cfg, params, device, batch, n_batches, max_new_tokens):
+    """The fused encoder path at full width: the greedy cell's clips through
+    ASREvaluator(flash="fq") with the launch counters zeroed before and
+    read after (K8 12 per batch, K1 0, K2 1 per batch, K3 12 per step); the
+    card's fq encoder against its plain route; the fq tokens in lockstep
+    with the "hm" evaluator's on the same clips, and both RTFx from the
+    same run; one batch with an encoder q/v adapter (the downgrade to "hm":
+    K8 0, K1 12); then one beam batch through beam_decode with its
+    defaults (the unquantized classic cache, plain torch: K3 = K5 = 0).
+    Returns the launch counts of each counted run by path."""
+    import torch
+    from sar_tpu_torch.decode import beam_decode
+    from sar_tpu_torch.evaluation import ASREvaluator
+    from sar_tpu_torch.models import lora as lora_lib
+    from sar_tpu_torch.models import whisper
+    from sar_tpu_torch.ops import mel as mel_ops
+
+    g = torch.Generator(device=device).manual_seed(SEED + 1)      # the greedy cell's clips
+    audio = [torch.randn((batch, mel_ops.N_SAMPLES), generator=g, device=device) * 0.1
+             for _ in range(n_batches)]
+    Le, Ld = cfg.encoder_layers, cfg.decoder_layers
+    kw = dict(language="hindi", max_new_tokens=max_new_tokens, device=device)
+    ev = ASREvaluator(cfg, params, flash="fq", **kw)
+    hm = ASREvaluator(cfg, params, flash="hm", **kw)
+    P = int(ev._prompt.shape[0])
+    steps = [0]
+    real_step = whisper.decode_step
+
+    def counting_step(*a, **k):
+        steps[0] += 1
+        return real_step(*a, **k)
+
+    def counted(fn):
+        """(fn(), launch counts, decode steps, wall seconds), the counters
+        zeroed before and read after."""
+        torch.cuda.synchronize()
+        reset_counts()
+        steps[0] = 0
+        whisper.decode_step = counting_step
+        try:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            whisper.decode_step = real_step
+        return out, read_counts(), steps[0], wall
+
+    def mel(a):
+        return mel_ops.log_mel_spectrogram(a, cfg.num_mel_bins,
+                                           dtype=torch.bfloat16)[:, :, :cfg.num_audio_frames]
+
+    def greedy(evaluator, clips):
+        """mel -> prep -> dec per batch: [(tokens, fenced prep s, fenced decode s)]."""
+        out = []
+        for a in clips:
+            f = mel(a)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cache = evaluator.prep(f)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            tokens = evaluator.dec(cache)
+            torch.cuda.synchronize()
+            out.append((tokens, t1 - t0, time.perf_counter() - t1))
+        return out
+
+    greedy(ev, audio[:1])                                          # warm-up, not counted
+    runs = {}
+    for name, e in (("fq", ev), ("hm", hm)):
+        runs[name] = counted(lambda e=e: greedy(e, audio))
+    outs, c_fq, n_steps, _ = runs["fq"]
+    audio_s = n_batches * batch * mel_ops.CHUNK_SECONDS
+    for name, (o, c, n, wall) in runs.items():
+        for i, (tokens, _, _) in enumerate(o):
+            if tokens.shape != (batch, ev.total) or tokens.min() < 0 \
+                    or tokens.max() >= cfg.vocab_size:
+                fail(f"{name} batch {i}: bad token tensor {tuple(tokens.shape)}")
+        prep_ms = 1e3 * statistics.mean(t for _, t, _ in o)
+        print(f"{name} greedy: {audio_s} audio-s in {wall:.3f} s -> RTFx {audio_s / wall:.1f} | "
+              f"prep (encoder + K2 cache) {prep_ms:.1f} ms per batch of {batch} | "
+              f"{1e3 * sum(t for _, _, t in o) / n:.3f} ms/token-step over {n} steps | launches "
+              f"{json.dumps(c)}")
+    check_counts("fq greedy", c_fq, want_zero=tuple(
+        k for k in KERNEL_NAMES if k not in ("encoder_attention_fused", "fused_kv_init",
+                                             "cross_decode_attention_exact")))
+    want = {"encoder_attention_fused": Le * n_batches, "encoder_attention_hm": 0,
+            "fused_kv_init": n_batches, "cross_decode_attention_exact": Ld * n_steps}
+    if any(c_fq[k] != v for k, v in want.items()):
+        fail(f"fq greedy: launches {c_fq}, the path predicts {want}")
+
+    # The card's fq encoder against its plain route (kernels=False), with
+    # the hm encoder against its own plain route as the noise floor: the
+    # same bf16 roundings at other points through 12 layers.
+    f0 = mel(audio[0])
+    with torch.no_grad():
+        errs = {}
+        for route in ("fq", "hm"):
+            got = whisper.encode(params, f0, cfg, flash=route)
+            want_e = whisper.encode(params, f0, cfg, flash=route, kernels=False)
+            errs[route] = _attn_errors(got, want_e)
+        del got, want_e
+    (fa, fr), (ha, hr) = errs["fq"], errs["hm"]
+    print(f"fq encode vs its plain route (kernels=False): max_abs_err {fa:.3e} max_rel_err "
+          f"{fr:.3e} (need rel <= max({ATTN_REL_TOL}, 2 x the hm route's)) | hm encode vs its "
+          f"plain route: max_abs_err {ha:.3e} max_rel_err {hr:.3e}")
+    if fr > max(ATTN_REL_TOL, 2 * hr):
+        fail("the fq encoder disagrees with its plain route")
+
+    # Lockstep: both evaluators' caches of batch 0 fed the fq path's tokens.
+    tok_f, tok_h = runs["fq"][0][0][0], runs["hm"][0][0][0]
+    lock_steps = decode_steps(tok_f, cfg, P)
+    cache_f, cache_h = ev.prep(f0), hm.prep(f0)
+    agree, n, max_dlogit = 0, 0, 0.0
+    with torch.no_grad():
+        for pos in range(lock_steps):
+            lf, cache_f = whisper.decode_step(params, tok_f[:, pos], pos, cache_f, cfg)
+            lh, cache_h = whisper.decode_step(params, tok_f[:, pos], pos, cache_h, cfg)
+            if not (torch.isfinite(lf).all() and torch.isfinite(lh).all()):
+                fail(f"fq: non-finite logits at step {pos}")
+            if pos + 1 >= P:
+                agree += int((lf.argmax(-1) == lh.argmax(-1)).sum())
+                n += batch
+                max_dlogit = max(max_dlogit, (lf - lh).abs().max().item())
+    del cache_f, cache_h
+    lock = agree / max(n, 1)
+    rows_equal = sum(int((a[0] == b[0]).all(1).sum())
+                     for a, b in zip(runs["fq"][0], runs["hm"][0]))
+    print(f"fq vs hm (batch 0): lockstep argmax agreement {lock:.4f} ({agree}/{n} row-steps, "
+          f"need >= {LOCKSTEP_MIN_AGREEMENT}) | max |dlogit| {max_dlogit:.4e} | free-running "
+          f"rows equal {rows_equal}/{n_batches * batch}, tokens equal "
+          f"{(tok_f[:, P:] == tok_h[:, P:]).float().mean().item():.4f} (batch 0)")
+    if lock < LOCKSTEP_MIN_AGREEMENT:
+        fail("the fq path disagrees with the hm path")
+
+    # An encoder q/v adapter: encode() takes "hm" (K1), not K8.
+    lcfg = lora_lib.LoraConfig(r=LORA_RANK, alpha=LORA_ALPHA, dropout=0.0,
+                               target_modules=("q_proj", "v_proj"))
+    bank = lora_lib.map_with_path(
+        lambda path, x: (torch.randn(x.shape, generator=g, device=device) * LORA_B_STD
+                         if path[-1] == "b" else x),
+        lora_lib.init_lora(g, cfg, lcfg))
+    ev_l = ASREvaluator(cfg, params, lora=bank, lora_scale=lcfg.scale, flash="fq", **kw)
+    out_l, c_lora, _, _ = counted(lambda: greedy(ev_l, audio[:1]))
+    print(f"fq with an encoder q/v adapter (batch 0): launches {json.dumps(c_lora)}")
+    if c_lora["encoder_attention_fused"] != 0 or c_lora["encoder_attention_hm"] != Le:
+        fail(f"fq with a q/v adapter: K8 {c_lora['encoder_attention_fused']}, K1 "
+             f"{c_lora['encoder_attention_hm']}; the downgrade predicts K8 0, K1 {Le}")
+    del ev_l, out_l
+
+    # beam_decode with its defaults (the JAX package's): the unquantized
+    # classic cache, read in plain torch.
+    K = BEAM_WIDTH
+    enc = ev.encode(f0)
+    tok_b, c_beam, n_beam, wall_b = counted(
+        lambda: beam_decode(params, enc, cfg, ev._prompt, num_beams=K,
+                            max_new_tokens=max_new_tokens))
+    if tok_b.shape != (batch, ev.total) or tok_b.min() < 0 or tok_b.max() >= cfg.vocab_size:
+        fail(f"default beam: bad token tensor {tuple(tok_b.shape)}")
+    print(f"beam_decode with its defaults (unquantized classic cache, {batch} samples x {K} "
+          f"beams): {1e3 * wall_b / n_beam:.3f} ms/token-step over {n_beam} steps (cache + "
+          f"loop) | launches {json.dumps(c_beam)}")
+    check_counts("default beam", c_beam, want_zero=KERNEL_NAMES)
+    return {"fq": c_fq, "fq_lora": c_lora, "beam_default": c_beam}
+
+
 def main() -> int:
     device, name, _ = phase_device()
     import torch
     from sar_tpu_torch.models.config import get_config
     phase_build()
     cfg = get_config(MODEL)
-    rows = phase_kernels(cfg, device, BATCH) + phase_k6(cfg, device, BATCH)
     params, n_params = make_model(cfg, device)
+    rows = (phase_kernels(cfg, device, BATCH) + phase_k6(cfg, device, BATCH)
+            + phase_kernels_k8_k10(cfg, params, device, BATCH))
     by_path = {"greedy": phase_e2e(cfg, params, n_params, device, BATCH, N_BATCHES,
                                    MAX_NEW_TOKENS),
                "routed": phase_routed(cfg, params, device, BATCH, MAX_NEW_TOKENS,
@@ -1520,14 +1876,16 @@ def main() -> int:
                "train": phase_train(cfg, params, device, BATCH,
                                     profile="--profile" in sys.argv[1:]),
                "s8": phase_s8(cfg, params, device, BATCH, N_BATCHES, MAX_NEW_TOKENS,
-                              profile="--profile" in sys.argv[1:])}
+                              profile="--profile" in sys.argv[1:]),
+               **phase_fq(cfg, params, device, BATCH, N_BATCHES, MAX_NEW_TOKENS)}
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}
         r["launches"] = sum(r["launches_by_path"].values())
     print(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces", "launches",
                            "launches_by_path", "max_abs_err", "ms", "plain_ms",
-                           "bound_ms", "bound_by", "library_ms", "shapes") if k in r}
+                           "bound_ms", "bound_by", "library_ms", "shapes", "extra")
+         if k in r}
         for r in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

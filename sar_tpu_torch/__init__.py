@@ -23,7 +23,13 @@ dropout (models/whisper.py), every attention of a step through the
 blockwise flash-attention kernels, forward and backward (ops/flash.py),
 ASRTrainer with the optax-equivalent clipped AdamW, checkpoints and
 callbacks (training/), WhisperLoRA (models/whisper_lora.py) and the train
-CLI (scripts/train_lora.py). Entry points run on the CUDA card unless
+CLI (scripts/train_lora.py) — and the opt-ins: the quantized decode (s8
+attention scores, the int4 cache) and the fused encoder
+(encode(flash="fq"): pre-LN + q/k/v projections + attention in one entry
+point, ops/flash_enc.py); ops/attic/ holds the JAX package's two parked
+decode kernels, standalone. The decode functions default, as JAX's do,
+to the unquantized classic cache; the serving programs ask for the int8
+one. Entry points run on the CUDA card unless
 given device="cpu" (device.py). The kernels are hand-written CUDA C++ for
 sm_90a (`csrc/`), built at first use by `ops/_build.py`; every kernel has
 a plain PyTorch version beside it that CPU tensors take.

@@ -27,8 +27,11 @@ promises no order, so the stages that can tie (the running set, where
 stopped candidates all sit near -1e9, and the finished merge) sort with a
 stable descending sort instead.
 
+The cache is the JAX package's default, the unquantized classic one,
+unless the int8 or int4 flags ask for another (see `beam_decode`).
 Cross K/V are ONE copy per sample, shared by its K beams: `decode_step`
-folds the beam queries into one cross-attention call (kernel K5). The
+folds the beam queries into one cross-attention call (kernel K5 over the
+int8 cache, plain attention over the classic one). The
 self cache holds B*K slots that are never moved: an ancestry matrix
 anc[b, k, t] (the slot that wrote row t of beam k's history) is composed
 per step with `torch.gather` instead of reordering the cache. The int4
@@ -185,7 +188,7 @@ def beam_decode(params: dict, enc_out: torch.Tensor, cfg: WhisperConfig,
                 max_new_tokens: int = 256, length_penalty: float = 1.0,
                 lora: dict | None = None, adapter_idx=None,
                 lora_scale: float = 1.0,
-                cross_kv_int8: bool = True, self_kv_int8: bool = True,
+                cross_kv_int8: bool = False, self_kv_int8: bool = False,
                 cross_kv_int4: bool = False, self_kv_int4: bool = False,
                 scores_int8: bool = False,
                 suppress_ids: tuple[int, ...] = (),
@@ -193,11 +196,16 @@ def beam_decode(params: dict, enc_out: torch.Tensor, cfg: WhisperConfig,
                 segment: int = 32, timestamps: bool = False,
                 head_minor: bool | None = None,
                 kernels: bool = True) -> torch.Tensor:
-    """Beam search over an int8 head-minor cache built from `enc_out`
-    [B, S, D], or an int4 classic one (cross_kv_int4 = self_kv_int4 =
-    True). prompt_ids: [P] or [B, P]. Returns the best beam of each
-    sample, [B, min(P + max_new_tokens, max_target_positions)] int64;
-    positions after its EOS are EOS.
+    """Beam search over a cache built from `enc_out` [B, S, D]: the
+    unquantized classic one by default, as in the JAX package (plain
+    torch: the cross-attention folds each sample's beams into one plain
+    attention call, the self cache is read through the ancestry); the int8
+    head-minor one with cross_kv_int8 = self_kv_int8 = True (kernels K2 and
+    K5); or the int4 classic one (cross_kv_int4 = self_kv_int4 = True).
+    `head_minor` as `init_cache` takes it. prompt_ids: [P] or [B, P].
+    Returns the best beam of each sample,
+    [B, min(P + max_new_tokens, max_target_positions)] int64; positions
+    after its EOS are EOS.
 
     `lora` (a bank) adapts the cache build and every step, with adapter 0
     for the batch or `adapter_idx` [B] per sample (repeated K times for the
@@ -208,10 +216,6 @@ def beam_decode(params: dict, enc_out: torch.Tensor, cfg: WhisperConfig,
     if timestamps:
         raise NotImplementedError("beam_decode(timestamps=True) is not ported")
     int4 = cross_kv_int4 or self_kv_int4
-    if not int4 and (head_minor is False or not (cross_kv_int8 and self_kv_int8)):
-        raise NotImplementedError(
-            "the port's beam cache is the int8 head-minor variant or the int4 "
-            "classic one")
     B = enc_out.shape[0]
     K = num_beams
     dev = enc_out.device
@@ -223,6 +227,8 @@ def beam_decode(params: dict, enc_out: torch.Tensor, cfg: WhisperConfig,
     eos = cfg.eos_token_id
     cache = whisper.init_cache(params, enc_out, cfg, max_len=total, lora=lora,
                                adapter_idx=adapter_idx, lora_scale=lora_scale,
+                               cross_kv_int8=cross_kv_int8,
+                               self_kv_int8=self_kv_int8,
                                cross_kv_int4=cross_kv_int4,
                                self_kv_int4=self_kv_int4, head_minor=head_minor,
                                self_batch=B * K, kernels=kernels)

@@ -8,10 +8,11 @@ emitted EOS keep emitting EOS, and the loop stops early once every row has
 finished (one host sync per step reads that flag). Suppress-token masking
 is available and off by default.
 
-The cache is the int8 head-minor one by default, the int4 classic one
-(`cross_kv_int4=True, self_kv_int4=True`), or the unquantized classic one
-(`cross_kv_int8=False, self_kv_int8=False`); `scores_int8` takes the
-decode steps over the int8 cache to s8 scores (kernel K7). The self cache
+The cache is, as in the JAX package, the unquantized classic one by
+default; the int8 head-minor one of serving (`cross_kv_int8=True,
+self_kv_int8=True`, kernels K2 and K3), or the int4 classic one
+(`cross_kv_int4=True, self_kv_int4=True`) on request; `scores_int8` takes
+the decode steps over the int8 cache to s8 scores (kernel K7). The self cache
 is allocated at the full length `total`: the reference's
 `segment` option only shortens the self-attention buffers and yields tokens
 identical to `segment=0`. Sampling, timestamps, logprobs and segmenting
@@ -32,16 +33,16 @@ def greedy_decode(params: dict, enc_out: torch.Tensor, cfg: WhisperConfig,
                   lora: dict | None = None, adapter_idx=None,
                   lora_scale: float = 1.0,
                   suppress_ids: tuple[int, ...] = (),
-                  cross_kv_int8: bool = True, self_kv_int8: bool = True,
+                  cross_kv_int8: bool = False, self_kv_int8: bool = False,
                   cross_kv_int4: bool = False, self_kv_int4: bool = False,
                   scores_int8: bool = False,
                   kernels: bool = True) -> torch.Tensor:
-    """Greedy decode over a cache built from `enc_out`: the int8 head-minor
-    one (the default, serving's), the int4 classic one (the int4 flags
-    supersede the int8 ones), or with cross_kv_int8 = self_kv_int8 = False
-    the unquantized classic one (the JAX package's default, which its
-    trainer's evaluation takes); the layout is `whisper.use_head_minor`'s.
-    `scores_int8` decodes over the int8 cache with s8 scores (K7).
+    """Greedy decode over a cache built from `enc_out`: the unquantized
+    classic one (the default, the JAX package's), the int8 head-minor one
+    with cross_kv_int8 = self_kv_int8 = True (serving's), or the int4
+    classic one (the int4 flags supersede the int8 ones); the layout is
+    `whisper.use_head_minor`'s. `scores_int8` needs the int8 flags and
+    decodes over that cache with s8 scores (K7).
     prompt_ids: [P] or [B, P] (e.g. cfg.prompt_ids(lang)). `lora` (a bank)
     adapts the cache build and every step, with adapter 0 for the batch or
     `adapter_idx` [B] per row.

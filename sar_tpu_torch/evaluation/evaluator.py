@@ -4,16 +4,21 @@ and beam decoding, with or without one LoRA adapter).
 
 Greedy runs two phases per batch, as in the reference: `prep` (encoder +
 the int8 head-minor cross-KV cache, or the int4 classic one) and `dec`
-(the greedy loop over that cache). Beam search (`num_beams` > 1) runs the encoder alone and then
-`beam_decode`, which builds its own cache (one cross slab per sample,
-B*K self-cache rows). `evaluate` transcribes a dataloader's split and
-returns corpus WER/CER; `evaluate_per_sample`, `analyze` and
-`save_results` are the JAX evaluator's. The opt-in quantized decode is
-the JAX evaluator's too: `scores_int8` (s8 scores over the int8 cache,
-kernel K7) and `kv_int4` (the nibble-packed int4 cache, which supersedes
-kv_int8), with its checks (`quantized_decode_options`). Meshes,
-temperature fallback and a bf16 cache are not ported and raise
-NotImplementedError.
+(the greedy loop over that cache). Beam search (`num_beams` > 1) runs the
+encoder alone and then `beam_decode`, which builds its own cache (one
+cross slab per sample, B*K self-cache rows). Both pass the cache flags
+(`kv_int8`, `kv_int4`) to the decode explicitly, as the JAX evaluator
+does: the decode functions' own default is the unquantized cache.
+`flash` goes to `encode` as in the JAX evaluator: "hm" (kernel K1), "fq"
+(kernel K8, which `encode` turns into "hm" when an adapter holds q/k/v),
+False or True; "auto" is "hm" on the card. `evaluate` transcribes a
+dataloader's split and returns corpus WER/CER; `evaluate_per_sample`,
+`analyze` and `save_results` are the JAX evaluator's. The opt-in
+quantized decode is the JAX evaluator's too: `scores_int8` (s8 scores
+over the int8 cache, kernel K7) and `kv_int4` (the nibble-packed int4
+cache, which supersedes kv_int8), with its checks
+(`quantized_decode_options`). Meshes, temperature fallback and a bf16
+cache (kv_int8=False) are not ported and raise NotImplementedError.
 
 The evaluator runs on the CUDA card unless `device` says otherwise (see
 sar_tpu_torch/device.py); params and the adapter on another device are
@@ -126,6 +131,8 @@ class ASREvaluator:
         return whisper.init_cache(self.params, self.encode(mel), self.cfg,
                                   max_len=self.total, lora=self.lora,
                                   lora_scale=self.lora_scale,
+                                  cross_kv_int8=self.kv_int8,
+                                  self_kv_int8=self.kv_int8,
                                   cross_kv_int4=self.kv_int4,
                                   self_kv_int4=self.kv_int4,
                                   kernels=self.kernels)
@@ -149,6 +156,7 @@ class ASREvaluator:
                            num_beams=self.num_beams,
                            max_new_tokens=self.max_new_tokens, lora=self.lora,
                            lora_scale=self.lora_scale,
+                           cross_kv_int8=self.kv_int8, self_kv_int8=self.kv_int8,
                            cross_kv_int4=self.kv_int4, self_kv_int4=self.kv_int4,
                            scores_int8=self.scores_int8, kernels=self.kernels)
 

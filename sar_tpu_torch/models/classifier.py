@@ -243,11 +243,14 @@ def encode_features(base_params: dict, mel: torch.Tensor, cfg: WhisperConfig,
     post-LN output (whisper.encode); k >= 0: the output of encoder layer k
     (0-based), running only the first k+1 layers, without the final LN.
     `flash` as in whisper.encode ("hm" launches the attention kernel on T
-    padded to cross_pad_len)."""
+    padded to cross_pad_len); a tap layer takes "fq" as "hm", as the JAX
+    package does, while layer_index=-1 passes it on to whisper.encode."""
     from sar_tpu_torch.models import whisper
 
     if layer_index == -1:
         return whisper.encode(base_params, mel, cfg, flash=flash)
+    if flash == "fq":
+        flash = "hm"            # no LoRA here, but fq buys nothing for taps
     enc = base_params["encoder"]
     L = enc["layers"]["q"]["w"].shape[0]
     k = layer_index if layer_index >= 0 else L + layer_index

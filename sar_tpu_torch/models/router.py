@@ -3,19 +3,22 @@
 
 A batch of utterances in mixed languages goes through the LID classifier
 at its tap layer; each utterance then takes its language's adapter from
-the stacked bank in ONE batched pass: the adapted encoder, the int8
+the stacked bank in ONE batched pass: the adapted encoder, the cache and
+the greedy decode with per-row prompts. `generate` decodes as the JAX
+`generate` does, with `greedy_decode`'s default, the unquantized classic
+cache (plain torch). `cache` / `decode` / `decode_from_cache` /
+`step`, the program the service runs, build and read the int8
 head-minor cache (its cross_v term through kernel K4, the bank slices
-gathered once per batch) and the greedy decode with per-row prompts. The
-JAX `generate` decodes over its unquantized default cache; here it decodes
-over the int8 head-minor cache, the port's only cache, which is what the
-JAX service's routed program runs on a TPU.
+gathered once per batch; K3 in every step), as the JAX service's routed
+program does; or, with `kv_int4`, the int4 classic one.
 
 The router runs on the CUDA card unless `device` says otherwise (see
 sar_tpu_torch/device.py); base, bank and classifier params are moved to
 its device once. `flash` defaults to the attention kernel ("hm") on the
-card and exact attention on the CPU. Teacher-forced `forward` and the soft
-and threshold strategies need `whisper.forward`, which comes with
-training: they raise NotImplementedError.
+card and exact attention on the CPU; "fq" passes through to `encode`,
+which keeps "hm" for a bank that adapts q/k/v (the usual q_proj/v_proj
+bank) and for the LID tap. Teacher-forced `forward` (the hard, soft and
+threshold strategies) is not ported yet and raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from pathlib import Path
 
 import torch
 
-from sar_tpu_torch.decode.greedy import greedy_decode_from_cache
+from sar_tpu_torch.decode.greedy import greedy_decode, greedy_decode_from_cache
 from sar_tpu_torch.device import resolve_device, tree_to
 from sar_tpu_torch.models import classifier as clf
 from sar_tpu_torch.models import lora as lora_lib
@@ -94,8 +97,8 @@ class AdapterRouter:
     # -- Teacher-forced routing (training) -----------------------------------
     def forward(self, input_features, labels=None, strategy=None):
         raise NotImplementedError(
-            "AdapterRouter.forward (teacher-forced hard/soft/threshold "
-            "routing) needs whisper.forward, which the port has not got yet")
+            "AdapterRouter.forward: the teacher-forced hard, soft and "
+            "threshold routing strategies are not ported yet")
 
     # -- Routed generation ----------------------------------------------------
     @torch.no_grad()
@@ -119,6 +122,8 @@ class AdapterRouter:
         return whisper.init_cache(self.base_params, enc, self.cfg, total,
                                   lora=self._bank, adapter_idx=adapter_idx,
                                   lora_scale=self.lora_cfg.scale,
+                                  cross_kv_int8=not kv_int4,
+                                  self_kv_int8=not kv_int4,
                                   cross_kv_int4=kv_int4, self_kv_int4=kv_int4,
                                   kernels=self.kernels)
 
@@ -147,12 +152,15 @@ class AdapterRouter:
                                    lora_scale=self.lora_cfg.scale,
                                    kernels=self.kernels)
 
+    @torch.no_grad()
     def generate(self, input_features: torch.Tensor,
                  language: str | None = None, adapter_idx=None,
                  max_new_tokens: int = 256) -> torch.Tensor:
-        """Batched routed transcription -> tokens [B, P + max_new_tokens].
-        `language` forces one adapter for every row; `adapter_idx` gives
-        each row's adapter (skipping LID); otherwise LID picks them."""
+        """Batched routed transcription -> tokens [B, P + max_new_tokens],
+        greedy over `greedy_decode`'s default (unquantized) cache, as the
+        JAX `generate`. `language` forces one adapter for every row;
+        `adapter_idx` gives each row's adapter (skipping LID); otherwise
+        LID picks them."""
         B = input_features.shape[0]
         if language is not None:
             idx = torch.full((B,), self.lang_to_idx[language],
@@ -161,8 +169,11 @@ class AdapterRouter:
             idx = torch.as_tensor(adapter_idx, device=self.device).long()
         else:
             idx, _ = self.route(input_features)
-        return self.decode(self.encode(input_features, idx), idx,
-                           max_new_tokens)
+        return greedy_decode(self.base_params, self.encode(input_features, idx),
+                             self.cfg, self._prompts[idx],
+                             max_new_tokens=max_new_tokens, lora=self._bank,
+                             adapter_idx=idx, lora_scale=self.lora_cfg.scale,
+                             kernels=self.kernels)
 
     # -- Persistence ---------------------------------------------------------
     def save(self, path: str | Path) -> None:

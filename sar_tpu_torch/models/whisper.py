@@ -13,13 +13,15 @@ eps 1e-5), matmuls in the params' dtype, exact GELU, q = (h.Wq + bq) *
 hd^-0.5, no bias on the k projections, softmax in fp32, logits in fp32 from
 the compute-dtype operands.
 
-Covered: `encode(flash=False|True|"hm")`, `decode_train`, `forward`,
+Covered: `encode(flash=False|True|"hm"|"fq")`, `decode_train`, `forward`,
 `shift_tokens_right` and `cross_entropy_loss` (training: flash=True is the
 blockwise attention of ops/flash.py, kernel K6, forward and backward;
 `remat` checkpoints each layer, saving the plain matmuls and K6's output as
-the JAX package's policy does, `_remat`); the int8 head-minor `init_cache`
-and `decode_step` of serving, and the unquantized classic cache the
-trainer's evaluation decodes through. Each takes optional LoRA from an
+the JAX package's policy does, `_remat`; inference: "hm" is the head-minor
+attention kernel K1, "fq" the fused LN + QKV + attention kernel K8, both
+in ops/flash_enc.py); `init_cache` and `decode_step` over the unquantized
+classic cache (the default, as in the JAX package) and the int8
+head-minor cache of serving. Each takes optional LoRA from an
 adapter bank (models/lora.py): one adapter for the whole batch, or one per
 utterance (`adapter_idx`, masked-dense routing, `lora_delta`), with the
 LoRA dropout of training (`lora_dropout`, masks drawn from a seed folded
@@ -28,7 +30,8 @@ The cross_v LoRA term of the int8 cache build rides kernel K4
 (ops/kv_init.py). Beam search keeps one cross slab per sample and B*K
 self-cache rows (`self_batch`); `decode_step(beam_width=K, ancestry=...)`
 folds the K beam queries of a sample into one cross-attention call (kernel
-K5) and reads the never-moved self cache through the ancestry matrix
+K5 over the int8 cache, plain attention over the classic one) and reads
+the never-moved self cache through the ancestry matrix
 (`_self_attention_beam`).
 
 The opt-in quantized decode: `decode_step(scores_int8=True)` over the int8
@@ -60,7 +63,11 @@ from sar_tpu_torch.ops.decode_cross import (cross_decode_attention,
                                             cross_decode_reference,
                                             cross_decode_reference_exact,
                                             int_einsum)
-from sar_tpu_torch.ops.flash_enc import encoder_attention_hm
+from sar_tpu_torch.ops.flash_enc import (encoder_attention_fused,
+                                         encoder_attention_fused_reference,
+                                         encoder_attention_hm,
+                                         encoder_attention_hm_reference,
+                                         fused_qkv_supported)
 from sar_tpu_torch.ops.kv_init import (fused_kv_init, fused_kv_init_reference,
                                       quantize_rows)
 
@@ -349,25 +356,41 @@ def _mha(q, k, v, mask=None, *, causal=False, flash=False):
 
 
 def _enc_layer_apply(x, p, num_heads, flash=False, t_valid=None, lora=None,
-                     ctx: LoraCtx = LoraCtx()):
+                     ctx: LoraCtx = LoraCtx(), kernels: bool = True):
     lo = lora or {}
+    if flash == "fq" and not any(k in lo for k in ("q", "k", "v")):
+        # K8: LN + q/k/v projections + attention in one entry point; LoRA
+        # on the out-projection alone still composes (below). encode()
+        # turns "fq" into "hm" for a bank on q/k/v.
+        fused = (encoder_attention_fused if kernels
+                 else encoder_attention_fused_reference)
+        a_m = fused(x, p["attn_ln"]["scale"], p["attn_ln"]["bias"],
+                    p["q"]["w"], p["q"]["b"], p["k"]["w"], p["v"]["w"],
+                    p["v"]["b"], n_heads=num_heads, t_valid=t_valid)
+    else:
+        a_m = _enc_attention(x, p, num_heads, flash, t_valid, lo, ctx, kernels)
+    x = x + _proj(a_m, p["o"], lo.get("o"), ctx, 3)
+    h = layer_norm(x, p["mlp_ln"]["scale"], p["mlp_ln"]["bias"])
+    h = F.gelu(linear(h, p["fc1"]))
+    return x + linear(h, p["fc2"])
+
+
+def _enc_attention(x, p, num_heads, flash, t_valid, lo, ctx, kernels):
+    """The unfused attention half of an encoder layer: LN, the (adapted)
+    projections, then K1 ("hm" and "fq"), K6 (True) or exact attention."""
     scaling = (x.shape[-1] // num_heads) ** -0.5
     h = layer_norm(x, p["attn_ln"]["scale"], p["attn_ln"]["bias"])
     q = _proj(h, p["q"], lo.get("q"), ctx, 0) * scaling
     k = _proj(h, p["k"], lo.get("k"), ctx, 1)
     v = _proj(h, p["v"], lo.get("v"), ctx, 2)
-    if flash == "hm":
+    if flash in ("hm", "fq"):
         # Head-minor kernel on the residual layout: no split/merge copies;
         # `x` is padded to the kernel's T and keys >= t_valid are masked.
-        a_m = encoder_attention_hm(q, k, v, n_heads=num_heads, t_valid=t_valid)
-    else:
-        a = _mha(split_heads(q, num_heads), split_heads(k, num_heads),
-                 split_heads(v, num_heads), flash=flash)
-        a_m = merge_heads(a)
-    x = x + _proj(a_m, p["o"], lo.get("o"), ctx, 3)
-    h = layer_norm(x, p["mlp_ln"]["scale"], p["mlp_ln"]["bias"])
-    h = F.gelu(linear(h, p["fc1"]))
-    return x + linear(h, p["fc2"])
+        hm = encoder_attention_hm if kernels else encoder_attention_hm_reference
+        return hm(q, k, v, n_heads=num_heads, t_valid=t_valid)
+    a = _mha(split_heads(q, num_heads), split_heads(k, num_heads),
+             split_heads(v, num_heads), flash=flash)
+    return merge_heads(a)
 
 
 def _layer_ctx(ctx: LoraCtx, layer: int) -> LoraCtx:
@@ -425,16 +448,19 @@ def encoder_front(enc: Params, mel: torch.Tensor) -> torch.Tensor:
 def encoder_layers(enc: Params, x: torch.Tensor, cfg: WhisperConfig,
                    n_layers: int, *, flash: bool | str = False,
                    lora: Params | None = None,
-                   ctx: LoraCtx = LoraCtx(), remat=False) -> torch.Tensor:
+                   ctx: LoraCtx = LoraCtx(), remat=False,
+                   kernels: bool = True) -> torch.Tensor:
     """The first `n_layers` encoder layers over x [B, T, d]. flash=True
-    takes K6 (training); with flash="hm" the layers run on T padded to
+    takes K6 (training); with flash="hm" (K1) or "fq" (K8 where the layer's
+    LoRA leaves q/k/v alone, else K1) the layers run on T padded to
     `cross_pad_len(T)` (padded rows carry garbage that masked keys keep out
-    of real rows) and the pad is sliced off after the last layer."""
-    if flash not in (False, True, "hm"):
-        raise NotImplementedError(
-            f"encode(flash={flash!r}): the port has False, True and 'hm'")
+    of real rows) and the pad is sliced off after the last layer.
+    `kernels=False` takes K1's and K8's plain versions on any device."""
+    if flash not in (False, True, "hm", "fq"):
+        raise ValueError(f"encode(flash={flash!r}): want False, True, 'hm' "
+                         f"or 'fq'")
     T = x.shape[1]
-    pad = cross_pad_len(T) - T if flash == "hm" else 0
+    pad = cross_pad_len(T) - T if flash in ("hm", "fq") else 0
     if pad:
         x = F.pad(x, (0, 0, 0, pad))
 
@@ -442,7 +468,7 @@ def encoder_layers(enc: Params, x: torch.Tensor, cfg: WhisperConfig,
         return _enc_layer_apply(x, _layer(enc["layers"], l), cfg.encoder_heads,
                                 flash=flash, t_valid=T,
                                 lora=_layer(lora, l) if lora else None,
-                                ctx=_layer_ctx(ctx, l))
+                                ctx=_layer_ctx(ctx, l), kernels=kernels)
     body = _remat(body, remat)
     for l in range(n_layers):
         x = body(x, l)
@@ -453,24 +479,34 @@ def encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig, *,
            lora: Params | None = None, adapter_idx=None,
            lora_scale: float = 1.0, lora_dropout: float = 0.0,
            dropout_seed: int | None = None, remat=False,
-           flash: bool | str = False) -> torch.Tensor:
+           flash: bool | str = False, kernels: bool = True) -> torch.Tensor:
     """Encoder forward. mel: [B, num_mel_bins, T_frames] -> [B, T/2, d].
 
     flash: False = exact attention ([T, T] probabilities materialised);
     True = the blockwise kernel K6 (ops/flash.py, forward and backward: the
-    training path); "hm" = the head-minor attention kernel
-    (ops/flash_enc.py, inference only), run on T padded to
-    `cross_pad_len(T)` with the pad sliced off after the stack. `lora` (a
-    bank) adapts the hooks q/k/v/o it holds, with adapter 0 for every row
-    or `adapter_idx` [B] per row; `lora_dropout` with `dropout_seed` drops
-    the branch inputs (training). `remat` as `_remat`."""
+    training path); "hm" = the head-minor attention kernel K1
+    (ops/flash_enc.py, inference only); "fq" = the fused LN + q/k/v
+    projection + attention kernel K8 (inference only). "hm" and "fq" run on
+    T padded to `cross_pad_len(T)` with the pad sliced off after the stack.
+    "fq" turns into "hm", as in the JAX package, when the bank adapts q, k
+    or v (the fused projections have no adapter path) or when
+    `fused_qkv_supported` (the JAX package's route rule) refuses the shape.
+    `lora` (a bank) adapts the hooks q/k/v/o it holds, with adapter 0 for
+    every row or `adapter_idx` [B] per row; `lora_dropout` with
+    `dropout_seed` drops the branch inputs (training). `remat` as `_remat`.
+    `kernels=False` takes K1's and K8's plain versions on any device."""
     enc = params["encoder"]
     x = encoder_front(enc, mel)
     enc_lora = lora.get("encoder") if lora else None
+    if flash == "fq":
+        lora_qkv = enc_lora is not None and any(k in enc_lora for k in ("q", "k", "v"))
+        if lora_qkv or not fused_qkv_supported(cross_pad_len(x.shape[1]),
+                                               x.shape[-1], cfg.encoder_heads):
+            flash = "hm"
     ctx = lora_ctx(enc_lora, adapter_idx, lora_scale, x.dtype, lora_dropout,
                    dropout_seed)
     x = encoder_layers(enc, x, cfg, cfg.encoder_layers, flash=flash,
-                       lora=enc_lora, ctx=ctx, remat=remat)
+                       lora=enc_lora, ctx=ctx, remat=remat, kernels=kernels)
     return layer_norm(x, enc["ln"]["scale"], enc["ln"]["bias"])
 
 
@@ -652,13 +688,20 @@ def use_head_minor(*, cross_kv_int8: bool, self_kv_int8: bool,
 def init_cache(params: Params, enc_out: torch.Tensor, cfg: WhisperConfig,
                max_len: int, *, lora: Params | None = None,
                adapter_idx=None, lora_scale: float = 1.0,
-               cross_kv_int8: bool = True,
-               self_kv_int8: bool = True, head_minor: bool | None = None,
+               cross_kv_int8: bool = False,
+               self_kv_int8: bool = False, head_minor: bool | None = None,
                self_batch: int | None = None,
                kernels: bool = True, cross_kv_int4: bool = False,
                self_kv_int4: bool = False) -> DecodeCache:
-    """Project + quantize the cross K/V once per batch (fused_kv_init) and
-    allocate the zeroed int8 self cache of `max_len` positions.
+    """The decode cache of `enc_out`: cross K/V projected once per batch
+    and a zeroed self cache of `max_len` positions. By default, as in the
+    JAX package, the unquantized classic cache (`_init_cache_classic`, plain
+    torch, cross K/V [L, B, H, S, hd] in the compute dtype). With
+    cross_kv_int8 = self_kv_int8 = True, the int8 head-minor cache of
+    serving: cross K/V projected and quantized by kernel K2
+    (fused_kv_init) into head-minor slabs, an int8 self cache. With
+    cross_kv_int4 = self_kv_int4 = True (which supersede the int8 flags),
+    the classic nibble-packed int4 cache.
 
     `self_batch` (default B) sizes the self cache apart from the cross
     slabs: beam search keeps ONE cross slab per sample, shared by its K
@@ -673,11 +716,9 @@ def init_cache(params: Params, enc_out: torch.Tensor, cfg: WhisperConfig,
     `kernels=False` runs the plain PyTorch version on any device (the
     reference path the card's results are compared with).
 
-    `head_minor` defaults to `use_head_minor`'s choice. cross_kv_int8 =
-    self_kv_int8 = False builds the unquantized classic cache instead
-    (`_init_cache_classic`), the JAX package's default, which its trainer's
-    evaluation decodes through; cross_kv_int4 = self_kv_int4 = True (which
-    supersede the int8 flags) the classic int4 one."""
+    `head_minor` defaults to `use_head_minor`'s choice; the port has no
+    classic int8 cache, so the int8 flags with head_minor=False raise, as
+    does one int8 flag without the other."""
     int4 = cross_kv_int4 or self_kv_int4
     if head_minor is None:
         head_minor = use_head_minor(cross_kv_int8=cross_kv_int8,
@@ -866,7 +907,7 @@ def _cross_attention_int8_mxu(q, kq, ks, vq, vs, *, layer: int, n_heads: int,
 
 def _self_attention_beam(qh, sk, sv, sks, svs, anc, pos: int,
                          beam_width: int) -> torch.Tensor:
-    """Reorder-free beam self-attention over a slot-major int8 self cache.
+    """Reorder-free beam self-attention over a slot-major self cache.
 
     Slot j's row t was written by the logical beam that held slot j at step
     t and is never moved; anc [Bs, K, T] names the slot that wrote history
@@ -874,11 +915,13 @@ def _self_attention_beam(qh, sk, sv, sks, svs, anc, pos: int,
     entries that are not (anc-selected and t <= pos) are masked, and the
     softmax runs over the joint (slot, t) axis: one slot is live per t, so
     it equals the per-beam softmax on the selected entries. Rounding points
-    as in the JAX package: fp32 scores from the compute-dtype q and the
-    int8 K, probabilities times `svs` cast to the compute dtype, fp32 PV.
+    as in the JAX package: fp32 scores from the compute-dtype q and K,
+    probabilities (times `svs` when given) cast to the compute dtype, fp32
+    PV.
 
-    qh [Bs*K, H, 1, hd] beam-major rows; sk/sv [Bs*K, H, T, hd] int8;
-    sks/svs [Bs*K, H, T] fp32 -> [Bs*K, H, 1, hd]."""
+    qh [Bs*K, H, 1, hd] beam-major rows; sk/sv [Bs*K, H, T, hd], int8 with
+    sks/svs [Bs*K, H, T] fp32, or in the compute dtype with sks = svs =
+    None (the unquantized cache) -> [Bs*K, H, 1, hd]."""
     BK, H, T, hd = sk.shape
     K = beam_width
     Bs = BK // K
@@ -886,14 +929,17 @@ def _self_attention_beam(qh, sk, sv, sks, svs, anc, pos: int,
     q = qh[:, :, 0].reshape(Bs, K, H, hd).float()
     scores = torch.einsum("bkhd,bjhtd->bhkjt", q,
                           sk.reshape(Bs, K, H, T, hd).float())
-    scores = scores * sks.reshape(Bs, K, H, T).transpose(1, 2)[:, :, None]
+    if sks is not None:
+        scores = scores * sks.reshape(Bs, K, H, T).transpose(1, 2)[:, :, None]
     slots = torch.arange(K, device=anc.device)
     live = anc[:, None, :, None, :T] == slots[None, None, None, :, None]
     live = live & (torch.arange(T, device=anc.device) <= pos)
     scores = torch.where(live, scores, torch.finfo(torch.float32).min)
     probs = torch.softmax(scores.reshape(Bs, H, K, K * T), dim=-1)
     probs = probs.reshape(Bs, H, K, K, T)
-    pw = (probs * svs.reshape(Bs, K, H, T).transpose(1, 2)[:, :, None]).to(dtype)
+    if svs is not None:
+        probs = probs * svs.reshape(Bs, K, H, T).transpose(1, 2)[:, :, None]
+    pw = probs.to(dtype)
     out = torch.einsum("bhkjt,bjhtd->bkhd", pw.float(),
                        sv.reshape(Bs, K, H, T, hd).float()).to(dtype)
     return out.reshape(BK, H, 1, hd)
@@ -919,14 +965,17 @@ def decode_step(params: Params, tokens: torch.Tensor, pos: int,
     kernel (ops/decode_cross.py): K3/K5, or K7 with `scores_int8`, which
     also takes the self-attention to s8 (`_attention_int8_mxu`);
     `kernels=False` runs the kernels' plain versions on any device. An int4
-    cache (told apart by its hd/2 axis) is read by `_attention_int4`.
+    cache (told apart by its hd/2 axis) is read by `_attention_int4`, the
+    unquantized classic cache (no scales) by plain `attention`, as in the
+    JAX package.
     `lora` adapts the decoder hooks it holds (self_q/k/v/o, cross_q/o;
     cross_k/v live in the cache), per row when `adapter_idx` is given.
 
     `beam_width` K > 1: rows are beam-major groups of K per sample (row
     b*K+k = sample b, beam k) over a cache whose cross slabs hold ONE copy
     per sample; the K queries of a sample are folded into one cross call
-    (q [B/K, K, D], kernel K5 or K7), so each slab is read once for its
+    (q [B/K, K, D], kernel K5 or K7; [B/K, H, K, hd] query rows of plain
+    attention over the classic cache), so each slab is read once for its
     beams. `ancestry` [B/K, K, max_len] (beam mode only, not with int4 or
     scores_int8, whose beams reorder the self cache) reads the self cache as
     slot-major (`_self_attention_beam`); its column `pos` must be the
@@ -937,9 +986,6 @@ def decode_step(params: Params, tokens: torch.Tensor, pos: int,
     self_int4 = not plain_cache and cache.self_k.shape[-1] == half
     cross_int4 = (cache.cross_k_scale is not None and cache.cross_k.dim() == 5
                   and cache.cross_k.shape[-1] == half)
-    if plain_cache and (cache.cross_k.dim() != 5 or beam_width != 1):
-        raise NotImplementedError(
-            "the unquantized classic cache decodes with beam width 1 only")
     if not plain_cache and not cross_int4 and cache.cross_k.dim() != 4:
         raise NotImplementedError("decode_step takes the int8 head-minor "
                                   "cache, the int4 classic one or the "
@@ -983,8 +1029,13 @@ def decode_step(params: Params, tokens: torch.Tensor, pos: int,
         if plain_cache:
             cache.self_k[l, :, :, pos] = k[:, :, 0]
             cache.self_v[l, :, :, pos] = v[:, :, 0]
-            a = attention(split_heads(q, H), cache.self_k[l], cache.self_v[l],
-                          mask=pos_mask)
+            if ancestry is not None:
+                a = _self_attention_beam(split_heads(q, H), cache.self_k[l],
+                                         cache.self_v[l], None, None, ancestry,
+                                         pos, beam_width)
+            else:
+                a = attention(split_heads(q, H), cache.self_k[l],
+                              cache.self_v[l], mask=pos_mask)
         else:
             kq, ks = quant(k)
             vq, vs = quant(v)
@@ -1009,8 +1060,11 @@ def decode_step(params: Params, tokens: torch.Tensor, pos: int,
         h = layer_norm(x, p["cross_ln"]["scale"], p["cross_ln"]["bias"])
         q = _proj(h, p["cross_q"], lo.get("cross_q"), ctx) * scaling
         if plain_cache:
-            o = merge_heads(attention(split_heads(q, H), cache.cross_k[l],
-                                      cache.cross_v[l]))
+            # The K beam queries of a sample ride its one cross slab as K
+            # query rows ([B/K, H, K, hd]), unfolded after.
+            qh = q.reshape(B // beam_width, beam_width, H, -1).transpose(1, 2)
+            a = attention(qh, cache.cross_k[l], cache.cross_v[l])
+            o = a.transpose(1, 2).reshape(B, 1, -1)
         elif cross_int4:
             qh = q.reshape(B // beam_width, beam_width, H, -1).transpose(1, 2)
             a = _attention_int4(qh, cache.cross_k[l], cache.cross_k_scale[l],

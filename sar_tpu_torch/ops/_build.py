@@ -54,6 +54,16 @@ SIGNATURES = {
                               _I, _I, _I, _I, _I, _I, _P],
     # q, k, v, out, B, T, D, n_heads, t_valid, device, stream
     "sar_encoder_attention_hm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, ln_scale, ln_bias, wq, bq, wk, wv, bv, qkv scratch, out, B, T, D,
+    # n_heads, t_valid, device, stream
+    "sar_encoder_attention_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                    _I, _I, _I, _I, _I, _I, _P],
+    # qq, qs, kq, ks, vq, vs, n (device int32 or NULL), n_host, out, L, B,
+    # S, D, n_heads, layer, device, stream
+    "sar_self_decode_s8": [_P, _P, _P, _P, _P, _P, _P, _I, _P,
+                           _I, _I, _I, _I, _I, _I, _I, _P],
+    # q, k, v, n (device int32 or NULL), n_host, out, B, H, S, device, stream
+    "sar_decode_attention": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P],
     # x, wk, wv, bv, kq, ks, vq, vs, L, B, S_pad, D, n_heads, t_valid,
     # device, stream
     "sar_fused_kv_init": [_P, _P, _P, _P, _P, _P, _P, _P,
@@ -195,3 +205,18 @@ def require_cuda_args(name: str, tensors: dict, dtypes: dict) -> None:
                 f"{name}: {k} must be {dtypes[k]}, got {t.dtype}")
         require(t.is_contiguous(), f"{name}: {k} must be contiguous")
         require(t.data_ptr() % 16 == 0, f"{name}: {k} must be 16-byte aligned")
+
+
+def valid_len_arg(name: str, valid_len, device, S: int) -> tuple[int | None, int]:
+    """(device pointer or None, host value) of a valid length: a Python int
+    goes by value (checked against S here); a 0-d int32 tensor on the
+    kernel's device goes by pointer, read by the kernel (the kernel clamps
+    it to [0, S])."""
+    if isinstance(valid_len, torch.Tensor):
+        require(valid_len.dim() == 0 and valid_len.dtype == torch.int32
+                and valid_len.device == device,
+                f"{name}: a tensor valid_len must be 0-d int32 on {device}")
+        return valid_len.data_ptr(), 0
+    require(0 <= int(valid_len) <= S,
+            f"{name}: valid_len {valid_len} not in [0, {S}]")
+    return None, int(valid_len)

@@ -96,9 +96,11 @@ def run_cell(model: str, batch: int, max_new_tokens: int, probe: bool,
     enc = ev_b.encode(feats)
     with torch.inference_mode():
         d_a = greedy_decode(params, enc, cfg, ev_a._prompt, max_new_tokens=max_new_tokens,
+                            cross_kv_int8=not int4, self_kv_int8=not int4,
                             cross_kv_int4=int4, self_kv_int4=int4,
                             scores_int8=not int4)
-        d_b = greedy_decode(params, enc, cfg, ev_b._prompt, max_new_tokens=max_new_tokens)
+        d_b = greedy_decode(params, enc, cfg, ev_b._prompt, max_new_tokens=max_new_tokens,
+                            cross_kv_int8=True, self_kv_int8=True)
     a_key, b_key = ("int4", "int8") if int4 else ("s8", "bf16")
     cell = {
         "model": model, "batch": batch,

@@ -17,8 +17,12 @@ burst, rides the same two programs:
   routed greedy loop with each row's language prompt.
 
 The precision options are the evaluator's (`kv_int4`, `scores_int8`, with
-its checks); a routed service decodes over the int4 cache when asked, and
-turns `scores_int8` off with a warning, as the JAX service does.
+its checks); every program passes its cache flags explicitly (the int8
+head-minor cache unless `kv_int4`), since the decode functions' own
+default is the unquantized cache. A routed service decodes over the int4
+cache when asked, and turns `scores_int8` off with a warning, as the JAX
+service does. `flash` goes to the evaluator and on to `encode` ("fq" is
+kernel K8; a routed service takes the router's `flash`).
 
 A batch that fails hands its error to every request in it, and
 `stats()["errors"]` counts such batches. The worker runs under

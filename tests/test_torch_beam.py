@@ -25,6 +25,7 @@ B = 3
 H, hd = CFG.decoder_heads, CFG.d_model // CFG.decoder_heads
 PROMPT = CFG.prompt_ids("english")
 NEW = 12
+INT8 = dict(cross_kv_int8=True, self_kv_int8=True)      # the int8 head-minor cache
 
 
 @pytest.fixture(scope="module")
@@ -63,7 +64,7 @@ def test_decode_step_beam_logits_match_jax(model):
     K, T = 3, 10
     jc = jw.init_cache(jp, enc, CFG, max_len=T, cross_kv_int8=True, self_kv_int8=True,
                        head_minor=True, self_batch=B * K)
-    tc = tw.init_cache(tp, t(enc), CFG, max_len=T, self_batch=B * K)
+    tc = tw.init_cache(tp, t(enc), CFG, max_len=T, self_batch=B * K, **INT8)
     assert tc.self_k.shape == (CFG.decoder_layers, B * K, H, T, hd)
     assert tc.cross_k.shape[1] == B
     rng = np.random.default_rng(5)
@@ -91,7 +92,7 @@ def test_beam_tokens_equal_jax(model, K, kw):
     kw = dict(kw)
     new = kw.pop("max_new_tokens", NEW)
     want = _jax_tokens(jp, enc, K, max_new_tokens=new, **kw)
-    got = beam_decode(tp, t(enc), CFG, PROMPT, num_beams=K, max_new_tokens=new, **kw)
+    got = beam_decode(tp, t(enc), CFG, PROMPT, num_beams=K, max_new_tokens=new, **INT8, **kw)
     assert got.shape == (B, min(len(PROMPT) + new, CFG.max_target_positions))
     np.testing.assert_array_equal(got.numpy(), want)
 
@@ -105,20 +106,20 @@ def test_beam_tokens_equal_jax_with_lora(model, per_sample):
     want = _jax_tokens(jp, enc, 3, lora=jb, adapter_idx=None if idx is None
                        else jnp.asarray(idx, jnp.int32), **kw)
     got = beam_decode(tp, t(enc), CFG, PROMPT, num_beams=3, lora=tb,
-                      adapter_idx=None if idx is None else torch.from_numpy(idx), **kw)
+                      adapter_idx=None if idx is None else torch.from_numpy(idx), **INT8, **kw)
     np.testing.assert_array_equal(got.numpy(), want)
-    plain = beam_decode(tp, t(enc), CFG, PROMPT, num_beams=3, max_new_tokens=NEW)
+    plain = beam_decode(tp, t(enc), CFG, PROMPT, num_beams=3, max_new_tokens=NEW, **INT8)
     assert not torch.equal(got, plain)          # the adapter moved the tokens
 
 
 def test_one_beam_equals_greedy_and_the_prompt_is_kept(model):
     _, tp, enc = model
-    greedy = greedy_decode(tp, t(enc), CFG, PROMPT, max_new_tokens=NEW)
+    greedy = greedy_decode(tp, t(enc), CFG, PROMPT, max_new_tokens=NEW, **INT8)
     np.testing.assert_array_equal(
-        beam_decode(tp, t(enc), CFG, PROMPT, num_beams=1, max_new_tokens=NEW).numpy(),
+        beam_decode(tp, t(enc), CFG, PROMPT, num_beams=1, max_new_tokens=NEW, **INT8).numpy(),
         greedy.numpy())
     prompts = torch.tensor([CFG.prompt_ids(lang) for lang in ("english", "german", "hindi")])
-    out = beam_decode(tp, t(enc), CFG, prompts, num_beams=4, max_new_tokens=NEW)
+    out = beam_decode(tp, t(enc), CFG, prompts, num_beams=4, max_new_tokens=NEW, **INT8)
     assert torch.equal(out[:, :len(PROMPT)], prompts)
     assert not torch.equal(out, greedy)         # the beams found other sequences
 
@@ -131,7 +132,7 @@ def test_beam_select_alone_advances_the_state(model):
     K, total = 2, len(PROMPT) + 4
     prompt = torch.tensor(PROMPT)[None].expand(B, -1)
     state = tbeam.init_state(prompt, K, total, CFG.eos_token_id)
-    cache = tw.init_cache(tp, t(enc), CFG, max_len=total, self_batch=B * K)
+    cache = tw.init_cache(tp, t(enc), CFG, max_len=total, self_batch=B * K, **INT8)
     for pos in range(len(PROMPT)):
         state.anc[:, :, pos] = torch.arange(K)
         logits, cache = tw.decode_step(tp, state.run_seqs.reshape(B * K, total)[:, pos],
@@ -148,10 +149,10 @@ def test_beam_select_alone_advances_the_state(model):
 
 def test_options_not_ported_raise(model):
     _, tp, enc = model
-    for kw in (dict(timestamps=True), dict(head_minor=False)):
+    for kw in (dict(timestamps=True), dict(head_minor=False, **INT8)):
         with pytest.raises(NotImplementedError):
             beam_decode(tp, t(enc), CFG, PROMPT, num_beams=2, max_new_tokens=2, **kw)
     with pytest.raises(ValueError):
         tw.decode_step(tp, torch.zeros(B, dtype=torch.long), 0,
-                       tw.init_cache(tp, t(enc), CFG, 4), CFG,
+                       tw.init_cache(tp, t(enc), CFG, 4, **INT8), CFG,
                        ancestry=torch.zeros((B, 1, 4), dtype=torch.long))

@@ -1,4 +1,4 @@
-"""K1-K7 hand-written CUDA kernels against their plain PyTorch versions on
+"""K1-K10 hand-written CUDA kernels against their plain PyTorch versions on
 the card, in bf16, at small shapes (marked `cuda`: they need an NVIDIA GPU
 with nvcc and skip elsewhere; chip_smoke.py runs the same comparisons at
 whisper-small shapes). Run on the card with
@@ -271,9 +271,11 @@ def test_beam_decode_kernels_agree_with_the_plain_path(dev):
                       device=dev).to(torch.bfloat16)
     prompt = cfg.prompt_ids("english")
     n5 = decode_cross.BEAM_LAUNCHES
-    got = beam_decode(params, enc, cfg, prompt, num_beams=4, max_new_tokens=12)
+    int8 = dict(cross_kv_int8=True, self_kv_int8=True)
+    got = beam_decode(params, enc, cfg, prompt, num_beams=4, max_new_tokens=12, **int8)
     assert decode_cross.BEAM_LAUNCHES > n5
-    want = beam_decode(params, enc, cfg, prompt, num_beams=4, max_new_tokens=12, kernels=False)
+    want = beam_decode(params, enc, cfg, prompt, num_beams=4, max_new_tokens=12, kernels=False,
+                       **int8)
     assert got.shape == want.shape and torch.equal(got[:, :len(prompt)], want[:, :len(prompt)])
     assert (got == want).float().mean().item() >= 0.9
 
@@ -309,13 +311,14 @@ def test_s8_decode_kernels_agree_with_the_plain_path(dev, num_beams):
         return (decode_cross.S8_LAUNCHES, decode_cross.S8_BEAM_LAUNCHES,
                 decode_cross.LAUNCHES, decode_cross.BEAM_LAUNCHES)
     n = counts()
-    got = run(scores_int8=True)
+    s8_kw = dict(cross_kv_int8=True, self_kv_int8=True, scores_int8=True)
+    got = run(**s8_kw)
     torch.cuda.synchronize()
     s8, s8_beam, k3, k5 = (c - c0 for c, c0 in zip(counts(), n))
     launched = s8 if num_beams == 1 else s8_beam
     assert launched > 0 and launched % cfg.decoder_layers == 0
     assert (k3, k5) == (0, 0) and (s8_beam if num_beams == 1 else s8) == 0
-    want = run(scores_int8=True, kernels=False)
+    want = run(kernels=False, **s8_kw)
     assert got.shape == want.shape and torch.equal(got[:, :len(prompt)], want[:, :len(prompt)])
     assert (got == want).float().mean().item() >= 0.9
     n = counts()
@@ -510,3 +513,140 @@ def test_training_step_kernels_agree_with_the_plain_path(dev):
     for a, b in zip(gk, gp):
         assert torch.nn.functional.cosine_similarity(a.flatten(), b.flatten(), dim=0) >= 0.99
         assert abs(a.norm() - b.norm()) <= 5e-2 * b.norm()
+
+
+def _k8_inputs(dev, B, T, H, t_valid, seed=10):
+    """A pre-LN residual with zero pad rows and one layer's LN and q/k/v
+    parameters as cast_params leaves them (LN fp32, the rest bf16)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    D = H * 64
+    x = _randn(g, dev, B, T, D)
+    x[:, t_valid:] = 0
+    ln = [1.0 + 0.1 * torch.randn(D, generator=g, device=dev),
+          0.1 * torch.randn(D, generator=g, device=dev)]
+    w = [_randn(g, dev, *s, std=0.05) for s in ((D, D), (D,), (D, D), (D, D), (D,))]
+    return x, ln[0], ln[1], *w
+
+
+# K8: the smallest legal shape, whisper-small's width (12 heads) and
+# whisper-medium's (16 heads; the route rule sends whisper-large to "hm"),
+# T_pad 1536 with 36 pad rows. Limit: 2e-2 absolute and relative to the
+# largest entry (a bf16 rounding of q, k, v or p on the other side of a
+# tie, as for K1).
+@pytest.mark.parametrize("B,T,H,t_valid", [(2, 128, 2, 100), (2, 1536, 12, 1500),
+                                           (1, 1536, 16, 1500)])
+def test_encoder_attention_fused_kernel(dev, B, T, H, t_valid):
+    from sar_tpu_torch.ops import flash_enc
+    args = _k8_inputs(dev, B, T, H, t_valid)
+    n1, n8 = flash_enc.LAUNCHES, flash_enc.FUSED_LAUNCHES
+    got = flash_enc.encoder_attention_fused(*args, n_heads=H, t_valid=t_valid)
+    want = flash_enc.encoder_attention_fused_reference(*args, n_heads=H, t_valid=t_valid)
+    torch.cuda.synchronize()
+    assert (flash_enc.LAUNCHES, flash_enc.FUSED_LAUNCHES) == (n1, n8 + 1)
+    assert got.shape == args[0].shape and torch.isfinite(got.float()).all()
+    err = (got[:, :t_valid].float() - want[:, :t_valid].float()).abs().max().item()
+    assert err <= 2e-2 and err <= 2e-2 * want[:, :t_valid].float().abs().max().item()
+
+
+def test_encoder_attention_fused_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    from sar_tpu_torch.ops import flash_enc
+    x, lns, lnb, wq, bq, wk, wv, bv = _k8_inputs(dev, 1, 128, 2, 100)
+    with pytest.raises(ValueError, match="bfloat16"):
+        flash_enc.encoder_attention_fused(x.float(), lns, lnb, wq, bq, wk, wv, bv,
+                                          n_heads=2, t_valid=100)
+    with pytest.raises(ValueError, match="float32"):
+        flash_enc.encoder_attention_fused(x, lns.to(torch.bfloat16), lnb, wq, bq, wk, wv, bv,
+                                          n_heads=2, t_valid=100)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_enc.encoder_attention_fused(x, lns, lnb, wq, bq, wk, wv, bv, n_heads=4,
+                                          t_valid=100)
+    with pytest.raises(ValueError, match="multiple"):
+        flash_enc.encoder_attention_fused(x[:, :100].contiguous(), lns, lnb, wq, bq, wk, wv,
+                                          bv, n_heads=2, t_valid=100)
+
+
+def _k9_inputs(dev, L, B, S, H, seed=11):
+    """A head-minor int8 self cache and an s8 query, as K9 takes them."""
+    from sar_tpu_torch.models import whisper
+    g = torch.Generator(device=dev).manual_seed(seed)
+    D = H * 64
+    kq, ks = whisper.quantize_kv(torch.randn((L, B, S, H, 64), generator=g, device=dev))
+    vq, vs = whisper.quantize_kv(torch.randn((L, B, S, H, 64), generator=g, device=dev))
+    qq, qs = whisper.quantize_kv(torch.randn((B, H, 1, 64), generator=g, device=dev) * 0.125)
+    return (qq[:, :, 0].reshape(B, D).contiguous(), qs.contiguous(),
+            kq.reshape(L, B, S, D), ks.transpose(2, 3).contiguous(),
+            vq.reshape(L, B, S, D), vs.transpose(2, 3).contiguous())
+
+
+# K9: a ragged max_len (40) and whisper-small's (448, 12 heads, 12 layers of
+# which the first and last are checked), valid lengths 1, a middle one and
+# max_len, as an int and as a 0-d device tensor. Limit: as K7's, 1e-3
+# absolute and 8e-3 relative to the largest entry (exact integer sums; the
+# fp32 softmax sums in another order and can move a re-quantized
+# probability across a .5 boundary).
+@pytest.mark.parametrize("L,B,S,H", [(2, 3, 40, 2), (12, 8, 448, 12)])
+def test_self_decode_kernel(dev, L, B, S, H):
+    from sar_tpu_torch.ops.attic import decode_self
+    args = _k9_inputs(dev, L, B, S, H)
+    for layer in (0, L - 1):
+        for n in (1, 23, S):
+            for valid in (n, torch.tensor(n, dtype=torch.int32, device=dev)):
+                c = decode_self.LAUNCHES
+                got = decode_self.self_decode_attention(*args, valid, layer=layer, n_heads=H)
+                want = decode_self.self_decode_reference(*args, n, layer=layer, n_heads=H)
+                torch.cuda.synchronize()
+                assert decode_self.LAUNCHES == c + 1
+                assert got.shape == (B, H * 64) and got.dtype == torch.bfloat16
+                err = (got.float() - want.float()).abs().max().item()
+                assert err <= 1e-3 or err <= 8e-3 * want.float().abs().max().item()
+
+
+def test_self_decode_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    from sar_tpu_torch.ops.attic import decode_self
+    qq, qs, kq, ks, vq, vs = _k9_inputs(dev, 1, 2, 40, 2)
+    with pytest.raises(ValueError, match="int8"):
+        decode_self.self_decode_attention(qq.float(), qs, kq, ks, vq, vs, 5, layer=0, n_heads=2)
+    with pytest.raises(ValueError, match="head_dim"):
+        decode_self.self_decode_attention(qq, qs[:, :1].contiguous(), kq, ks[:, :, :1].contiguous(),
+                                          vq, vs[:, :, :1].contiguous(), 5, layer=0, n_heads=1)
+    with pytest.raises(ValueError, match="layer"):
+        decode_self.self_decode_attention(qq, qs, kq, ks, vq, vs, 5, layer=1, n_heads=2)
+    with pytest.raises(ValueError, match="bfloat16"):
+        decode_self.self_decode_attention(qq, qs, kq, ks, vq, vs, 5, layer=0, n_heads=2,
+                                          out_dtype=torch.float32)
+    with pytest.raises(ValueError, match="valid_len"):
+        decode_self.self_decode_attention(qq, qs, kq, ks, vq, vs, 41, layer=0, n_heads=2)
+
+
+# K10: a ragged S (70) and whisper-small's cross (S=1500, 12 heads, B=8),
+# full and masked (1, a middle length, S), the length as an int and as a
+# 0-d device tensor. Limit: 2e-2 absolute and relative (bf16 probabilities
+# and output; fp32 sums in another order).
+@pytest.mark.parametrize("B,H,S", [(2, 3, 70), (8, 12, 1500)])
+def test_decode_attention_kernel(dev, B, H, S):
+    from sar_tpu_torch.ops.attic import attention
+    g = torch.Generator(device=dev).manual_seed(12)
+    q = _randn(g, dev, B, H, 64, std=0.125)
+    k, v = _randn(g, dev, B, H, S, 64), _randn(g, dev, B, H, S, 64)
+    for valid in (None, 1, 37, S, torch.tensor(37, dtype=torch.int32, device=dev)):
+        c = attention.LAUNCHES
+        got = attention.decode_attention(q, k, v, valid)
+        want = attention.decode_attention_reference(q, k, v, valid)
+        torch.cuda.synchronize()
+        assert attention.LAUNCHES == c + 1
+        assert got.shape == q.shape and got.dtype == torch.bfloat16
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= 2e-2 and err <= 2e-2 * max(want.float().abs().max().item(), 1.0)
+
+
+def test_decode_attention_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    from sar_tpu_torch.ops.attic import attention
+    q = torch.zeros((2, 3, 64), dtype=torch.bfloat16, device=dev)
+    k = torch.zeros((2, 3, 70, 64), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="bfloat16"):
+        attention.decode_attention(q.float(), k.float(), k.float())
+    with pytest.raises(ValueError, match="head_dim"):
+        attention.decode_attention(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                                   k[..., :32].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        attention.decode_attention(q, k.transpose(1, 2).contiguous().transpose(1, 2), k)

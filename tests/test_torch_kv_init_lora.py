@@ -126,7 +126,8 @@ def test_init_cache_matches_jax(model, targets, per_sample, monkeypatch):
                          lora_scale=2.0, cross_kv_int8=True, self_kv_int8=True,
                          head_minor=True)
     got = tw.init_cache(tp, t(enc), cfg, max_len=8, lora=tb,
-                        adapter_idx=None if idx is None else t(idx), lora_scale=2.0)
+                        adapter_idx=None if idx is None else t(idx), lora_scale=2.0,
+                        cross_kv_int8=True, self_kv_int8=True)
     _assert_k4_rules((got.cross_k, got.cross_k_scale, got.cross_v, got.cross_v_scale),
                      (want.cross_k, want.cross_k_scale, want.cross_v, want.cross_v_scale),
                      t_valid=cfg.max_source_positions)

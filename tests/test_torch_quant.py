@@ -160,7 +160,8 @@ def test_init_cache_int4_matches_jax_and_decode_step_refusals(model):
         else:
             np.testing.assert_allclose(a.numpy(), b, rtol=1e-5, atol=1e-6)
     tok = torch.zeros(B, dtype=torch.long)
-    int8_cache = tw.init_cache(tp, t(enc), CFG, max_len=8)
+    int8_cache = tw.init_cache(tp, t(enc), CFG, max_len=8, cross_kv_int8=True,
+                               self_kv_int8=True)
     plain_cache = tw.init_cache(tp, t(enc), CFG, max_len=8, cross_kv_int8=False,
                                 self_kv_int8=False)
     int4_cache = tw.init_cache(tp, t(enc), CFG, max_len=8, **INT4)

@@ -2,9 +2,11 @@
 models/whisper.py, the single-adapter ASREvaluator) against sar_tpu on the
 CPU, whisper-test at fp32 with the JAX-made weights, bank and classifier
 bridged over: LID equal, the adapted encoder within 1e-4, adapted
-decode_step logits within 1e-4 over 4 steps, and routed `generate`
-tokens exactly equal to JAX greedy_decode over the same int8 head-minor
-cache on a mixed-adapter batch."""
+decode_step logits within 1e-4 over 4 steps, routed `generate` tokens
+exactly equal to JAX's own AdapterRouter.generate (greedy over the
+unquantized default cache) on a mixed-adapter batch, and the routed
+program the service runs (`decode`, over the int8 head-minor cache)
+equal to JAX greedy_decode over that cache."""
 
 import jax
 import jax.numpy as jnp
@@ -80,7 +82,8 @@ def test_adapted_encode_and_decode_steps_match_jax(world):
     kw_t = dict(lora=tb, adapter_idx=t(IDX), lora_scale=SCALE)
     jc = jw.init_cache(jp, enc_j, CFG, max_len=16, cross_kv_int8=True,
                        self_kv_int8=True, head_minor=True, **kw_j)
-    tc = tw.init_cache(tp, t(enc_j), CFG, max_len=16, **kw_t)
+    tc = tw.init_cache(tp, t(enc_j), CFG, max_len=16, cross_kv_int8=True,
+                       self_kv_int8=True, **kw_t)
     toks = np.asarray([CFG.prompt_ids(l) for l in TARGET_LANGUAGES])
     for pos in range(4):
         lj, jc = jw.decode_step(jp, jnp.asarray(toks[:, pos], jnp.int32),
@@ -89,16 +92,27 @@ def test_adapted_encode_and_decode_steps_match_jax(world):
         np.testing.assert_allclose(lt.numpy(), np.asarray(lj), atol=1e-4, rtol=0)
 
 
+def _jax_router(world):
+    jp, _, jb, _, jccfg, jcp, _, _ = world
+    return jrouter.AdapterRouter(CFG, jp, jb, jlora.LoraConfig(r=R, alpha=ALPHA), jcp, jccfg)
+
+
 def test_routed_generate_tokens_equal_jax(world):
     jp, _, jb, _, _, _, router, mel = world
+    want = _jax_router(world).generate(jnp.asarray(mel), adapter_idx=jnp.asarray(IDX),
+                                       max_new_tokens=10)
+    got = router.generate(t(mel), adapter_idx=IDX, max_new_tokens=10)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # The service's routed program: the int8 head-minor cache.
     idx = jnp.asarray(IDX)
     prompts = jnp.asarray([CFG.prompt_ids(l) for l in TARGET_LANGUAGES], jnp.int32)[idx]
     enc = jw.encode(jp, jnp.asarray(mel), CFG, lora=jb, adapter_idx=idx, lora_scale=SCALE)
-    want = jax_greedy(jp, enc, CFG, prompts, max_new_tokens=10, lora=jb,
-                      adapter_idx=idx, lora_scale=SCALE, cross_kv_int8=True,
-                      self_kv_int8=True, head_minor=True)
-    got = router.generate(t(mel), adapter_idx=IDX, max_new_tokens=10)
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    want8 = jax_greedy(jp, enc, CFG, prompts, max_new_tokens=10, lora=jb,
+                       adapter_idx=idx, lora_scale=SCALE, cross_kv_int8=True,
+                       self_kv_int8=True, head_minor=True)
+    got8 = router.decode(router.encode(t(mel), torch.from_numpy(IDX).long()),
+                         torch.from_numpy(IDX).long(), max_new_tokens=10)
+    np.testing.assert_array_equal(got8.numpy(), np.asarray(want8))
     # A forced language routes every row to that language's adapter.
     one = router.generate(t(mel), language="punjabi", max_new_tokens=10)
     np.testing.assert_array_equal(
@@ -108,7 +122,7 @@ def test_routed_generate_tokens_equal_jax(world):
     np.testing.assert_array_equal(
         router.generate(t(mel), max_new_tokens=10).numpy(),
         router.generate(t(mel), adapter_idx=lid_idx, max_new_tokens=10).numpy())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="hard, soft and threshold"):
         router.forward(t(mel))
 
 

@@ -86,7 +86,9 @@ def test_routed_service_matches_the_router(world, router):
         assert svc.device.type == "cpu"
         got = _from_threads(svc, clips)
         st = svc.stats()
-    tokens = router.generate(_feats(clips, 6), max_new_tokens=NEW)
+    feats = _feats(clips, 6)
+    idx, _ = router.route(feats)
+    tokens = router.decode(router.encode(feats, idx), idx, NEW)
     want = [_Tok().decode(r) for r in transcribe_tokens(tokens, CFG, router.prompt_len)]
     assert got == want
     assert st["errors"] == 0 and st["rows_served"] == 6 and st["requests"] == 6
@@ -170,6 +172,7 @@ def test_port_modules_import_neither_jax_nor_sar_tpu():
             "import sar_tpu_torch.serving, sar_tpu_torch.models.router\n"
             "import sar_tpu_torch.models.classifier, sar_tpu_torch.models.lora\n"
             "import sar_tpu_torch.models.convert, sar_tpu_torch.evaluation\n"
+            "import sar_tpu_torch.ops.attic.decode_self, sar_tpu_torch.ops.attic.attention\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
             "       or m == 'sar_tpu' or m.startswith('sar_tpu.')]\n"
             "print(bad)\n")

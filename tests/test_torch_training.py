@@ -376,7 +376,7 @@ def test_unquantized_cache_and_greedy_match_jax_defaults(world):
                             self_kv_int8=False)
     np.testing.assert_array_equal(got_tok.numpy(), np.asarray(want_tok))
     with pytest.raises(NotImplementedError):
-        tw.init_cache(tp, t(np.asarray(enc)), CFG, 10, cross_kv_int8=False)
+        tw.init_cache(tp, t(np.asarray(enc)), CFG, 10, cross_kv_int8=False, self_kv_int8=True)
 
 
 def _small_trainer(**kw):

@@ -27,6 +27,7 @@ from sar_tpu_torch.ops import mel as tmel
 CFG = get_config("whisper-test")
 B = 2
 MAX_LEN = 16
+INT8 = dict(cross_kv_int8=True, self_kv_int8=True)      # the int8 head-minor cache
 
 
 @pytest.fixture(scope="module")
@@ -50,7 +51,7 @@ def test_init_cache_matches_the_k2_rules(model):
     jp, tp, _, enc_j = model
     want = jw.init_cache(jp, enc_j, CFG, max_len=MAX_LEN, cross_kv_int8=True,
                          self_kv_int8=True, head_minor=True)
-    got = tw.init_cache(tp, t(enc_j), CFG, max_len=MAX_LEN)
+    got = tw.init_cache(tp, t(enc_j), CFG, max_len=MAX_LEN, **INT8)
     for name in ("cross_k", "cross_v"):
         a = getattr(got, name).numpy().astype(np.int32)
         b = np.asarray(getattr(want, name)).astype(np.int32)
@@ -70,7 +71,7 @@ def test_decode_step_logits_match_over_four_steps(model):
     jp, tp, _, enc_j = model
     jc = jw.init_cache(jp, enc_j, CFG, max_len=MAX_LEN, cross_kv_int8=True,
                        self_kv_int8=True, head_minor=True)
-    tc = tw.init_cache(tp, t(enc_j), CFG, max_len=MAX_LEN)
+    tc = tw.init_cache(tp, t(enc_j), CFG, max_len=MAX_LEN, **INT8)
     toks = np.asarray([CFG.prompt_ids("english") + [7],
                        CFG.prompt_ids("german") + [200]])
     for pos in range(4):
@@ -92,7 +93,7 @@ def test_greedy_tokens_equal_jax(model, suppress):
                       max_new_tokens=12, cross_kv_int8=True, self_kv_int8=True,
                       head_minor=True, suppress_ids=suppress)
     got = greedy_decode(tp, t(enc_j), CFG, prompt, max_new_tokens=12,
-                        suppress_ids=suppress)
+                        suppress_ids=suppress, **INT8)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert (transcribe_tokens(got, CFG, len(prompt))
             == jax_transcribe_tokens(want, CFG, len(prompt)))
@@ -149,7 +150,8 @@ def test_evaluator_refuses_options_not_yet_ported(model):
         with pytest.raises(NotImplementedError):
             ASREvaluator(CFG, tp, device="cpu", **kw)
     with pytest.raises(NotImplementedError):
-        tw.init_cache(tp, torch.zeros((1, 32, CFG.d_model)), CFG, 8, head_minor=False)
+        tw.init_cache(tp, torch.zeros((1, 32, CFG.d_model)), CFG, 8, head_minor=False,
+                      **INT8)
 
 
 def test_bf16_slice_runs_and_keeps_logits_fp32(model):
@@ -157,7 +159,7 @@ def test_bf16_slice_runs_and_keeps_logits_fp32(model):
     p16 = tw.cast_params(tp, torch.bfloat16)
     enc = tw.encode(p16, t(mel), CFG, flash="hm")
     assert enc.dtype == torch.bfloat16
-    cache = tw.init_cache(p16, enc, CFG, max_len=MAX_LEN)
+    cache = tw.init_cache(p16, enc, CFG, max_len=MAX_LEN, **INT8)
     logits, _ = tw.decode_step(p16, torch.tensor([CFG.sot_token_id] * B), 0, cache, CFG)
     assert logits.dtype == torch.float32 and torch.isfinite(logits).all()
     jax.clear_caches()
