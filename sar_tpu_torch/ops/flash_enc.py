@@ -5,9 +5,9 @@ PyTorch version.
 K1, the counterpart of sar_tpu/ops/flash_enc.py::encoder_attention_hm:
 non-causal multi-head attention read straight from the residual-stream
 layout q/k/v [B, T_pad, H*hd] (q pre-scaled), key columns >= t_valid
-masked, softmax in fp32 normalised after the PV product, output in q's
-dtype and layout. Query rows >= t_valid are garbage that the caller slices
-off.
+masked, the unnormalised probabilities cast to q's dtype for the PV product
+(fp32 sums), softmax in fp32 normalised after it, output in q's dtype and
+layout. Query rows >= t_valid are garbage that the caller slices off.
 
 K8, the counterpart of sar_tpu/ops/flash_enc.py::encoder_attention_fused
 (the `encode(flash="fq")` path): from the PRE-LN residual x [B, T_pad, D],
@@ -18,9 +18,11 @@ K1's attention. Zero pad rows give var = 0 and h = the LN bias: finite.
 
 `encoder_attention_hm` and `encoder_attention_fused` dispatch on the
 tensors' device: CPU tensors take the plain version; CUDA tensors launch
-the hand-written kernels (csrc/flash_enc.cu) or raise. The kernels take
-bf16, head_dim 64 and T_pad a multiple of 64 (K8 also D a multiple of 64,
-fp32 LN params and bf16 weights and biases).
+the hand-written kernels or raise: K1 is the tensor-core attention forward
+of csrc/flash_attn.cu on head-minor views (entry point in
+csrc/flash_enc.cu), K8 the LN + projection kernel of csrc/flash_enc.cu
+followed by that forward. The kernels take bf16 and head_dim 64; K8 also
+T_pad a multiple of 64, fp32 LN params and bf16 weights and biases.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from sar_tpu_torch.ops import _build
 
 NEG = -1e30
 KERNEL_HEAD_DIM = 64
-KERNEL_ROW_TILE = 64
+KERNEL_ROW_TILE = 64  # K8's projection tile
 
 LAUNCHES = 0        # kernel launches by encoder_attention_hm (CUDA tensors only)
 FUSED_LAUNCHES = 0  # K8 launches by encoder_attention_fused (CUDA tensors only)
@@ -125,9 +127,8 @@ def encoder_attention_hm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.require(D == n_heads * KERNEL_HEAD_DIM,
                    f"{name}: the kernel takes head_dim {KERNEL_HEAD_DIM}, "
                    f"got D={D} with {n_heads} heads")
-    _build.require(T % KERNEL_ROW_TILE == 0 and 0 < t_valid <= T,
-                   f"{name}: T_pad={T} must be a multiple of "
-                   f"{KERNEL_ROW_TILE} and hold t_valid={t_valid}")
+    _build.require(0 < t_valid <= T,
+                   f"{name}: T_pad={T} must hold t_valid={t_valid} > 0")
     out = torch.empty_like(q)
     lib = _build.load()
     _build.check(lib.sar_encoder_attention_hm(
@@ -164,7 +165,7 @@ def encoder_attention_fused(x, ln_scale, ln_bias, wq, bq, wk, wv, bv, *,
     (head-minor, before the out-projection); ln_scale/ln_bias [D], wq/wk/wv
     [D, D] (in x out), bq/bv [D]. On CUDA: K8, one entry point that
     launches the LN + projection kernel into a [3, B, T_pad, D] scratch and
-    K1's attention kernel over it."""
+    K1's attention (the tensor-core forward) over it."""
     if x.device.type == "cpu":
         return encoder_attention_fused_reference(
             x, ln_scale, ln_bias, wq, bq, wk, wv, bv, n_heads=n_heads,

@@ -65,3 +65,21 @@ def random_bank(cfg, num_adapters: int, r: int, seed: int = 0,
     port_bank = {s: {h: {k: torch.from_numpy(v.copy()) for k, v in e.items()}
                      for h, e in hooks.items()} for s, hooks in np_bank.items()}
     return jax_bank, port_bank
+
+
+def bf16_rounding_case(T_pad: int = 8):
+    """q [1, T_pad, 64] bf16 (one head) whose two valid keys score 0 and
+    -2^-10 against every query, with values +1 and -1; the keys and values
+    past them are large garbage. The probabilities are 1 and
+    exp(-2^-10) = 0.99902, which bf16 rounds to 1.0: rounded before the PV
+    product (as the TPU kernel's `p.astype(qg.dtype)`), the output is
+    exactly 0; kept in fp32 it is (1 - 0.99902) / 1.99902 = 4.88e-4."""
+    rng = np.random.default_rng(11)
+    q = np.zeros((1, T_pad, 64), np.float32)
+    q[..., 0] = 1.0
+    k = rng.standard_normal((1, T_pad, 64)).astype(np.float32) * 3.0
+    k[:, :2] = 0.0
+    k[0, 1, 0] = -2.0 ** -10
+    v = rng.standard_normal((1, T_pad, 64)).astype(np.float32) * 3.0
+    v[:, 0], v[:, 1] = 1.0, -1.0
+    return q, k, v

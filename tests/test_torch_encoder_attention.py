@@ -1,12 +1,14 @@
 """Port K1 plain version (encoder_attention_hm_reference) against the JAX
 head-minor kernel in interpret mode and against whisper.attention, fp32 on
-the CPU within 2e-5 on valid rows; CPU dispatch takes the plain version."""
+the CPU within 2e-5 on valid rows; in bf16, a case where only the rounding
+of the probabilities to bf16 before the PV product decides the output;
+CPU dispatch takes the plain version."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_port import t
+from _torch_port import bf16_rounding_case, t
 
 from sar_tpu.models import whisper as jw
 from sar_tpu.ops.flash_enc import encoder_attention_hm as jax_hm
@@ -47,6 +49,16 @@ def test_reference_matches_exact_attention(qkv):
                                        jw.split_heads(v, H), mask))
     np.testing.assert_allclose(_port(*qkv)[:, :T_VALID],
                                np.asarray(want)[:, :T_VALID], rtol=2e-5, atol=2e-5)
+
+
+def test_probabilities_round_to_bf16_before_pv_as_the_jax_kernel():
+    q, k, v = bf16_rounding_case()
+    want = jax_hm(*(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)), n_heads=1, t_valid=2,
+                  interpret=True)
+    got = flash_enc.encoder_attention_hm_reference(
+        *(t(x).to(torch.bfloat16) for x in (q, k, v)), n_heads=1, t_valid=2)
+    assert not np.asarray(want[:, :2].astype(jnp.float32)).any()
+    assert not got[:, :2].float().any()
 
 
 def test_padded_query_rows_do_not_contaminate(qkv):

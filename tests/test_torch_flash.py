@@ -11,7 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_port import t
+from _torch_port import bf16_rounding_case, t
 from jax.experimental.pallas import tpu as pltpu
 
 from sar_tpu.ops.flash import flash_mha as jax_flash_mha
@@ -46,6 +46,21 @@ def test_reference_matches_jax_flash_forward_and_gradients(Tq, Tk, causal):
     for name, a, b in zip(("dq", "dk", "dv"), g_t, g_j):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=TOL, rtol=0,
                                    err_msg=name)
+
+
+def test_plain_versions_round_probabilities_to_bf16_as_the_jax_kernel():
+    """The bf16 case of _torch_port.bf16_rounding_case (two keys
+    scoring 0 and -2^-10, values +1 and -1: bf16 rounds both probabilities
+    alike) through JAX's flash_mha in interpret mode, in bf16, and through
+    K6's plain versions: every output entry is exactly 0."""
+    q, k, v = (x[:, :2, None].swapaxes(1, 2) for x in bf16_rounding_case())   # [1, 1, 2, 64]
+    with pltpu.force_tpu_interpret_mode():
+        want = jax_flash_mha(*(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)))
+    assert not np.asarray(want.astype(jnp.float32)).any()
+    qt, kt, vt = (t(x).to(torch.bfloat16) for x in (q, k, v))
+    o, _ = flash.flash_attention_fwd_reference(qt, kt, vt)
+    assert not o.float().any()
+    assert not flash.flash_mha_reference(qt, kt, vt).float().any()
 
 
 @pytest.mark.parametrize("Tq,Tk,causal", CASES)

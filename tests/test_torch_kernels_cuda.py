@@ -24,10 +24,11 @@ def _randn(g, dev, *shape, std=1.0):
     return (torch.randn(shape, generator=g, device=dev) * std).to(torch.bfloat16)
 
 
-# Shapes: the smallest legal one, whisper-small's and whisper-large-v3's
-# widths (the kernels need no column groups at d_model 1280).
+# Shapes: a small one, whisper-small's and whisper-large-v3's widths (the
+# kernel needs no column groups at d_model 1280), and a T_pad that is no
+# multiple of the 128-row query tile or the 64-key tile.
 @pytest.mark.parametrize("B,T,H,t_valid", [(2, 128, 2, 100), (1, 1536, 12, 1500),
-                                           (1, 1536, 20, 1500)])
+                                           (1, 1536, 20, 1500), (2, 100, 3, 77)])
 def test_encoder_attention_kernel(dev, B, T, H, t_valid):
     from sar_tpu_torch.ops import flash_enc
     g = torch.Generator(device=dev).manual_seed(0)
@@ -39,6 +40,39 @@ def test_encoder_attention_kernel(dev, B, T, H, t_valid):
     assert flash_enc.LAUNCHES == n + 1
     err = (got[:, :t_valid].float() - want[:, :t_valid].float()).abs().max().item()
     assert err <= 2e-2
+
+
+def _rounding_case(dev):
+    """_torch_port.bf16_rounding_case on the card: q/k/v [1, 16, 64] bf16 whose
+    two valid keys give probabilities 1 and exp(-2^-10), equal once rounded
+    to bf16, with values +1 and -1 (garbage past them)."""
+    from _torch_port import bf16_rounding_case
+    return [torch.from_numpy(x).to(dev, torch.bfloat16) for x in bf16_rounding_case(16)]
+
+
+def test_encoder_attention_kernel_rounds_probabilities_to_bf16(dev):
+    """K1 rounds the unnormalised probabilities to bf16 before the PV
+    product, as the TPU kernel does: the valid rows are 0 (a kernel that
+    keeps them in fp32 gives 4.88e-4)."""
+    from sar_tpu_torch.ops import flash_enc
+    q, k, v = _rounding_case(dev)
+    n = flash_enc.LAUNCHES
+    got = flash_enc.encoder_attention_hm(q, k, v, n_heads=1, t_valid=2)
+    torch.cuda.synchronize()
+    assert flash_enc.LAUNCHES == n + 1
+    assert got[:, :2].float().abs().max().item() <= 1e-6
+
+
+def test_flash_attention_fwd_kernel_rounds_probabilities_to_bf16(dev):
+    """K6's forward on the same case ([1, 1, 2, 64] head-major views of the
+    two valid rows): 0."""
+    from sar_tpu_torch.ops import flash
+    q, k, v = (x[:, :2, None].transpose(1, 2) for x in _rounding_case(dev))
+    n = flash.LAUNCHES
+    o, lse = flash.flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert flash.LAUNCHES == n + 1
+    assert o.float().abs().max().item() <= 1e-6 and torch.isfinite(lse).all()
 
 
 @pytest.mark.parametrize("H", [2, 12, 20])
@@ -333,8 +367,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="bfloat16"):
         flash_enc.encoder_attention_hm(q, q, q, n_heads=2, t_valid=100)
     q = torch.zeros((1, 100, 128), dtype=torch.bfloat16, device=dev)
-    with pytest.raises(ValueError, match="multiple"):
-        flash_enc.encoder_attention_hm(q, q, q, n_heads=2, t_valid=100)
+    with pytest.raises(ValueError, match="hold t_valid"):
+        flash_enc.encoder_attention_hm(q, q, q, n_heads=2, t_valid=101)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_enc.encoder_attention_hm(q, q, q, n_heads=4, t_valid=100)
 
 
 def _k6_inputs(dev, B, H, Tq, Tk, seed=8):
@@ -412,12 +448,41 @@ def test_flash_attention_lse(dev):
         assert _rel(o, o_ref) <= 2e-2
 
 
+def _bf16_ulp(x):
+    """One bf16 ulp at each entry of x >= 0: 2^(floor(log2 x) - 7)."""
+    return torch.exp2(torch.floor(torch.log2(x.clamp_min(2.0 ** -126))) - 7)
+
+
 # The dQ and dK/dV kernels against their own plain versions, given the same
-# lse and di: both sum the same bf16 products in fp32 in the same order
-# (chip_smoke.py reads 0 at the whisper-small shapes), so the limit is
-# 1e-3 of the largest entry, under one bf16 ulp of it (3.9e-3 to 7.8e-3).
+# lse and di. The tensor cores sum each product in k-slices of 16 in their
+# own order, and their scores differ from cuBLAS's in the last fp32 bits, so
+# a bf16 rounding of p, of ds or of the gradient itself can land on the
+# other side of a tie. Limits (the same as chip_smoke.py's):
+# - per entry, |kernel - plain| <= one bf16 ulp of max(|kernel|, |plain|)
+#   plus BWD_FLOOR of the largest |plain| entry: a flipped bf16(p) or
+#   bf16(ds) moves one term of an entry's sum by an ulp of that term, which
+#   an entry near 0 cannot absorb in its own ulp (chip_smoke.py reads up
+#   to 6.7e-4 of the largest entry at whisper-small's three shapes);
+# - the relative Frobenius error <= BWD_FRO_TOL (read 1.3e-4 at most),
+#   which a dropped tile, a missed mask or a wrong di exceeds many times.
+BWD_FLOOR = 2e-3
+BWD_FRO_TOL = 1e-3
+
+
+def _assert_bwd_close(got, want, name):
+    a, b = got.float(), want.float()
+    limit = _bf16_ulp(torch.maximum(a.abs(), b.abs())) + BWD_FLOOR * b.abs().max()
+    assert bool(((a - b).abs() <= limit).all()), name
+    assert (a - b).norm().item() <= BWD_FRO_TOL * b.norm().item(), name
+
+
+# Edges of the tiling (128-row blocks, 64-row streamed tiles): causal with a
+# ragged tile, Tq and Tk no multiples of either (100 x 300, 77 x 1500),
+# Tq = 1, causal at 448 (the decoder's labels), and head-minor strides at
+# d_model 1280 (whisper-large's 20 heads).
 @pytest.mark.parametrize("B,H,Tq,Tk,causal", [
-    (1, 2, 100, 100, True), (2, 3, 100, 300, False), (3, 4, 77, 1500, False)])
+    (1, 2, 100, 100, True), (2, 3, 100, 300, False), (3, 4, 77, 1500, False),
+    (2, 1, 1, 70, False), (2, 12, 448, 448, True), (1, 20, 130, 200, False)])
 def test_flash_attention_backward_kernels_match_their_plain_versions(dev, B, H, Tq, Tk, causal):
     from sar_tpu_torch.ops import flash
     q, k, v, do = _k6_inputs(dev, B, H, Tq, Tk)
@@ -429,8 +494,31 @@ def test_flash_attention_backward_kernels_match_their_plain_versions(dev, B, H, 
     pairs += zip(flash.flash_attention_bwd_dkv(*args, causal=causal),
                  flash.flash_attention_bwd_dkv_reference(*args, causal=causal))
     torch.cuda.synchronize()
-    for got, want in pairs:
-        assert _rel(got, want) <= 1e-3
+    for name, (got, want) in zip(("dq", "dk", "dv"), pairs):
+        _assert_bwd_close(got, want, name)
+
+
+def test_flash_attention_kernels_with_one_key(dev):
+    """Tk = 1, one ragged key tile: p = 1 on every row, so o is v's one row
+    and lse the one score; dv (the column sum of do) is held as above. dq
+    and dk are 0 in exact arithmetic (the softmax is constant), and both
+    the kernels and the plain versions return the fp32 rounding noise of
+    dp - di (two sums of the same 64 products in other orders, ~1e-6):
+    each is held below 1e-4."""
+    from sar_tpu_torch.ops import flash
+    q, k, v, do = _k6_inputs(dev, 2, 2, 70, 1)
+    o, lse = flash.flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(o, v.expand_as(o))
+    assert (lse - (q.float() * k.float()).sum(-1)).abs().max().item() <= 1e-5
+    di = (o.float() * do.float()).sum(-1).contiguous()
+    args = (q, k, v, do, lse, di)
+    dk, dv = flash.flash_attention_bwd_dkv(*args)
+    dq = flash.flash_attention_bwd_dq(*args)
+    _, dv_plain = flash.flash_attention_bwd_dkv_reference(*args)
+    torch.cuda.synchronize()
+    _assert_bwd_close(dv, dv_plain, "dv")
+    assert max(dq.float().abs().max().item(), dk.float().abs().max().item()) <= 1e-4
 
 
 def test_flash_attention_wrappers_refuse_what_the_kernels_do_not_take(dev):
