@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the sar_tpu_torch port on one NVIDIA GPU (H100, sm_90a).
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile | --kernels-only]
 
 Phases, each printing its own line(s); any failure raises and exits non-zero:
 
@@ -30,11 +30,15 @@ Phases, each printing its own line(s); any failure raises and exits non-zero:
    + q/k/v projection + attention of encode(flash="fq")) on layer 0's
    params, x [8, 1536, 768] with 1500 valid rows, with two composite
    yardsticks (the hm route it replaces: plain LN and projections + K1;
-   and F.layer_norm + 3 addmm + SDPA); K9 (the parked s8 self decode) over
-   a 12-layer head-minor int8 self cache of max_len 448 at valid lengths
-   1, 67 and 448; K10 (the parked flash decode) at the cross shape
-   (H=12, S=1500), full and masked, with SDPA of one query row. K9 and
-   K10 have no caller in either package and launch on no path.
+   and F.layer_norm + 3 addmm + SDPA), and its LN + projection half alone
+   (encoder_ln_qkv) against its plain q/k/v with F.layer_norm + 3 addmm
+   as the yardstick; K9 (the parked s8 self decode) over a 12-layer
+   head-minor int8 self cache of max_len 448 at valid lengths 1, 67 and
+   448; K10 (the parked flash decode) at the cross shape (H=12, S=1500),
+   full and masked, with SDPA of one query row, both timed cold over
+   K10_SETS k/v sets (the warm reading beside it), and two runs compared
+   bit for bit. K9 and K10 have no caller in either package and launch on
+   no path.
 4. greedy end to end: random bf16 whisper-small (seeded), two batches of 8
    random 30 s clips through the port's ASREvaluator (mel ->
    encode(flash="hm") -> the int8 cache -> greedy, 64 new tokens), with the
@@ -92,6 +96,13 @@ Phases, each printing its own line(s); any failure raises and exits non-zero:
    token-step.
 10. result: one JSON line with every kernel's numbers, then the last line
    {"ok": true, "device": {...}}.
+
+With --kernels-only, it runs phases 1-3 and prints the kernel table
+without launch counts and without the result line. To compare two trees in
+one call, run it from another checkout's root with that tree's package
+first on the path:
+    python3 -c "import runpy, sys; sys.argv = ['chip_smoke.py', '--kernels-only']; \
+runpy.run_path('<this file>', run_name='__main__')"
 
 With --profile, the routed, beam and s8 phases also run PROFILE_STEPS
 steady-state decode steps of the greedy, routed, beam and s8 paths under
@@ -208,6 +219,18 @@ S8_BEAM_WIDTH = 4
 # where one bf16 ulp is 1.6e-2).
 K9_LENGTHS = (1, 67, 448)
 K10_MASKED_LEN = 750
+# K10 and its SDPA yardstick are timed cold: one call per set over
+# K10_SETS independent k/v sets of the cross shape (5 x 36.9 MB, past the
+# H100's 50 MB L2), so no call finds its k/v in L2. The warm reading (one
+# set replayed) is printed beside it.
+K10_SETS = 5
+# K8's projection half against its plain version's q/k/v planes, per entry:
+# |kernel - plain| <= one bf16 ulp of max(|kernel|, |plain|) (a sum that
+# lands on the other side of a rounding tie) plus K8_HALF_FLOOR of the
+# plane's largest |plain| entry (the LN statistics sum in another fp32
+# order, which can move a bf16(h) by one ulp, and with it every sum that h
+# enters by |w| ulp(h)).
+K8_HALF_FLOOR = 2e-3
 
 
 def fail(msg: str) -> None:
@@ -1613,6 +1636,49 @@ def print_profile(label, prof, wall_ms, n_steps, top_k=5):
                                           for n, t in top))
 
 
+def k8_projection_half(args, x, p, lns, lnb, batch, T, D, H, S):
+    """K8's LN + projection half alone (encoder_ln_qkv) against its plain
+    version's q/k/v planes, with its bound and the library's LN + three
+    addmm (cuBLAS) as the yardstick. Returns its numbers, or None on a
+    tree without the entry point (an older checkout run for comparison)."""
+    import torch
+    import torch.nn.functional as F
+    from sar_tpu_torch.ops import flash_enc
+    if not hasattr(flash_enc, "encoder_ln_qkv"):
+        print("K8 projection half: this tree has no entry point for it")
+        return None
+    got = flash_enc.encoder_ln_qkv(*args, n_heads=H)
+    want = flash_enc.encoder_ln_qkv_reference(*args, n_heads=H)
+    torch.cuda.synchronize()
+    excess = max(_bwd_errors(a[:, :S], b[:, :S])[0] for a, b in zip(got, want))
+    abs_err = (got[:, :, :S].float() - want[:, :, :S].float()).abs().max().item()
+    scaling = (D // H) ** -0.5
+
+    def library():
+        """F.layer_norm and three addmm (q's bias and scaling in its call)."""
+        h = F.layer_norm(x, (D,), lns, lnb, eps=1e-5).view(-1, D)
+        return (torch.addmm(p["q"]["b"], h, p["q"]["w"], beta=scaling, alpha=scaling),
+                torch.mm(h, p["k"]["w"]), torch.addmm(p["v"]["b"], h, p["v"]["w"]))
+    lib_err = max((a.view(batch, T, D)[:, :S].float() - b[:, :S].float()).abs().max().item()
+                  for a, b in zip(library(), want))
+    ms = time_cuda(lambda: flash_enc.encoder_ln_qkv(*args, n_heads=H))
+    plain_ms = time_cuda(lambda: flash_enc.encoder_ln_qkv_reference(*args, n_heads=H))
+    library_ms = time_cuda(library)
+    b_ms, b_by = bound(6.0 * batch * S * D * D,
+                       batch * T * D * 2 + 3 * D * D * 2 + 2 * D * 2 + 2 * D * 4
+                       + 3 * batch * T * D * 2)
+    print(f"K8 projection half encoder_ln_qkv [B={batch}, T_pad={T}, D={D}] -> q/k/v: per-entry "
+          f"excess over one bf16 ulp {excess:.3e} of the largest entry (tol {K8_HALF_FLOOR}), "
+          f"max_abs_err {abs_err:.3e} | kernel {ms:.4f} ms = {6.0 * batch * S * D * D / ms / 1e9:.0f} "
+          f"TFLOP/s, plain {plain_ms:.3f} ms | library (F.layer_norm + 3 addmm) {library_ms:.4f} "
+          f"ms, max_abs_err vs plain {lib_err:.3e} | bound {b_ms:.4f} ms ({b_by}), "
+          f"{b_ms / ms:.1%} of it")
+    if excess > K8_HALF_FLOOR:
+        fail("K8's projection half disagrees with its plain version")
+    return dict(max_abs_err=abs_err, ulp_excess=excess, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+
+
 def phase_kernels_k8_k10(cfg, params, device, batch):
     """K8 (fused LN + q/k/v + attention) on the random model's layer-0
     params, K9 (s8 self decode) and K10 (flash decode) at whisper-small
@@ -1668,6 +1734,7 @@ def phase_kernels_k8_k10(cfg, params, device, batch):
     hm_ms, library_ms = time_cuda(hm_route), time_cuda(library)
     b_ms, b_by = bound(6.0 * batch * S * D * D + 4.0 * batch * H * S * S * hd,
                        2 * batch * T * D * 2 + 3 * D * D * 2 + 2 * D * 2 + 2 * D * 4)
+    half = k8_projection_half(args, x, p, lns, lnb, batch, T, D, H, S)
     print(f"K8 encoder_attention_fused [B={batch}, T_pad={T}, D={D}, H={H}, t_valid={S}] "
           f"bf16, layer 0's params: max_abs_err {abs_err:.3e} max_rel_err {rel_err:.3e} (tol "
           f"{ATTN_ABS_TOL}) | kernel {ms:.3f} ms plain {plain_ms:.3f} ms | composite: the hm "
@@ -1681,7 +1748,7 @@ def phase_kernels_k8_k10(cfg, params, device, batch):
                      replaces="sar_tpu/ops/flash_enc.py:261", max_abs_err=abs_err, ms=ms,
                      plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
                      extra={"hm_route_ms": hm_ms, "library": "composite: F.layer_norm + 3 "
-                            "addmm + scaled_dot_product_attention"}))
+                            "addmm + scaled_dot_product_attention", "projection_half": half}))
     del x, args, got, want
 
     # K9: an s8 self cache of every decoder layer at max_len, valid lengths
@@ -1727,35 +1794,49 @@ def phase_kernels_k8_k10(cfg, params, device, batch):
     del cache
 
     # K10: q [B, H, 64] against the cross shape's k/v [B, H, S, 64], full
-    # and masked to K10_MASKED_LEN, each with SDPA of one query row.
+    # and masked to K10_MASKED_LEN, each with SDPA of one query row; timed
+    # cold over K10_SETS k/v sets (warm beside it).
     q = (torch.randn((batch, H, 64), generator=g, device=device) * 0.125).to(bf16)
-    k = torch.randn((batch, H, S, 64), generator=g, device=device).to(bf16)
-    v = torch.randn((batch, H, S, 64), generator=g, device=device).to(bf16)
+    kv_sets = [tuple(torch.randn((batch, H, S, 64), generator=g, device=device).to(bf16)
+                     for _ in range(2)) for _ in range(K10_SETS)]
+    k, v = kv_sets[0]
     variants = {}
     for label, n in (("full", None), ("masked", K10_MASKED_LEN)):
         got = attention.decode_attention(q, k, v, n)
+        again = attention.decode_attention(q, k, v, n)
         want = attention.decode_attention_reference(q, k, v, n)
         torch.cuda.synchronize()
         abs_err, rel_err = _attn_errors(got, want)
         if abs_err > ATTN_ABS_TOL or rel_err > ATTN_REL_TOL:
             fail(f"K10 ({label}) disagrees with its plain version")
+        if not torch.equal(got, again):
+            fail(f"K10 ({label}) gave two outputs on one input")
         mask = None if n is None else (torch.arange(S, device=device) < n)[None, None, None, :]
-        sdpa = lambda: F.scaled_dot_product_attention(q[:, :, None], k, v, attn_mask=mask,
-                                                      scale=1.0)
-        lib_err = _attn_errors(sdpa()[:, :, 0], want)[0]
-        ms = time_cuda(lambda: attention.decode_attention(q, k, v, n))
-        plain_ms = time_cuda(lambda: attention.decode_attention_reference(q, k, v, n))
-        library_ms = time_cuda(sdpa)
+        sdpa = lambda k, v: F.scaled_dot_product_attention(q[:, :, None], k, v, attn_mask=mask,
+                                                           scale=1.0)
+        lib_err = _attn_errors(sdpa(k, v)[:, :, 0], want)[0]
+        fns = {"kernel": lambda k, v: attention.decode_attention(q, k, v, n),
+               "plain": lambda k, v: attention.decode_attention_reference(q, k, v, n),
+               "sdpa": sdpa}
+        cold = {name: time_cuda(lambda fn=fn: [fn(*kv) for kv in kv_sets]) / K10_SETS
+                for name, fn in fns.items()}
+        warm = {name: time_cuda(lambda fn=fn: fn(k, v)) for name, fn in fns.items()
+                if name != "plain"}
         rows_read = S if n is None else n
         b_ms, b_by = bound(4.0 * batch * H * rows_read * 64,
                            2 * batch * H * rows_read * 64 * 2 + 2 * batch * H * 64 * 2)
-        variants[label] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                               bound_by=b_by, library_ms=library_ms)
+        variants[label] = dict(max_abs_err=abs_err, ms=cold["kernel"], plain_ms=cold["plain"],
+                               bound_ms=b_ms, bound_by=b_by, library_ms=cold["sdpa"],
+                               warm_ms=warm["kernel"], warm_library_ms=warm["sdpa"])
         print(f"K10 decode_attention {label} [B={batch}, H={H}, S={S}"
               f"{'' if n is None else f', valid_len={n}'}] bf16: max_abs_err {abs_err:.3e} "
-              f"max_rel_err {rel_err:.3e} (tol {ATTN_ABS_TOL}) | kernel {ms:.4f} ms plain "
-              f"{plain_ms:.4f} ms | library (SDPA, one query row) {library_ms:.4f} ms, "
-              f"max_abs_err vs plain {lib_err:.3e} | bound {b_ms:.5f} ms ({b_by})")
+              f"max_rel_err {rel_err:.3e} (tol {ATTN_ABS_TOL}), two runs equal | cold, per call "
+              f"over {K10_SETS} k/v sets ({K10_SETS * 2 * k.numel() * 2 / 1e6:.0f} MB): kernel "
+              f"{cold['kernel']:.4f} ms plain {cold['plain']:.4f} ms library (SDPA, one query "
+              f"row) {cold['sdpa']:.4f} ms | warm (one set replayed): kernel {warm['kernel']:.4f} "
+              f"ms SDPA {warm['sdpa']:.4f} ms | SDPA max_abs_err vs plain {lib_err:.3e} | bound "
+              f"{b_ms:.5f} ms ({b_by}), {b_ms / cold['kernel']:.1%} of it cold")
+    del kv_sets, k, v
     rows.append(dict(name="decode_attention", route="cuda",
                      source="sar_tpu_torch/csrc/decode_attention.cu",
                      replaces="sar_tpu/ops/attic/attention.py:64", **variants["full"],
@@ -1939,6 +2020,13 @@ def main() -> int:
     params, n_params = make_model(cfg, device)
     rows = (phase_kernels(cfg, device, BATCH) + phase_k6(cfg, device, BATCH)
             + phase_kernels_k8_k10(cfg, params, device, BATCH))
+    keys = ("name", "route", "source", "replaces", "launches", "launches_by_path", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shapes", "extra")
+    if "--kernels-only" in sys.argv[1:]:
+        # The kernel table alone: no path is driven, so no launch counts and
+        # no result line.
+        print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r} for r in rows]}))
+        return 0
     by_path = {"greedy": phase_e2e(cfg, params, n_params, device, BATCH, N_BATCHES,
                                    MAX_NEW_TOKENS),
                "routed": phase_routed(cfg, params, device, BATCH, MAX_NEW_TOKENS,
@@ -1953,12 +2041,7 @@ def main() -> int:
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}
         r["launches"] = sum(r["launches_by_path"].values())
-    print(json.dumps({"kernels": [
-        {k: r[k] for k in ("name", "route", "source", "replaces", "launches",
-                           "launches_by_path", "max_abs_err", "ms", "plain_ms",
-                           "bound_ms", "bound_by", "library_ms", "shapes", "extra")
-         if k in r}
-        for r in rows]}))
+    print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r} for r in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0

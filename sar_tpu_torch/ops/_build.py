@@ -58,6 +58,9 @@ SIGNATURES = {
     # n_heads, t_valid, device, stream
     "sar_encoder_attention_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                     _I, _I, _I, _I, _I, _I, _P],
+    # x, ln_scale, ln_bias, wq, bq, wk, wv, bv, qkv, B, T, D, device, stream
+    "sar_encoder_ln_qkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _I, _I, _I, _I, _P],
     # qq, qs, kq, ks, vq, vs, n (device int32 or NULL), n_host, out, L, B,
     # S, D, n_heads, layer, device, stream
     "sar_self_decode_s8": [_P, _P, _P, _P, _P, _P, _P, _I, _P,

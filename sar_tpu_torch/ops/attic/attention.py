@@ -11,7 +11,9 @@ in q's dtype (the TPU kernel's `_attend`).
 
 `decode_attention` dispatches on the tensors' device: CPU tensors take
 `decode_attention_reference`; CUDA tensors launch the hand-written kernel
-(csrc/decode_attention.cu) or raise. The kernel takes bf16 and head_dim 64.
+(csrc/decode_attention.cu) or raise. The kernel takes bf16 and head_dim 64
+and splits S over a thread-block cluster of `cluster_split(S)` blocks
+(the same rule as the kernel's `cluster_size` / `slice_rows`).
 """
 
 from __future__ import annotations
@@ -22,7 +24,17 @@ from sar_tpu_torch.ops import _build
 
 NEG = -1e30
 KERNEL_HEAD_DIM = 64
-MAX_SHARED_BYTES = 232_448 - 128
+# The kernel's split of S and its shared memory (csrc/decode_attention.cu):
+# clusters of at most MAX_CLUSTER blocks (the portable size), slices of at
+# least MIN_SLICE rows where S allows, v through a ring of at most
+# RING_STAGES stages of RING_ROWS rows of 64 bf16.
+MAX_CLUSTER = 8
+MIN_SLICE = 128
+RING_ROWS = 32
+RING_STAGES = 8
+# A block's shared memory on the H100 (232,448 bytes) less 8 KB kept for
+# the kernel's static arrays.
+MAX_SHARED_BYTES = 232_448 - 8192
 
 LAUNCHES = 0  # K10 launches by decode_attention (CUDA tensors only)
 
@@ -38,10 +50,21 @@ def decode_attention_reference(q, k, v, valid_len=None) -> torch.Tensor:
     return torch.einsum("bhs,bhsd->bhd", w.float(), v.float()).to(q.dtype)
 
 
+def cluster_split(S: int) -> tuple[int, int]:
+    """(C, rows): K10 runs C = ceil(S / MIN_SLICE) blocks per (sample,
+    head), at most MAX_CLUSTER, in one cluster; block r owns rows
+    [r * rows, min(S, (r + 1) * rows)) with rows = ceil(S / C)."""
+    C = min(MAX_CLUSTER, -(-S // MIN_SLICE))
+    return C, -(-S // C)
+
+
 def shared_bytes(S: int) -> int:
-    """K10's dynamic shared memory: S fp32 scores, reused by the cross-warp
-    reduction ([8 warps][64] floats)."""
-    return 4 * max(S, 8 * KERNEL_HEAD_DIM)
+    """K10's dynamic shared memory per block: the v ring (the whole slice
+    when it has at most RING_STAGES * RING_ROWS rows, else RING_STAGES
+    stages that it streams through) and the slice's fp32 scores."""
+    rows = cluster_split(S)[1]
+    stages = min(RING_STAGES, -(-rows // RING_ROWS))
+    return stages * RING_ROWS * KERNEL_HEAD_DIM * 2 + -(-rows // 4) * 16
 
 
 def decode_attention(q, k, v, valid_len=None) -> torch.Tensor:
@@ -66,7 +89,9 @@ def decode_attention(q, k, v, valid_len=None) -> torch.Tensor:
                    f"{name}: the kernel takes head_dim {KERNEL_HEAD_DIM}, got {hd}")
     _build.require(shared_bytes(S) <= MAX_SHARED_BYTES,
                    f"{name}: S={S} needs {shared_bytes(S)} bytes of shared "
-                   f"memory, more than a block has ({MAX_SHARED_BYTES})")
+                   f"memory per block (v ring + scores of a "
+                   f"{cluster_split(S)[1]}-row slice), more than the "
+                   f"{MAX_SHARED_BYTES} a block may have")
     n_ptr, n_host = ((None, S) if valid_len is None
                      else _build.valid_len_arg(name, valid_len, q.device, S))
     out = torch.empty_like(q)

@@ -20,9 +20,13 @@ K1's attention. Zero pad rows give var = 0 and h = the LN bias: finite.
 tensors' device: CPU tensors take the plain version; CUDA tensors launch
 the hand-written kernels or raise: K1 is the tensor-core attention forward
 of csrc/flash_attn.cu on head-minor views (entry point in
-csrc/flash_enc.cu), K8 the LN + projection kernel of csrc/flash_enc.cu
+csrc/flash_enc.cu), K8 the tensor-core LN + projection kernel of
+csrc/flash_enc.cu (64 or 96 rows of h resident in shared memory per block)
 followed by that forward. The kernels take bf16 and head_dim 64; K8 also
-T_pad a multiple of 64, fp32 LN params and bf16 weights and biases.
+T_pad a multiple of 64, fp32 LN params, bf16 weights and biases, and a
+width whose resident h fits a block's shared memory (`ln_qkv_config`).
+`encoder_ln_qkv` runs K8's LN + projection half alone (for timing and
+testing it; the encoder calls the fused entry point).
 """
 
 from __future__ import annotations
@@ -33,10 +37,19 @@ from sar_tpu_torch.ops import _build
 
 NEG = -1e30
 KERNEL_HEAD_DIM = 64
-KERNEL_ROW_TILE = 64  # K8's projection tile
+KERNEL_ROW_TILE = 64  # K8 takes T_pad in multiples of 64 rows
+# K8's projection configurations (csrc/flash_enc.cu, kLnQkvConfigs), in
+# order of preference: (rows of h resident per block, output columns per
+# tile, W rows per ring stage, ring stages). The first whose rows divide
+# T_pad, whose columns divide D and whose shared memory fits a block on the
+# H100 (MAX_SHARED_BYTES) is taken.
+LN_QKV_CONFIGS = ((96, 256, 32, 4), (96, 256, 32, 2), (64, 256, 32, 4),
+                  (64, 128, 32, 4), (64, 64, 32, 4))
+MAX_SHARED_BYTES = 232_448
 
 LAUNCHES = 0        # kernel launches by encoder_attention_hm (CUDA tensors only)
 FUSED_LAUNCHES = 0  # K8 launches by encoder_attention_fused (CUDA tensors only)
+LN_QKV_LAUNCHES = 0  # launches of K8's projection half alone (encoder_ln_qkv)
 
 # The JAX package's rule for which function `encode(flash="fq")` computes,
 # copied verbatim (sar_tpu/ops/flash_enc.py): the TPU kernel's VMEM budget
@@ -84,6 +97,36 @@ def fused_qkv_supported(T_padded: int, D: int, n_heads: int) -> bool:
     if T_padded % 128:
         return False                    # chunked LN walks 128-row tiles
     return _pick_bq(T_padded, D) is not None
+
+
+def ln_qkv_shared_bytes(config, D: int) -> int:
+    """Dynamic shared memory of a K8 projection block: the resident bf16 h
+    [rows][D + 8] and the W ring [stages][k rows][columns + 8] (the +8 pads
+    put the 8 rows an ldmatrix phase reads in distinct banks)."""
+    rows, cols, k_rows, stages = config
+    return 2 * (rows * (D + 8) + stages * k_rows * (cols + 8))
+
+
+def ln_qkv_config(T: int, D: int):
+    """The configuration K8's projection kernel takes for [T_pad, D], or
+    None where none fits."""
+    for c in LN_QKV_CONFIGS:
+        if T % c[0] == 0 and D % c[1] == 0 and ln_qkv_shared_bytes(c, D) <= MAX_SHARED_BYTES:
+            return c
+    return None
+
+
+def check_ln_qkv_width(name: str, T: int, D: int) -> None:
+    """Raises ValueError, naming the limit, for a shape whose resident h and
+    W ring fit a block's shared memory in no configuration (D = 1728, 2048
+    and most wider ones)."""
+    if ln_qkv_config(T, D) is None:
+        need = min(ln_qkv_shared_bytes(c, D) for c in LN_QKV_CONFIGS
+                   if T % c[0] == 0 and D % c[1] == 0)
+        raise ValueError(f"{name}: D={D} needs at least {need} bytes of shared "
+                         f"memory per block (the resident rows of h and the W "
+                         f"ring), more than the {MAX_SHARED_BYTES} a block may "
+                         f"have")
 
 
 def encoder_attention_hm_reference(q: torch.Tensor, k: torch.Tensor,
@@ -138,13 +181,11 @@ def encoder_attention_hm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-def encoder_attention_fused_reference(x, ln_scale, ln_bias, wq, bq, wk, wv,
-                                      bv, *, n_heads: int,
-                                      t_valid: int) -> torch.Tensor:
-    """K8's plain version with the TPU kernel's rounding points: the
-    one-pass LayerNorm in fp32 rounded to x's dtype, the three projections
-    summed in fp32 from x-dtype h (bias and, for q, the scaling applied
-    before the one rounding to x's dtype), then K1's plain attention."""
+def _ln_qkv_plain(x, ln_scale, ln_bias, wq, bq, wk, wv, bv, n_heads: int):
+    """(q, k, v) with the TPU kernel's rounding points: the one-pass
+    LayerNorm in fp32 rounded to x's dtype, the three projections summed in
+    fp32 from x-dtype h (bias and, for q, the scaling applied before the one
+    rounding to x's dtype)."""
     dtype = x.dtype
     x32 = x.float()
     mu = x32.mean(-1, keepdim=True)
@@ -155,23 +196,30 @@ def encoder_attention_fused_reference(x, ln_scale, ln_bias, wq, bq, wk, wv,
     q = ((h @ wq.float() + bq.float()) * scaling).to(dtype)
     k = (h @ wk.float()).to(dtype)
     v = (h @ wv.float() + bv.float()).to(dtype)
+    return q, k, v
+
+
+def encoder_ln_qkv_reference(x, ln_scale, ln_bias, wq, bq, wk, wv, bv, *,
+                             n_heads: int) -> torch.Tensor:
+    """The plain version of K8's LN + projection half: q/k/v stacked
+    [3, B, T, D]."""
+    return torch.stack(_ln_qkv_plain(x, ln_scale, ln_bias, wq, bq, wk, wv, bv,
+                                     n_heads))
+
+
+def encoder_attention_fused_reference(x, ln_scale, ln_bias, wq, bq, wk, wv,
+                                      bv, *, n_heads: int,
+                                      t_valid: int) -> torch.Tensor:
+    """K8's plain version: the plain LN + projection half, then K1's plain
+    attention."""
+    q, k, v = _ln_qkv_plain(x, ln_scale, ln_bias, wq, bq, wk, wv, bv, n_heads)
     return encoder_attention_hm_reference(q, k, v, n_heads=n_heads,
                                           t_valid=t_valid)
 
 
-def encoder_attention_fused(x, ln_scale, ln_bias, wq, bq, wk, wv, bv, *,
-                            n_heads: int, t_valid: int) -> torch.Tensor:
-    """Pre-LN x [B, T_pad, D] -> the attention output [B, T_pad, D]
-    (head-minor, before the out-projection); ln_scale/ln_bias [D], wq/wk/wv
-    [D, D] (in x out), bq/bv [D]. On CUDA: K8, one entry point that
-    launches the LN + projection kernel into a [3, B, T_pad, D] scratch and
-    K1's attention (the tensor-core forward) over it."""
-    if x.device.type == "cpu":
-        return encoder_attention_fused_reference(
-            x, ln_scale, ln_bias, wq, bq, wk, wv, bv, n_heads=n_heads,
-            t_valid=t_valid)
-    global FUSED_LAUNCHES
-    name = "encoder_attention_fused (K8)"
+def _check_fused_args(name, x, ln_scale, ln_bias, wq, bq, wk, wv, bv,
+                      n_heads: int) -> None:
+    """What K8's kernels take (raises ValueError naming the limit)."""
     _build.require(x.device.type == "cuda",
                    f"{name}: no kernel for device {x.device}")
     bf16, f32 = torch.bfloat16, torch.float32
@@ -189,10 +237,52 @@ def encoder_attention_fused(x, ln_scale, ln_bias, wq, bq, wk, wv, bv, *,
     _build.require(D == n_heads * KERNEL_HEAD_DIM,
                    f"{name}: the kernel takes head_dim {KERNEL_HEAD_DIM}, "
                    f"got D={D} with {n_heads} heads")
-    _build.require(T % KERNEL_ROW_TILE == 0 and 0 < t_valid <= T,
-                   f"{name}: T_pad={T} must be a multiple of "
-                   f"{KERNEL_ROW_TILE} and hold t_valid={t_valid}")
-    qkv = torch.empty((3, B, T, D), dtype=bf16, device=x.device)
+    _build.require(T % KERNEL_ROW_TILE == 0 and 0 < T and 0 < B <= 65535,
+                   f"{name}: T_pad={T} must be a positive multiple of "
+                   f"{KERNEL_ROW_TILE}, and B={B} in [1, 65535]")
+    check_ln_qkv_width(name, T, D)
+
+
+def encoder_ln_qkv(x, ln_scale, ln_bias, wq, bq, wk, wv, bv, *,
+                   n_heads: int) -> torch.Tensor:
+    """K8's LN + projection half alone: pre-LN x [B, T_pad, D] -> q/k/v
+    [3, B, T_pad, D] (q scaled), as the fused kernel hands them to the
+    attention. CPU tensors take `encoder_ln_qkv_reference`."""
+    if x.device.type == "cpu":
+        return encoder_ln_qkv_reference(x, ln_scale, ln_bias, wq, bq, wk, wv,
+                                        bv, n_heads=n_heads)
+    global LN_QKV_LAUNCHES
+    name = "encoder_ln_qkv (K8's projection half)"
+    _check_fused_args(name, x, ln_scale, ln_bias, wq, bq, wk, wv, bv, n_heads)
+    B, T, D = x.shape
+    qkv = torch.empty((3, B, T, D), dtype=torch.bfloat16, device=x.device)
+    lib = _build.load()
+    _build.check(lib.sar_encoder_ln_qkv(
+        x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), wq.data_ptr(),
+        bq.data_ptr(), wk.data_ptr(), wv.data_ptr(), bv.data_ptr(),
+        qkv.data_ptr(), B, T, D, x.device.index, _build.stream_of(x)), name)
+    LN_QKV_LAUNCHES += 1
+    return qkv
+
+
+def encoder_attention_fused(x, ln_scale, ln_bias, wq, bq, wk, wv, bv, *,
+                            n_heads: int, t_valid: int) -> torch.Tensor:
+    """Pre-LN x [B, T_pad, D] -> the attention output [B, T_pad, D]
+    (head-minor, before the out-projection); ln_scale/ln_bias [D], wq/wk/wv
+    [D, D] (in x out), bq/bv [D]. On CUDA: K8, one entry point that
+    launches the tensor-core LN + projection kernel into a [3, B, T_pad, D]
+    scratch and K1's attention (the tensor-core forward) over it."""
+    if x.device.type == "cpu":
+        return encoder_attention_fused_reference(
+            x, ln_scale, ln_bias, wq, bq, wk, wv, bv, n_heads=n_heads,
+            t_valid=t_valid)
+    global FUSED_LAUNCHES
+    name = "encoder_attention_fused (K8)"
+    _check_fused_args(name, x, ln_scale, ln_bias, wq, bq, wk, wv, bv, n_heads)
+    B, T, D = x.shape
+    _build.require(0 < t_valid <= T,
+                   f"{name}: T_pad={T} must hold t_valid={t_valid} > 0")
+    qkv = torch.empty((3, B, T, D), dtype=torch.bfloat16, device=x.device)
     out = torch.empty_like(x)
     lib = _build.load()
     _build.check(lib.sar_encoder_attention_fused(

@@ -40,10 +40,11 @@ def test_build_key_covers_every_source():
     names = {p.name for p in _build.sources()}
     assert {"flash_enc.cu", "kv_init.cu", "decode_cross.cu", "decode_cross_s8.cu",
             "flash_attn.cu", "decode_self.cu", "decode_attention.cu",
-            "common.cuh"} <= names
+            "common.cuh", "mma.cuh"} <= names
     assert _build.source_hash() == _build.source_hash()
     assert set(_build.SIGNATURES) == {"sar_encoder_attention_hm",
                                       "sar_encoder_attention_fused",
+                                      "sar_encoder_ln_qkv",
                                       "sar_fused_kv_init", "sar_fused_kv_init_lora",
                                       "sar_cross_decode_exact",
                                       "sar_cross_decode_exact_beam",

@@ -5,7 +5,11 @@ against its jnp reference, at tests/test_pallas_attention.py's shapes
 tolerance) and bf16 within 2e-2 (the normalised probabilities and the
 output are rounded to bf16 in both), and the tail exclusion. Also the
 valid length as a 0-d tensor, CPU dispatch without a launch, and a tensor
-on a device with no kernel raising."""
+on a device with no kernel raising. Also once at whisper-small's cross
+width (B=2, H=12, S=1500) against both, and the kernel's
+cluster split: for every S up to 4096 the slices of at most 8 blocks cover
+0..S-1 once, and every S the single-block kernel took (S <= 58,080) still
+fits a block's shared memory."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -66,3 +70,39 @@ def test_cpu_dispatch_and_refusals(qkv):
     meta = [torch.empty(a.shape, dtype=a.dtype, device="meta") for a in args]
     with pytest.raises(ValueError, match="no kernel"):
         attention.decode_attention(*meta)
+
+
+@pytest.mark.parametrize("valid", [None, 750], ids=["full", "750"])
+def test_plain_version_matches_jax_at_the_cross_width(valid):
+    rng = np.random.default_rng(1)
+    Bc, Hc, Sc = 2, 12, 1500
+    qkv = (rng.standard_normal((Bc, Hc, hd)).astype(np.float32) * hd ** -0.5,
+           rng.standard_normal((Bc, Hc, Sc, hd)).astype(np.float32),
+           rng.standard_normal((Bc, Hc, Sc, hd)).astype(np.float32))
+    jv = None if valid is None else jnp.int32(valid)
+    jargs = [jnp.asarray(a, jnp.bfloat16) for a in qkv]
+    wants = (jax_kernel(*jargs, valid_len=jv, interpret=True), jax_reference(*jargs, valid_len=jv))
+    got = attention.decode_attention(*(t(a).to(torch.bfloat16) for a in qkv), valid_len=valid)
+    assert got.shape == (Bc, Hc, hd)
+    for want in wants:
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                                   atol=TOLS["bfloat16"], rtol=TOLS["bfloat16"])
+
+
+def test_cluster_split_covers_every_row_once():
+    for S_ in range(1, 4097):
+        C, rows = attention.cluster_split(S_)
+        assert 1 <= C <= attention.MAX_CLUSTER
+        covered = [s for r in range(C) for s in range(r * rows, min(S_, (r + 1) * rows))]
+        assert covered == list(range(S_)), S_
+        assert (C - 1) * rows < S_          # no block is left without rows
+
+
+def test_every_length_the_single_block_kernel_took_is_taken():
+    old_limit = 232_448 - 128                # the single-block kernel: 4 * max(S, 512) bytes
+    took = [S_ for S_ in range(1, 70_000) if 4 * max(S_, 512) <= old_limit]
+    assert took[-1] == 58_080
+    assert all(attention.shared_bytes(S_) <= attention.MAX_SHARED_BYTES for S_ in took)
+    # A slice longer than the ring streams through it: the bytes stop growing
+    # with the ring's 8 stages of 32 rows.
+    assert attention.shared_bytes(58_080) == 8 * 32 * 64 * 2 + 7260 * 4

@@ -7,7 +7,11 @@ k, v or p that lands on the other side of a tie moves an output by one
 bf16 ulp of ~1). Also: garbage in the padded rows leaves the valid rows
 as they are, the route rule `fused_qkv_supported` equals JAX's over a grid
 of shapes, CPU tensors take the plain version without moving the launch
-counter, and a tensor on a device with no kernel raises."""
+counter, and a tensor on a device with no kernel raises. The rules of the
+tensor-core projection half: its column tile never straddles two of the
+q/k/v planes, its resident h fits a block's shared memory at the widths
+the route sends to it, and the wrapper names the limit where it does not;
+its plain version is K8's own first half."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -113,3 +117,53 @@ def test_cpu_tensors_take_the_plain_version_and_other_devices_raise(world):
     with pytest.raises(ValueError, match="no kernel"):
         flash_enc.encoder_attention_fused(*meta, n_heads=H, t_valid=T_VALID)
     assert flash_enc.FUSED_LAUNCHES == n
+
+
+@pytest.mark.parametrize("T", [64, 192, 1536])
+@pytest.mark.parametrize("H_", range(1, 33))
+def test_projection_config_divides_every_plane(T, H_):
+    """Where a configuration fits, its rows divide T_pad, its column tile
+    divides D (no tile straddles two of the q/k/v planes) and its shared
+    memory fits a block; every width up to 1472 has one."""
+    D_ = 64 * H_
+    c = flash_enc.ln_qkv_config(T, D_)
+    if D_ <= 1472:
+        assert c is not None
+    if c is not None:
+        assert T % c[0] == 0 and D_ % c[1] == 0
+        assert flash_enc.ln_qkv_shared_bytes(c, D_) <= 232_448
+
+
+@pytest.mark.parametrize("D_,H_", [(768, 12), (1024, 16)])
+def test_resident_h_fits_at_the_fused_widths(D_, H_):
+    """whisper-small and -medium, the widths the route rule sends to K8:
+    96-row tiles at whisper's T_pad of 1536 (a 4-stage W ring at D=768, 2
+    at D=1024), 64 rows when T_pad is not a multiple of 96."""
+    assert flash_enc.fused_qkv_supported(1536, D_, H_)
+    rows, cols, k_rows, stages = flash_enc.ln_qkv_config(1536, D_)
+    assert (rows, cols, stages) == (96, 256, 4 if D_ == 768 else 2)
+    want = 2 * (rows * (D_ + 8) + stages * k_rows * (cols + 8))
+    assert flash_enc.ln_qkv_shared_bytes((rows, cols, k_rows, stages), D_) == want <= 232_448
+    assert flash_enc.ln_qkv_config(64, D_)[0] == 64
+    flash_enc.check_ln_qkv_width("K8", 1536, D_)          # does not raise
+
+
+@pytest.mark.parametrize("D_", [1728, 2048, 2560])
+def test_widths_that_do_not_fit_are_refused_with_the_limit(D_):
+    assert flash_enc.ln_qkv_config(1536, D_) is None
+    with pytest.raises(ValueError, match=f"D={D_} needs at least .* more than the 232448"):
+        flash_enc.check_ln_qkv_width("K8", 1536, D_)
+
+
+def test_projection_half_plain_version_is_the_fused_first_half(world):
+    """encoder_ln_qkv (CPU: its plain version) gives the q/k/v that the
+    fused plain version attends over, without moving a launch counter."""
+    x, p = world
+    n = flash_enc.LN_QKV_LAUNCHES
+    qkv = _port(x, p, torch.bfloat16, fn=lambda *a, n_heads, t_valid:
+                flash_enc.encoder_ln_qkv(*a, n_heads=n_heads))
+    assert flash_enc.LN_QKV_LAUNCHES == n
+    assert qkv.shape == (3, B, T_PAD, D) and qkv.dtype == torch.bfloat16
+    want = _port(x, p, torch.bfloat16)
+    got = flash_enc.encoder_attention_hm_reference(*qkv, n_heads=H, t_valid=T_VALID)
+    assert torch.equal(got, want)

@@ -603,9 +603,10 @@ def test_training_step_kernels_agree_with_the_plain_path(dev):
         assert abs(a.norm() - b.norm()) <= 5e-2 * b.norm()
 
 
-def _k8_inputs(dev, B, T, H, t_valid, seed=10):
+def _k8_inputs(dev, B, T, H, t_valid, seed=10, zero_bias=False):
     """A pre-LN residual with zero pad rows and one layer's LN and q/k/v
-    parameters as cast_params leaves them (LN fp32, the rest bf16)."""
+    parameters as cast_params leaves them (LN fp32, the rest bf16); with
+    `zero_bias`, bq = bv = 0."""
     g = torch.Generator(device=dev).manual_seed(seed)
     D = H * 64
     x = _randn(g, dev, B, T, D)
@@ -613,19 +614,24 @@ def _k8_inputs(dev, B, T, H, t_valid, seed=10):
     ln = [1.0 + 0.1 * torch.randn(D, generator=g, device=dev),
           0.1 * torch.randn(D, generator=g, device=dev)]
     w = [_randn(g, dev, *s, std=0.05) for s in ((D, D), (D,), (D, D), (D, D), (D,))]
+    if zero_bias:
+        w[1].zero_()
+        w[4].zero_()
     return x, ln[0], ln[1], *w
 
 
-# K8: the smallest legal shape, whisper-small's width (12 heads) and
-# whisper-medium's (16 heads; the route rule sends whisper-large to "hm"),
-# T_pad 1536 with 36 pad rows. Limit: 2e-2 absolute and relative to the
-# largest entry (a bf16 rounding of q, k, v or p on the other side of a
-# tie, as for K1).
-@pytest.mark.parametrize("B,T,H,t_valid", [(2, 128, 2, 100), (2, 1536, 12, 1500),
-                                           (1, 1536, 16, 1500)])
-def test_encoder_attention_fused_kernel(dev, B, T, H, t_valid):
+# K8: the smallest legal shapes (T_pad 64 and 128), whisper-small's width
+# (12 heads) and whisper-medium's (16 heads; the route rule sends
+# whisper-large to "hm"), T_pad 1536 with 36 pad rows, a T_pad whose last
+# two 64-row tiles are all padding, and bq = bv = 0. Limit: 2e-2 absolute
+# and relative to the largest entry (a bf16 rounding of q, k, v or p on the
+# other side of a tie, as for K1).
+@pytest.mark.parametrize("B,T,H,t_valid,zero_bias", [
+    (2, 128, 2, 100, False), (2, 1536, 12, 1500, False), (1, 1536, 16, 1500, False),
+    (2, 64, 2, 50, False), (1, 256, 16, 100, False), (2, 128, 12, 128, True)])
+def test_encoder_attention_fused_kernel(dev, B, T, H, t_valid, zero_bias):
     from sar_tpu_torch.ops import flash_enc
-    args = _k8_inputs(dev, B, T, H, t_valid)
+    args = _k8_inputs(dev, B, T, H, t_valid, zero_bias=zero_bias)
     n1, n8 = flash_enc.LAUNCHES, flash_enc.FUSED_LAUNCHES
     got = flash_enc.encoder_attention_fused(*args, n_heads=H, t_valid=t_valid)
     want = flash_enc.encoder_attention_fused_reference(*args, n_heads=H, t_valid=t_valid)
@@ -634,6 +640,35 @@ def test_encoder_attention_fused_kernel(dev, B, T, H, t_valid):
     assert got.shape == args[0].shape and torch.isfinite(got.float()).all()
     err = (got[:, :t_valid].float() - want[:, :t_valid].float()).abs().max().item()
     assert err <= 2e-2 and err <= 2e-2 * want[:, :t_valid].float().abs().max().item()
+
+
+# K8's LN + projection half alone against its plain version's q/k/v, every
+# row (pad rows give h = the LN bias), in each configuration of
+# LN_QKV_CONFIGS: 96 x 256 with 4 stages (D=768; at T_pad 192 with a tile
+# of padding and bq = bv = 0) and 2 (D=1024), 64 x 256 (D=768 at T_pad 64),
+# 64 x 128 (D=384 and 128), 64 x 64 (D=192, whole tiles of padding).
+# Limit, per entry: one bf16 ulp
+# of max(|kernel|, |plain|) (a sum on the other side of a rounding tie)
+# plus 2e-3 of the plane's largest |plain| entry (the LN statistics sum in
+# another fp32 order, which can move a bf16(h) by one ulp).
+@pytest.mark.parametrize("B,T,H,t_valid,zero_bias", [
+    (2, 1536, 12, 1500, False), (1, 1536, 16, 1500, False), (2, 64, 12, 50, False),
+    (2, 128, 6, 128, False), (1, 256, 3, 100, False), (2, 192, 12, 60, True),
+    (1, 192, 16, 100, True), (2, 64, 2, 50, False)])
+def test_encoder_ln_qkv_kernel(dev, B, T, H, t_valid, zero_bias):
+    from sar_tpu_torch.ops import flash_enc
+    args = _k8_inputs(dev, B, T, H, t_valid, zero_bias=zero_bias)
+    n1, n8, nh = flash_enc.LAUNCHES, flash_enc.FUSED_LAUNCHES, flash_enc.LN_QKV_LAUNCHES
+    got = flash_enc.encoder_ln_qkv(*args, n_heads=H)
+    want = flash_enc.encoder_ln_qkv_reference(*args, n_heads=H)
+    torch.cuda.synchronize()
+    assert (flash_enc.LAUNCHES, flash_enc.FUSED_LAUNCHES, flash_enc.LN_QKV_LAUNCHES) == (
+        n1, n8, nh + 1)
+    assert got.shape == (3, B, T, H * 64) and got.dtype == torch.bfloat16
+    assert torch.isfinite(got.float()).all()
+    for a, b in zip(got.float(), want.float()):
+        slack = _bf16_ulp(torch.maximum(a.abs(), b.abs())) + 2e-3 * b.abs().max()
+        assert ((a - b).abs() <= slack).all()
 
 
 def test_encoder_attention_fused_wrapper_refuses_what_the_kernel_does_not_take(dev):
@@ -651,6 +686,11 @@ def test_encoder_attention_fused_wrapper_refuses_what_the_kernel_does_not_take(d
     with pytest.raises(ValueError, match="multiple"):
         flash_enc.encoder_attention_fused(x[:, :100].contiguous(), lns, lnb, wq, bq, wk, wv,
                                           bv, n_heads=2, t_valid=100)
+    wide = _k8_inputs(dev, 1, 64, 32, 64)             # D = 2048: h does not fit
+    for fn in (flash_enc.encoder_attention_fused, flash_enc.encoder_ln_qkv):
+        kw = dict(t_valid=64) if fn is flash_enc.encoder_attention_fused else {}
+        with pytest.raises(ValueError, match="more than the 232448"):
+            fn(*wide, n_heads=32, **kw)
 
 
 def _k9_inputs(dev, L, B, S, H, seed=11):
@@ -706,23 +746,33 @@ def test_self_decode_wrapper_refuses_what_the_kernel_does_not_take(dev):
         decode_self.self_decode_attention(qq, qs, kq, ks, vq, vs, 41, layer=0, n_heads=2)
 
 
-# K10: a ragged S (70) and whisper-small's cross (S=1500, 12 heads, B=8),
-# full and masked (1, a middle length, S), the length as an int and as a
-# 0-d device tensor. Limit: 2e-2 absolute and relative (bf16 probabilities
-# and output; fp32 sums in another order).
-@pytest.mark.parametrize("B,H,S", [(2, 3, 70), (8, 12, 1500)])
+# K10: a ragged S (70), whisper-small's cross (S=1500, 12 heads, B=8),
+# S = 1 (a cluster of one block), 1499 (no multiple of the 8 blocks), 4096
+# (512-row slices stream through the 256-row v ring) and 58,080 (the
+# longest the single-block kernel took); full and masked at 0 (the uniform
+# softmax), 1, a middle length, a slice boundary and one past it, S; the
+# length as an int and as a 0-d device tensor. Two runs give the same bits
+# (no atomics). Limit: 2e-2 absolute and relative (bf16 probabilities and
+# output; fp32 sums in another order).
+@pytest.mark.parametrize("B,H,S", [(2, 3, 70), (8, 12, 1500), (2, 2, 1), (2, 3, 1499),
+                                   (1, 2, 4096), (1, 2, 58_080)])
 def test_decode_attention_kernel(dev, B, H, S):
     from sar_tpu_torch.ops.attic import attention
     g = torch.Generator(device=dev).manual_seed(12)
     q = _randn(g, dev, B, H, 64, std=0.125)
     k, v = _randn(g, dev, B, H, S, 64), _randn(g, dev, B, H, S, 64)
-    for valid in (None, 1, 37, S, torch.tensor(37, dtype=torch.int32, device=dev)):
+    rows = attention.cluster_split(S)[1]
+    lengths = sorted({n for n in (0, 1, 37, rows, rows + 1, S) if n <= S})
+    as_tensor = [torch.tensor(n, dtype=torch.int32, device=dev) for n in (min(37, S), rows)]
+    for valid in [None, *lengths, *as_tensor]:
         c = attention.LAUNCHES
         got = attention.decode_attention(q, k, v, valid)
+        again = attention.decode_attention(q, k, v, valid)
         want = attention.decode_attention_reference(q, k, v, valid)
         torch.cuda.synchronize()
-        assert attention.LAUNCHES == c + 1
+        assert attention.LAUNCHES == c + 2
         assert got.shape == q.shape and got.dtype == torch.bfloat16
+        assert torch.equal(got, again)
         err = (got.float() - want.float()).abs().max().item()
         assert err <= 2e-2 and err <= 2e-2 * max(want.float().abs().max().item(), 1.0)
 
@@ -731,6 +781,9 @@ def test_decode_attention_wrapper_refuses_what_the_kernel_does_not_take(dev):
     from sar_tpu_torch.ops.attic import attention
     q = torch.zeros((2, 3, 64), dtype=torch.bfloat16, device=dev)
     k = torch.zeros((2, 3, 70, 64), dtype=torch.bfloat16, device=dev)
+    long = torch.zeros((1, 1, 400_000, 64), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="shared memory per block"):
+        attention.decode_attention(q[:1, :1], long, long)
     with pytest.raises(ValueError, match="bfloat16"):
         attention.decode_attention(q.float(), k.float(), k.float())
     with pytest.raises(ValueError, match="head_dim"):
