@@ -19,7 +19,9 @@ Phases, each printing its own line(s); any failure raises and exits non-zero:
    CUDA-event times over 20 runs, the least time the card could take
    (bound) and, for K1, one library call computing the same function
    (scaled_dot_product_attention with the key mask; the port never calls
-   it); K1 also on a case that only the rounding of its probabilities to
+   it); for K2 and K4 a library composite (the bf16 cuBLAS GEMMs of every
+   layer, then the torch quantize_rows) and its GEMMs alone, for K3 and K5
+   the GB/s read; K1 also on a case that only the rounding of its probabilities to
    bf16 before the PV product decides. K6 (training's blockwise attention:
    forward, dQ, dK/dV) at the three whisper-small training shapes (encoder
    1500 x 1500, decoder causal 448 x 448, cross 448 x 1500, batch 8), each
@@ -416,19 +418,28 @@ def phase_kernels(cfg, device, batch):
     flip, scale_err, deq_err = _kv_errors("K2", got, k2(kv_init.fused_kv_init_reference)(), S)
     ms = time_cuda(k2(kv_init.fused_kv_init))
     plain_ms = time_cuda(k2(kv_init.fused_kv_init_reference))
+    # The library yardstick (the port never calls it): the 24 bf16 cuBLAS
+    # GEMMs (x.Wk and x.Wv + bv per layer, rounded to bf16 by cuBLAS), then
+    # the torch quantize_rows; and the GEMMs alone.
+    k2_gemm_ms = time_cuda(lambda: _kv_gemms(enc, wk, wv, bv))
+    k2_lib_ms = time_cuda(lambda: _kv_library(enc, wk, wv, bv, H, S))
     kv_bytes = (batch * S_pad * D * 2 + 2 * L * D * D * 2 + L * D * 2
                 + 2 * L * batch * S_pad * D + 2 * L * batch * H * S_pad * 4)
     b_ms, b_by = bound(4.0 * L * batch * S * D * D, kv_bytes)
     print(f"K2 fused_kv_init [L={L}, B={batch}, S_pad={S_pad}, D={D}] bf16->s8: "
           f"int8 |d|<=1 on {flip:.3e} of entries (tol {KV_FLIP_FRAC_TOL}) | "
           f"scale max_rel_err {scale_err:.3e} (tol {KV_SCALE_REL_TOL}) | pad rows 0/0 | "
-          f"dequantized max_abs_err {deq_err:.3e} | kernel {ms:.3f} ms plain {plain_ms:.3f} ms"
-          f" | bound {b_ms:.4f} ms ({b_by})")
+          f"dequantized max_abs_err {deq_err:.3e} | kernel {ms:.3f} ms = "
+          f"{4.0 * L * batch * S * D * D / ms / 1e9:.1f} TFLOP/s, plain {plain_ms:.3f} ms | "
+          f"library (24 cuBLAS GEMMs + torch quantize_rows) {k2_lib_ms:.3f} ms, the GEMMs "
+          f"alone {k2_gemm_ms:.3f} ms | bound {b_ms:.4f} ms ({b_by})")
     rows.append(dict(name="fused_kv_init", route="cuda",
                      source="sar_tpu_torch/csrc/kv_init.cu",
                      replaces="sar_tpu/ops/kv_init.py:191",
                      max_abs_err=deq_err, ms=ms, plain_ms=plain_ms,
-                     bound_ms=b_ms, bound_by=b_by, library_ms=None))
+                     bound_ms=b_ms, bound_by=b_by, library_ms=k2_lib_ms,
+                     extra={"library": "24 cuBLAS GEMMs + torch quantize_rows",
+                            "gemms_ms": k2_gemm_ms, "flip_frac": flip}))
 
     # K4: cross_v slices of a 4-adapter bank, per sample (the routed path)
     # and one slice broadcast over the batch (a single adapter).
@@ -439,33 +450,41 @@ def phase_kernels(cfg, device, batch):
     scale = LORA_ALPHA / LORA_RANK
     forms = {"per-sample": (bank_a[:, idx].contiguous(), bank_b[:, idx].contiguous()),
              "broadcast": (bank_a[:, :1].contiguous(), bank_b[:, :1].contiguous())}
+    k4_k2_ms = ms
     k4 = lambda fn, va, vb: lambda: fn(enc, wk, wv, bv, n_heads=H, t_valid=S,
                                        va=va, vb=vb, lora_scale=scale)
-    k4_ms, k4_err = {}, 0.0
+    k4_ms, k4_err, k4_flip = {}, 0.0, 0.0
     for form, (va, vb) in forms.items():
         got4 = k4(kv_init.fused_kv_init, va, vb)()
         want4 = k4(kv_init.fused_kv_init_reference, va, vb)()
         flip, scale_err, deq_err = _kv_errors(f"K4 {form}", got4, want4, S)
         if torch.equal(got4[2], got[2]):
             fail(f"K4 {form}: the LoRA term did not reach V")
-        k4_err = max(k4_err, deq_err)
+        k4_err, k4_flip = max(k4_err, deq_err), max(k4_flip, flip)
         k4_ms[form] = (time_cuda(k4(kv_init.fused_kv_init, va, vb)),
-                       time_cuda(k4(kv_init.fused_kv_init_reference, va, vb)))
+                       time_cuda(k4(kv_init.fused_kv_init_reference, va, vb)),
+                       time_cuda(lambda: _kv_library(enc, wk, wv, bv, H, S, va, vb, scale)),
+                       time_cuda(lambda: _kv_gemms(enc, wk, wv, bv, va, vb, scale)))
         print(f"K4 fused_kv_init_lora {form} [L={L}, B={batch}, S_pad={S_pad}, D={D}, "
               f"r={r}] bf16->s8: int8 |d|<=1 on {flip:.3e} of entries (tol "
               f"{KV_FLIP_FRAC_TOL}) | scale max_rel_err {scale_err:.3e} (tol "
               f"{KV_SCALE_REL_TOL}) | pad rows 0/0 | dequantized max_abs_err {deq_err:.3e}"
-              f" | kernel {k4_ms[form][0]:.3f} ms plain {k4_ms[form][1]:.3f} ms")
+              f" | kernel {k4_ms[form][0]:.3f} ms plain {k4_ms[form][1]:.3f} ms | library "
+              f"(the K2 composite with x.va and u.vb) {k4_ms[form][2]:.3f} ms, the GEMMs "
+              f"alone {k4_ms[form][3]:.3f} ms")
         del got4, want4
-    ms, plain_ms = k4_ms["per-sample"]
+    ms, plain_ms, lib_ms, gemm_ms = k4_ms["per-sample"]
     b_ms, b_by = bound(4.0 * L * batch * S * D * (D + r), kv_bytes + 2 * L * batch * D * r * 2)
-    print(f"K4 bound (per-sample slices) {b_ms:.4f} ms ({b_by})")
+    print(f"K4 bound (per-sample slices) {b_ms:.4f} ms ({b_by}) | K4 / K2 in this run "
+          f"{ms / k4_k2_ms:.3f}")
     rows.append(dict(name="fused_kv_init_lora", route="cuda",
                      source="sar_tpu_torch/csrc/kv_init.cu",
                      replaces="sar_tpu/ops/kv_init.py:172",
                      max_abs_err=k4_err, ms=ms, plain_ms=plain_ms,
-                     bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                     broadcast_ms=k4_ms["broadcast"][0]))
+                     bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                     extra={"library": "the K2 composite with the x.va and u.vb GEMMs",
+                            "gemms_ms": gemm_ms, "flip_frac": k4_flip,
+                            "broadcast_ms": k4_ms["broadcast"][0]}))
 
     # K3: over the kernel-built cache, every layer checked, the last timed.
     kq, ks, vq, vs = got
@@ -497,7 +516,8 @@ def phase_kernels(cfg, device, batch):
                      source="sar_tpu_torch/csrc/decode_cross.cu",
                      replaces="sar_tpu/ops/decode_cross.py:219",
                      max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
-                     bound_ms=b_ms, bound_by=b_by, library_ms=None))
+                     bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                     extra={"gbps": slab_mb / ms}))
 
     # K5: the beam-folded twin, q [B, K, D] over the same slabs; the beam
     # phase's width, then Whisper's usual one. Checked on every layer and
@@ -525,12 +545,15 @@ def phase_kernels(cfg, device, batch):
               f"{decode_cross.beam_shared_bytes(K, S_pad)} B")
         if abs_err > ATTN_ABS_TOL or rel_err > ATTN_REL_TOL:
             fail(f"K5 (K={K}) disagrees with its plain version")
-        k5[K] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        k5[K] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                     gbps=slab_mb / ms)
     rows.append(dict(name="cross_decode_attention_exact_beam", route="cuda",
                      source="sar_tpu_torch/csrc/decode_cross.cu",
                      replaces="sar_tpu/ops/decode_cross.py:219",
-                     library_ms=None, beam_width=BEAM_WIDTH, **k5[BEAM_WIDTH],
-                     other_widths={K: v for K, v in k5.items() if K != BEAM_WIDTH}))
+                     library_ms=None,
+                     **{k: v for k, v in k5[BEAM_WIDTH].items() if k != "gbps"},
+                     extra={"beam_width": BEAM_WIDTH, "gbps": k5[BEAM_WIDTH]["gbps"],
+                            "other_widths": {K: v for K, v in k5.items() if K != BEAM_WIDTH}}))
 
     # K7: s8 scores over the same slabs, the query quantized per (row,
     # head) as decode_step does; greedy (q [B, D]) and 4 beams folded.
@@ -844,6 +867,32 @@ def phase_train(cfg, params, device, batch, profile=False):
     if kp[0] > TRAIN_LOSS_REL_TOL or kp[1] < TRAIN_GRAD_MIN_COS or kp[2] > TRAIN_GRAD_NORM_REL_TOL:
         fail("the train kernel path disagrees with the plain path")
     return counts
+
+
+def _kv_gemms(x, wk, wv, bv, va=None, vb=None, lora_scale=1.0):
+    """K2/K4's products as bf16 cuBLAS calls, per layer: x.Wk, x.Wv + bv
+    (and, with va/vb, u = x.va and V + lora_scale * u.vb). The yardstick's
+    first half; the port never calls it."""
+    import torch
+    B, S_pad, D = x.shape
+    x2 = x.reshape(B * S_pad, D)
+    out = []
+    for l in range(wk.shape[0]):
+        k = x2 @ wk[l]
+        v = torch.addmm(bv[l], x2, wv[l])
+        if va is not None:
+            u = torch.bmm(x, va[l].expand(B, -1, -1))
+            v = v + lora_scale * torch.bmm(u, vb[l].expand(B, -1, -1)).reshape(B * S_pad, D)
+        out.append((k.view(B, S_pad, D), v.view(B, S_pad, D)))
+    return out
+
+
+def _kv_library(x, wk, wv, bv, n_heads, t_valid, va=None, vb=None, lora_scale=1.0):
+    """The library yardstick of K2/K4: `_kv_gemms`, then the torch
+    quantize_rows of every layer's K and V."""
+    from sar_tpu_torch.ops import kv_init
+    return [(kv_init.quantize_rows(k, n_heads, t_valid), kv_init.quantize_rows(v, n_heads, t_valid))
+            for k, v in _kv_gemms(x, wk, wv, bv, va, vb, lora_scale)]
 
 
 def _kv_errors(name, got, want, t_valid):

@@ -71,9 +71,9 @@ SIGNATURES = {
     # device, stream
     "sar_fused_kv_init": [_P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _I, _P],
-    # x, wk, wv, bv, va, vb, kq, ks, vq, vs, L, B, Bv, S_pad, D, n_heads,
-    # rank, t_valid, lora_scale, device, stream
-    "sar_fused_kv_init_lora": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+    # x, wk, wv, bv, va, vb, u scratch, kq, ks, vq, vs, L, B, Bv, S_pad, D,
+    # n_heads, rank, t_valid, lora_scale, device, stream
+    "sar_fused_kv_init_lora": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     # q, kq, ks, vq, vs, out, L, B, S_pad, D, n_heads, layer, device, stream
     "sar_cross_decode_exact": [_P, _P, _P, _P, _P, _P,

@@ -24,7 +24,10 @@ tensors' device: CPU tensors take the plain version; CUDA tensors launch
 the hand-written kernel (csrc/decode_cross.cu, csrc/decode_cross_s8.cu) or
 raise. The kernels take head_dim 64 and S_pad a multiple of 64, beam
 widths 2..8 (K7 also 1), and write bf16; the layer is an offset into the
-stacked cache (nothing is sliced or copied per step).
+stacked cache (nothing is sliced or copied per step). K3 and K5 are one
+kernel (`cross_decode_exact_kernel<K>`, K = 1 for K3) that splits S_pad
+over a thread-block cluster of `cluster_split(S_pad)` blocks per (head,
+sample).
 """
 
 from __future__ import annotations
@@ -36,9 +39,18 @@ from sar_tpu_torch.ops import _build
 NEG = -1e30
 KERNEL_HEAD_DIM = 64
 KERNEL_ROW_GROUPS = 64
-KERNEL_BEAM_WIDTHS = range(2, 9)      # K5's template instances
-# One H100 block's shared memory (227 KB) less K5's static 32-float scratch.
-MAX_SHARED_BYTES = 232_448 - 128
+KERNEL_BEAM_WIDTHS = range(2, 9)      # K5's template instances (K3 is K = 1)
+# K3/K5's split of S_pad and its shared memory (csrc/decode_cross.cu):
+# clusters of at most MAX_CLUSTER blocks (the portable size), slices of at
+# least MIN_SLICE rows where S_pad allows, v through a ring of at most
+# RING_STAGES stages of RING_ROWS int8 rows of 64.
+MAX_CLUSTER = 8
+MIN_SLICE = 256
+RING_ROWS = 64
+RING_STAGES = 8
+# A block's shared memory on the H100 (232,448 bytes) less 48 KB kept for
+# the kernel's static arrays.
+MAX_SHARED_BYTES = 232_448 - 48 * 1024
 
 S8_BEAM_WIDTHS = range(1, 9)          # K7's template instances
 LAUNCHES = 0          # K3 launches by cross_decode_attention_exact (CUDA, q [B, D])
@@ -90,10 +102,12 @@ def cross_decode_attention_exact(q, kq, ks, vq, vs, *, layer: int,
                        f"{name}: the kernel takes beam widths "
                        f"{KERNEL_BEAM_WIDTHS.start}..{KERNEL_BEAM_WIDTHS.stop - 1}, "
                        f"got {K}")
-        smem = beam_shared_bytes(K, S)
-        _build.require(smem <= MAX_SHARED_BYTES,
-                       f"{name}: K={K} x S_pad={S} needs {smem} bytes of shared "
-                       f"memory, more than a block has ({MAX_SHARED_BYTES})")
+    smem = beam_shared_bytes(K, S)
+    _build.require(smem <= MAX_SHARED_BYTES,
+                   f"{name}: K={K} x S_pad={S} needs {smem} bytes of shared "
+                   f"memory per block (v ring, scores and v scales of a "
+                   f"{cluster_split(S)[1]}-row slice), more than the "
+                   f"{MAX_SHARED_BYTES} a block may have")
     out = torch.empty_like(q)
     lib = _build.load()
     args = (q.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(),
@@ -141,10 +155,22 @@ def _check_slabs(name: str, q: torch.Tensor, tensors: dict, q_dtypes: dict,
     return B, K, L, S, D
 
 
+def cluster_split(S: int) -> tuple[int, int]:
+    """(C, rows): K3/K5 run C = ceil(S_pad / MIN_SLICE) blocks per (head,
+    sample), at most MAX_CLUSTER, in one cluster; block r owns rows
+    [r * rows, min(S_pad, (r + 1) * rows)) with rows = ceil(S_pad / C)."""
+    C = min(MAX_CLUSTER, -(-S // MIN_SLICE))
+    return C, -(-S // C)
+
+
 def beam_shared_bytes(K: int, S: int) -> int:
-    """K5's dynamic shared memory: K rows of S_pad fp32 scores, which the
-    final cross-warp reduction ([8 warps][K][64] floats) reuses."""
-    return 4 * K * max(S, 8 * KERNEL_HEAD_DIM)
+    """K3/K5's dynamic shared memory per block (K = 1 for K3): the int8 v
+    ring (the whole slice when it has at most RING_STAGES * RING_ROWS
+    rows, else RING_STAGES stages that it streams through), then K rows of
+    the slice's fp32 scores and its fp32 v scales."""
+    rows = cluster_split(S)[1]
+    stages = min(RING_STAGES, -(-rows // RING_ROWS))
+    return stages * RING_ROWS * KERNEL_HEAD_DIM + 4 * (K + 1) * rows
 
 
 # K7: one H100 block's shared memory less its static scratch (32 + 8 floats).

@@ -18,10 +18,12 @@ and is rounded to the compute dtype once before the quantization.
 
 `fused_kv_init` dispatches on the tensors' device: CPU tensors take
 `fused_kv_init_reference`; CUDA tensors launch the hand-written kernel
-(csrc/kv_init.cu: K2, or K4 with `va`/`vb`) or raise. The kernels take
-bf16, head_dim 64, S_pad a multiple of 64 and d_model a multiple of 32;
-K4 takes ranks up to 64 (the wrapper zero-pads r to a multiple of 16,
-which leaves the delta unchanged).
+(csrc/kv_init.cu: K2, or K4 with `va`/`vb`: the same tensor-core kernel
+after a launch that sums u = x @ va into a scratch the wrapper allocates)
+or raise. The kernels take bf16, head_dim 64 and S_pad a multiple of 64 (in
+the configuration `kv_config` picks); K4 takes ranks up to 64 (the
+wrapper zero-pads r to a multiple of 16, which leaves the delta
+unchanged).
 """
 
 from __future__ import annotations
@@ -35,9 +37,40 @@ KERNEL_HEAD_DIM = 64
 KERNEL_ROW_TILE = 64
 KERNEL_RANK_GRANULE = 16
 KERNEL_MAX_RANK = 64
+# K2/K4's configurations (csrc/kv_init.cu, kKvConfigs), in order of
+# preference: (rows per block, heads per block, ring stages); a block runs
+# (rows / 32) * 2 * heads warps of 32 rows x one head's 64 columns of K or
+# V. The first whose rows divide S_pad, whose heads divide the head count
+# and whose shared memory fits a block on the H100 (MAX_SHARED_BYTES) is
+# taken.
+KV_CONFIGS = ((128, 1, 3), (64, 1, 3))
+KV_K_SLICE = 32
+MAX_SHARED_BYTES = 232_448
 
 LAUNCHES = 0       # K2 launches by fused_kv_init (CUDA tensors only)
 LORA_LAUNCHES = 0  # K4 launches by fused_kv_init with va/vb (CUDA only)
+
+
+def kv_shared_bytes(config, rank: int = 0) -> int:
+    """Dynamic shared memory of a K2/K4 projection block: a ring of stages
+    of the x tile [rows][32 + 8] and the W slice [32][heads * 128 + 8], then
+    (K4) vb [heads][rank][64 + 8] and u [rows][rank + 8], all bf16 (the +8
+    pads put the 8 rows an ldmatrix phase reads in distinct banks)."""
+    rows, heads, stages = config
+    bk = KV_K_SLICE
+    stage = rows * (bk + 8) + bk * (heads * 2 * KERNEL_HEAD_DIM + 8)
+    lora = heads * rank * (KERNEL_HEAD_DIM + 8) + rows * (rank + 8) if rank else 0
+    return 2 * (stages * stage + lora)
+
+
+def kv_config(S_pad: int, n_heads: int, rank: int = 0):
+    """The configuration K2 (rank 0) or K4 (the padded rank) takes for
+    S_pad and n_heads, or None where none does."""
+    for c in KV_CONFIGS:
+        if (S_pad % c[0] == 0 and n_heads % c[1] == 0
+                and kv_shared_bytes(c, rank) <= MAX_SHARED_BYTES):
+            return c
+    return None
 
 
 def quantize_rows(y: torch.Tensor, n_heads: int, t_valid: int
@@ -116,8 +149,12 @@ def fused_kv_init(enc_pad: torch.Tensor, wk: torch.Tensor, wv: torch.Tensor,
     _build.require(S % KERNEL_ROW_TILE == 0 and 0 < t_valid <= S,
                    f"{name}: S_pad={S} must be a multiple of "
                    f"{KERNEL_ROW_TILE} and hold t_valid={t_valid}")
+    r = 0
     if va is not None:
         va, vb, Bv, r = _lora_slices(name, va, vb, L, B, D)
+    _build.require(kv_config(S, n_heads, r) is not None,
+                   f"{name}: no kernel configuration takes S_pad={S} with "
+                   f"{n_heads} heads and rank {r}")
     dev = enc_pad.device
     kq = torch.empty((L, B, S, D), dtype=torch.int8, device=dev)
     vq = torch.empty_like(kq)
@@ -135,9 +172,11 @@ def fused_kv_init(enc_pad: torch.Tensor, wk: torch.Tensor, wv: torch.Tensor,
     _build.require_cuda_args(name, dict(x=enc_pad, va=va, vb=vb),
                              dict(x=torch.bfloat16, va=torch.bfloat16,
                                   vb=torch.bfloat16))
+    # K4's first launch writes u = bf16(x @ va), once per (row, layer), here.
+    u = torch.empty((L, B * S, r), dtype=torch.bfloat16, device=dev)
     _build.check(lib.sar_fused_kv_init_lora(
         enc_pad.data_ptr(), wk.data_ptr(), wv.data_ptr(), bv.data_ptr(),
-        va.data_ptr(), vb.data_ptr(),
+        va.data_ptr(), vb.data_ptr(), u.data_ptr(),
         kq.data_ptr(), ks.data_ptr(), vq.data_ptr(), vs.data_ptr(),
         L, B, Bv, S, D, n_heads, r, t_valid, float(lora_scale), dev.index,
         _build.stream_of(enc_pad)), name)

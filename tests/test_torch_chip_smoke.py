@@ -7,6 +7,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -55,3 +56,32 @@ def test_build_key_covers_every_source():
     for name in _build.SIGNATURES:
         assert f'extern "C" int {name}(' in "".join(
             p.read_text() for p in _build.sources())
+
+
+@pytest.mark.parametrize("lora", [False, True])
+def test_kv_library_yardstick_computes_the_kernels_function(lora):
+    """chip_smoke's K2/K4 library composite (per-layer GEMMs, then
+    quantize_rows) is the plain version's function: on the CPU in fp32 the
+    int8 values agree up to |d| <= 1 on a few entries (another summation
+    order) and the scales within 1e-5."""
+    import chip_smoke
+    from sar_tpu_torch.ops import kv_init
+    rng = np.random.default_rng(5)
+    L, B, S_pad, D, H, t_valid, r = 2, 2, 128, 128, 2, 100, 8
+    x = torch.from_numpy(rng.standard_normal((B, S_pad, D)).astype(np.float32))
+    x[:, t_valid:] = 0
+    wk, wv = (torch.from_numpy(rng.standard_normal((L, D, D)).astype(np.float32) * 0.05)
+              for _ in range(2))
+    bv = torch.from_numpy(rng.standard_normal((L, D)).astype(np.float32) * 0.05)
+    kw = {}
+    if lora:
+        kw = dict(va=torch.from_numpy(rng.standard_normal((L, 1, D, r)).astype(np.float32) * 0.1),
+                  vb=torch.from_numpy(rng.standard_normal((L, 1, r, D)).astype(np.float32) * 0.1),
+                  lora_scale=2.0)
+    lib = chip_smoke._kv_library(x, wk, wv, bv, H, t_valid, **kw)
+    want = kv_init.fused_kv_init_reference(x, wk, wv, bv, n_heads=H, t_valid=t_valid, **kw)
+    for l, ((kq, ks), (vq, vs)) in enumerate(lib):
+        for got_q, got_s, i in ((kq, ks, 0), (vq, vs, 2)):
+            d = (got_q.int() - want[i][l].int()).abs()
+            assert d.max().item() <= 1 and (d != 0).float().mean().item() <= 1e-3
+            np.testing.assert_allclose(got_s.numpy(), want[i + 1][l].numpy(), rtol=1e-5, atol=0)

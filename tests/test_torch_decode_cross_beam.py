@@ -6,6 +6,9 @@ of a stacked head-minor cache: fp32 within 1e-5, bf16 within 2e-2 (the
 bf16 rounding of the output and of the weighted probabilities, with sums
 taken in another order)."""
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -81,9 +84,60 @@ def test_beam_padding_is_masked_and_cpu_takes_the_plain_version():
 
 
 @pytest.mark.parametrize("K,S_,ok", [(2, 1536, True), (8, 1536, True), (8, 7232, True),
-                                     (8, 7296, False), (1, 1536, True)])
+                                     (8, 7296, True), (8, 33408, True), (8, 33472, False),
+                                     (1, 1536, True)])
 def test_beam_shared_memory_bound(K, S_, ok):
-    """K5 keeps K rows of S_pad fp32 scores; the wrapper refuses what does
-    not fit one block's 227 KB, before any launch."""
+    """K3/K5 keep a block's slice of the cluster split in shared memory (the
+    int8 v ring, K rows of fp32 scores and the v scales); the wrapper
+    refuses what does not fit before any launch. S_pad 7296, which the
+    single-block kernel refused at K=8, is now taken."""
     assert (decode_cross.beam_shared_bytes(K, S_) <= decode_cross.MAX_SHARED_BYTES) == ok
-    assert decode_cross.beam_shared_bytes(K, 64) == 4 * K * 8 * 64
+    assert decode_cross.beam_shared_bytes(K, 64) == 64 * 64 + 4 * (K + 1) * 64
+
+
+CSRC = Path(decode_cross.__file__).resolve().parent.parent / "csrc"
+
+
+def _constants(name: str) -> dict:
+    """The `constexpr int` constants of a kernel source."""
+    text = (CSRC / name).read_text()
+    return {m[0]: int(m[1]) for m in re.findall(r"constexpr int (\w+) = (\d+);", text)}
+
+
+def test_split_constants_match_the_kernel():
+    c = _constants("decode_cross.cu")
+    assert c["MAX_CLUSTER"] == decode_cross.MAX_CLUSTER
+    assert c["MIN_SLICE"] == decode_cross.MIN_SLICE
+    assert c["NS"] == decode_cross.RING_STAGES
+    assert c["MAX_BEAMS"] == decode_cross.KERNEL_BEAM_WIDTHS.stop - 1
+    assert c["NT"] * 16 // c["HD"] == decode_cross.RING_ROWS
+    assert 232_448 - 48 * 1024 == decode_cross.MAX_SHARED_BYTES
+
+
+@pytest.mark.parametrize("S_,want", [(64, (1, 64)), (128, (1, 128)), (512, (2, 256)),
+                                     (1536, (6, 256)), (2048, (8, 256)), (33408, (8, 4176))])
+def test_cluster_split_picks(S_, want):
+    """C = ceil(S_pad / 256) blocks, at most 8; whisper's 1536 rows go to 6
+    blocks of 256."""
+    assert decode_cross.cluster_split(S_) == want
+
+
+def test_cluster_split_covers_every_row_once():
+    for S_ in range(64, 40_000, 64):
+        C, rows = decode_cross.cluster_split(S_)
+        assert 1 <= C <= decode_cross.MAX_CLUSTER
+        covered = [s for r in range(C) for s in range(r * rows, min(S_, (r + 1) * rows))]
+        assert covered == list(range(S_)), S_
+        assert (C - 1) * rows < S_          # no block is left without rows
+
+
+def test_every_shape_the_single_block_kernels_took_is_taken():
+    """The single-block K3 took S_pad up to 8128 ((S_pad + 4096) fp32 in
+    48 KB) and K5 4 * K * max(S_pad, 512) bytes in 227 KB; the cluster
+    split takes all of them at every K."""
+    for S_ in range(64, 8129, 64):
+        assert decode_cross.beam_shared_bytes(1, S_) <= decode_cross.MAX_SHARED_BYTES
+    for K in decode_cross.KERNEL_BEAM_WIDTHS:
+        took = [S_ for S_ in range(64, 70_000, 64) if 4 * K * max(S_, 512) <= 232_448 - 128]
+        assert all(decode_cross.beam_shared_bytes(K, S_) <= decode_cross.MAX_SHARED_BYTES
+                   for S_ in took)

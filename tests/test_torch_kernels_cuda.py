@@ -213,11 +213,111 @@ def test_cross_decode_beam_wrapper_refuses_what_the_kernel_does_not_take(dev):
         q = torch.zeros((B, K, H * 64), dtype=torch.bfloat16, device=dev)
         with pytest.raises(ValueError, match="beam widths"):
             decode_cross.cross_decode_attention_exact(q, kq, ks, kq, ks, layer=0, n_heads=H)
-    big = torch.zeros((L, B, 7296, H * 64), dtype=torch.int8, device=dev)
-    bigs = torch.ones((L, B, H, 7296), device=dev)
+    # The cluster split's slice of 4184 rows at K=8 needs more than a
+    # block's shared memory (S_pad 33,408 is the largest taken).
+    big = torch.zeros((L, B, 33472, H * 64), dtype=torch.int8, device=dev)
+    bigs = torch.ones((L, B, H, 33472), device=dev)
     q = torch.zeros((B, 8, H * 64), dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError, match="shared"):
         decode_cross.cross_decode_attention_exact(q, big, bigs, big, bigs, layer=0, n_heads=H)
+
+
+# K3/K5's cluster split at its edges: one block (S_pad 128, C = 1), six
+# (whisper's S_pad 1536, slices of 256 rows) with t_valid on a slice
+# boundary (1280), one past it, and small enough that five slices hold
+# padding only, and eight (S_pad 2048) with t_valid on a slice boundary;
+# K = 1 (K3) and 2, 4, 8 (K5); every layer of a 3-layer cache; two runs
+# give the same bits (no atomics).
+@pytest.mark.parametrize("S_pad,t_valid,C", [(128, 100, 1), (1536, 1280, 6), (1536, 1281, 6),
+                                             (1536, 100, 6), (2048, 1536, 8)])
+@pytest.mark.parametrize("K", [1, 2, 4, 8])
+def test_cross_decode_cluster_split_edges(dev, S_pad, t_valid, C, K):
+    from sar_tpu_torch.ops import decode_cross
+    g = torch.Generator(device=dev).manual_seed(6)
+    L, B, H = 3, 2, 4
+    assert decode_cross.cluster_split(S_pad)[0] == C
+    kq, ks, vq, vs = _beam_cache(g, dev, L, B, t_valid, S_pad, H)
+    q = _randn(g, dev, B, K, H * 64, std=0.125)
+    q = q[:, 0].contiguous() if K == 1 else q
+    for layer in range(L):
+        n = (decode_cross.LAUNCHES, decode_cross.BEAM_LAUNCHES)
+        got = decode_cross.cross_decode_attention_exact(q, kq, ks, vq, vs, layer=layer, n_heads=H)
+        again = decode_cross.cross_decode_attention_exact(q, kq, ks, vq, vs, layer=layer, n_heads=H)
+        want = decode_cross.cross_decode_reference_exact(q, kq, ks, vq, vs, layer=layer, n_heads=H)
+        torch.cuda.synchronize()
+        assert (decode_cross.LAUNCHES, decode_cross.BEAM_LAUNCHES) == \
+            (n[0] + 2 * (K == 1), n[1] + 2 * (K > 1))
+        assert got.shape == q.shape and torch.isfinite(got.float()).all()
+        assert torch.equal(got, again)
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= 2e-2 and err <= 2e-2 * want.float().abs().max().item()
+
+
+@pytest.mark.parametrize("K", [1, 4])
+def test_cross_decode_all_rows_masked_is_uniform(dev, K):
+    """A sample whose every key scale is 0 attends uniformly over all S_pad
+    rows, as the TPU kernel's softmax of all -1e30 does."""
+    from sar_tpu_torch.ops import decode_cross
+    g = torch.Generator(device=dev).manual_seed(7)
+    L, B, S_pad, H = 2, 2, 1536, 2
+    kq, ks, vq, vs = _beam_cache(g, dev, L, B, 1500, S_pad, H)
+    ks = ks.clone()
+    ks[:, 1] = 0
+    q = _randn(g, dev, B, K, H * 64, std=0.125)
+    q = q[:, 0].contiguous() if K == 1 else q
+    got = decode_cross.cross_decode_attention_exact(q, kq, ks, vq, vs, layer=1, n_heads=H)
+    want = decode_cross.cross_decode_reference_exact(q, kq, ks, vq, vs, layer=1, n_heads=H)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+
+
+# K2 at every Whisper width (tiny 384 .. large 1280), t_valid at the
+# 128-row tile's edge and one past it, and an S_pad of 192 (no multiple of
+# 128: the 64-row configuration).
+@pytest.mark.parametrize("H", [6, 8, 12, 16, 20])
+@pytest.mark.parametrize("S_pad,t_valid", [(256, 128), (256, 129), (192, 150)])
+def test_kv_init_kernel_widths_and_tile_edges(dev, H, S_pad, t_valid):
+    from sar_tpu_torch.ops import kv_init
+    g = torch.Generator(device=dev).manual_seed(8)
+    L, B = 2, 2
+    D = H * 64
+    assert kv_init.kv_config(S_pad, H)[0] == (128 if S_pad % 128 == 0 else 64)
+    x = _randn(g, dev, B, S_pad, D)
+    x[:, t_valid:] = 0
+    wk, wv, bv = _randn(g, dev, L, D, D, std=0.05), _randn(g, dev, L, D, D, std=0.05), \
+        _randn(g, dev, L, D, std=0.05)
+    n = kv_init.LAUNCHES
+    got = kv_init.fused_kv_init(x, wk, wv, bv, n_heads=H, t_valid=t_valid)
+    want = kv_init.fused_kv_init_reference(x, wk, wv, bv, n_heads=H, t_valid=t_valid)
+    torch.cuda.synchronize()
+    assert kv_init.LAUNCHES == n + 1
+    _assert_kv_rules(got, want, t_valid)
+
+
+# K4 at every Whisper width, per-sample and broadcast slices, r = 16, with
+# t_valid one past the row tile's edge.
+@pytest.mark.parametrize("H", [6, 8, 12, 16, 20])
+@pytest.mark.parametrize("shared", [False, True])
+def test_kv_init_lora_kernel_widths(dev, H, shared):
+    from sar_tpu_torch.ops import kv_init
+    g = torch.Generator(device=dev).manual_seed(9)
+    L, B, S_pad, t_valid, r = 2, 2, 256, 129, 16
+    D = H * 64
+    x = _randn(g, dev, B, S_pad, D)
+    x[:, t_valid:] = 0
+    wk, wv, bv = _randn(g, dev, L, D, D, std=0.05), _randn(g, dev, L, D, D, std=0.05), \
+        _randn(g, dev, L, D, std=0.05)
+    Bv = 1 if shared else B
+    va, vb = _randn(g, dev, L, Bv, D, r, std=0.1), _randn(g, dev, L, Bv, r, D, std=0.1)
+    n4 = kv_init.LORA_LAUNCHES
+    got = kv_init.fused_kv_init(x, wk, wv, bv, n_heads=H, t_valid=t_valid, va=va, vb=vb,
+                                lora_scale=2.0)
+    want = kv_init.fused_kv_init_reference(x, wk, wv, bv, n_heads=H, t_valid=t_valid,
+                                           va=va, vb=vb, lora_scale=2.0)
+    torch.cuda.synchronize()
+    assert kv_init.LORA_LAUNCHES == n4 + 1
+    _assert_kv_rules(got, want, t_valid)
 
 
 def _s8_query(g, dev, B, K, H, folded):

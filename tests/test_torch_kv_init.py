@@ -7,6 +7,9 @@ int8 values must be equal except |d| <= 1 on at most 0.1% of entries (the
 frameworks sum the GEMM in another order, so a value on a .5 boundary may
 round either way); scales within rtol 1e-6; pad rows 0 with scale 0."""
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -94,3 +97,33 @@ def test_cpu_dispatch_takes_the_plain_version(data):
     meta = torch.empty((1, 64, 64), device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         kv_init.fused_kv_init(meta, meta[None], meta[None], meta[:, 0], n_heads=1, t_valid=1)
+
+
+def _kernel_configs() -> list[tuple[int, int, int]]:
+    """csrc/kv_init.cu's kKvConfigs table, {rows, heads, stages} in order."""
+    text = (Path(kv_init.__file__).resolve().parent.parent / "csrc" / "kv_init.cu").read_text()
+    table = text[text.index("kKvConfigs[] = {"):]
+    table = table[:table.index("};")]
+    return [tuple(int(v) for v in m) for m in re.findall(r"\{(\d+), (\d+), (\d+)\}", table)]
+
+
+def test_configurations_match_the_kernel():
+    assert _kernel_configs() == list(kv_init.KV_CONFIGS)
+
+
+@pytest.mark.parametrize("D_", [384, 512, 768, 1024, 1280])
+def test_every_whisper_width_takes_the_128_row_configuration(D_):
+    """whisper tiny .. large-v3 at whisper's S_pad of 1536: 128-row blocks of
+    8 warps, 56,832 bytes of shared memory (two blocks per SM); an S_pad
+    that is a multiple of 64 but not of 128 takes the 64-row one."""
+    H_ = D_ // 64
+    c = kv_init.kv_config(1536, H_)
+    assert c == (128, 1, 3)
+    assert kv_init.kv_shared_bytes(c) == 2 * 3 * (128 * 40 + 32 * 136) == 56_832
+    assert kv_init.kv_config(1600, H_) == (64, 1, 3)
+    assert kv_init.kv_config(64, H_) == (64, 1, 3)
+
+
+@pytest.mark.parametrize("S_", [32, 100, 1500])
+def test_s_pad_off_the_64_row_grid_is_refused(S_):
+    assert kv_init.kv_config(S_, 12) is None

@@ -139,3 +139,24 @@ def test_init_cache_matches_jax(model, targets, per_sample, monkeypatch):
         (kw,) = calls
         assert kw["va"].shape == (cfg.decoder_layers, B if per_sample else 1,
                                   cfg.d_model, r)
+
+
+@pytest.mark.parametrize("D_", [384, 512, 768, 1024, 1280])
+@pytest.mark.parametrize("rank", [16, 32, 48, 64])
+def test_every_width_and_padded_rank_has_a_configuration(D_, rank):
+    """K4 takes the padded ranks 16..64 at every Whisper width: vb's rows of
+    the block's head and u's rows of the block stay resident beside K2's
+    ring (84,480 bytes at rank 64: two blocks per SM)."""
+    c = kv_init.kv_config(1536, D_ // 64, rank)
+    assert c == (128, 1, 3)
+    want = 2 * (3 * (128 * 40 + 32 * 136) + rank * 72 + 128 * (rank + 8))
+    assert kv_init.kv_shared_bytes(c, rank) == want <= kv_init.MAX_SHARED_BYTES
+
+
+def test_ranks_past_the_kernel_are_refused_before_padding():
+    va = torch.zeros((L, 1, D, 65))
+    vb = torch.zeros((L, 1, 65, D))
+    with pytest.raises(ValueError, match="ranks 1..64"):
+        kv_init._lora_slices("K4", va, vb, L, B, D)
+    va8, vb8, Bv, rp = kv_init._lora_slices("K4", va[..., :8], vb[:, :, :8], L, B, D)
+    assert (Bv, rp) == (1, 16) and va8.shape[-1] == 16 and vb8.shape[2] == 16
