@@ -13,10 +13,11 @@ Phases, each printing its own line(s); any failure raises and exits non-zero:
    quantization), K4 (K2 with a per-sample LoRA term on V, per-sample and
    broadcast slices of a 4-adapter r=16 bank), K3 (cross-attention
    decode), K5 (K3 with the queries of 4, then 5, beams folded per
-   sample) and K7 (s8-scores cross-attention decode, greedy and 4 beams
-   folded) at whisper-small shapes, batch 8, each against its plain
-   PyTorch version on the card in bf16, with error limits, median
-   CUDA-event times over 20 runs, the least time the card could take
+   sample) and K7 (s8-scores cross-attention decode, greedy, 4 and 8
+   beams folded; with its cluster split, GB/s, shared memory per block
+   and ptxas registers and spills) at whisper-small shapes, batch 8, each
+   against its plain PyTorch version on the card in bf16, with error
+   limits, median CUDA-event times over 20 runs, the least time the card could take
    (bound) and, for K1, one library call computing the same function
    (scaled_dot_product_attention with the key mask; the port never calls
    it); for K2 and K4 a library composite (the bf16 cuBLAS GEMMs of every
@@ -36,8 +37,8 @@ Phases, each printing its own line(s); any failure raises and exits non-zero:
    (encoder_ln_qkv) against its plain q/k/v with F.layer_norm + 3 addmm
    as the yardstick; K9 (the parked s8 self decode) over a 12-layer
    head-minor int8 self cache of max_len 448 at valid lengths 1, 67 and
-   448; K10 (the parked flash decode) at the cross shape (H=12, S=1500),
-   full and masked, with SDPA of one query row, both timed cold over
+   448 (K7's kernel body, the same readings); K10 (the parked flash
+   decode) at the cross shape (H=12, S=1500), full and masked, with SDPA of one query row, both timed cold over
    K10_SETS k/v sets (the warm reading beside it), and two runs compared
    bit for bit. K9 and K10 have no caller in either package and launch on
    no path.
@@ -214,6 +215,7 @@ TRAIN_GRAD_NORM_REL_TOL = 1e-2
 S8_ABS_TOL = 1e-3
 S8_REL_TOL = 8e-3
 S8_BEAM_WIDTH = 4
+S8_KERNEL_WIDTHS = (1, S8_BEAM_WIDTH, 8)   # K7's widths checked and timed in phase 3
 # K9 (the parked s8 self decode) at whisper-small's max_len, valid lengths
 # 1, a middle one and max_len; K10 (the parked flash decode) at the cross
 # shape, full and masked to K10_MASKED_LEN. K9 fails only where both its
@@ -302,6 +304,32 @@ def phase_build():
     print(f"build: {secs:.1f} s ({len(_build.sources())} sources, "
           f"{'built' if _build.BUILD_SECONDS is not None else 'cached'}, "
           f"sm_90a) | ptxas: {' ; '.join(regs)} | spills: {' ; '.join(spills) or 'none'}")
+
+
+def ptxas_of(kernel: str) -> str:
+    """'R registers, N B spilled' of the kernel whose mangled name holds
+    `kernel`, from the build's -Xptxas -v report."""
+    from sar_tpu_torch.ops import _build
+    lines = (_build.BUILD_ROOT / _build.source_hash() / "build.log").read_text().splitlines()
+    for i, ln in enumerate(lines):
+        if "Compiling entry function" in ln and kernel in ln:
+            info = " ".join(lines[i + 1:i + 4])
+            regs = info.split("Used ")[1].split(" registers")[0]
+            spill = info.split("bytes stack frame, ")[1].split(" bytes spill stores")[0]
+            return f"{regs} registers, {spill} B spilled"
+    fail(f"no ptxas report for {kernel}")
+
+
+def s8_split(S: int, length_mask: bool) -> tuple[int, int]:
+    """K7's (length_mask False) or K9's cluster split of S rows: (C, rows)
+    from the Python mirror, held to the C the library launches."""
+    from sar_tpu_torch.ops import _build, decode_cross
+    from sar_tpu_torch.ops.attic import decode_self
+    C, rows = decode_self.cluster_split(S) if length_mask else decode_cross.s8_cluster_split(S)
+    launched = _build.load().sar_s8_cluster_size(S, int(length_mask))
+    if launched != C:
+        fail(f"the s8 kernel launches clusters of {launched} for {S} rows; the mirror says {C}")
+    return C, rows
 
 
 def _bf16_ulp(x):
@@ -556,9 +584,12 @@ def phase_kernels(cfg, device, batch):
                             "other_widths": {K: v for K, v in k5.items() if K != BEAM_WIDTH}}))
 
     # K7: s8 scores over the same slabs, the query quantized per (row,
-    # head) as decode_step does; greedy (q [B, D]) and 4 beams folded.
+    # head) as decode_step does; greedy (q [B, D]), 4 beams folded (the s8
+    # beam path's width) and 8 (the largest instance, a row's extra).
     from sar_tpu_torch.models.whisper import quantize_kv
-    for K, row_name in ((1, "cross_decode_attention"), (S8_BEAM_WIDTH, "cross_decode_attention_beam")):
+    C, rows_per = s8_split(S_pad, False)
+    k7, k7_extra = {}, {}
+    for K in S8_KERNEL_WIDTHS:
         qq, qs = quantize_kv(randn(batch, K, H, hd, std=hd ** -0.5))
         qq = qq.reshape(batch, K, D) if K > 1 else qq.reshape(batch, D)
         qs = qs.reshape(batch, K * H, 1)
@@ -575,20 +606,26 @@ def phase_kernels(cfg, device, batch):
         plain_ms = time_cuda(sweep_s8(decode_cross.cross_decode_reference)) / L
         b_ms, b_by = bound(4.0 * batch * K * H * S * hd,
                            slab_mb * 1e6 + batch * K * (D + 4 * H + 2 * D), PEAK_INT8_OPS)
+        smem, regs = decode_cross.s8_shared_bytes(K, S_pad), ptxas_of(f"s8_decode_kernelILi{K}ELi0E")
         print(f"K7 cross_decode_attention s8 [B={batch}, K={K}, S_pad={S_pad}, D={D}, all {L} "
               f"layers] s8 q, s8 cache: max_abs_err {abs_err:.3e} max_rel_err {rel_err:.3e} "
               f"(tol {S8_ABS_TOL} abs, {S8_REL_TOL} rel) | per call over a {L}-layer sweep: "
               f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms | {slab_mb:.1f} MB of int8 slab + scales -> "
-              f"{slab_mb / ms:.1f} GB/s | bound {b_ms:.4f} ms ({b_by}) | shared memory "
-              f"{decode_cross.s8_shared_bytes(K, S_pad)} B | library: none (no PyTorch call "
-              f"takes s8 attention with per-row scales and re-quantized probabilities)")
+              f"{slab_mb / ms:.1f} GB/s | bound {b_ms:.4f} ms ({b_by}) | clusters of C={C} blocks "
+              f"of {rows_per} rows per (head, sample) | shared memory {smem} B per block | ptxas "
+              f"{regs} | library: none (no PyTorch call takes s8 attention with per-row scales "
+              f"and re-quantized probabilities)")
         if abs_err > S8_ABS_TOL or rel_err > S8_REL_TOL:
             fail(f"K7 (K={K}) disagrees with its plain version")
-        rows.append(dict(name=row_name, route="cuda",
-                         source="sar_tpu_torch/csrc/decode_cross_s8.cu",
+        k7[K] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        k7_extra[K] = dict(gbps=slab_mb / ms, smem=smem, ptxas=regs)
+    for K, row_name in ((1, "cross_decode_attention"), (S8_BEAM_WIDTH, "cross_decode_attention_beam")):
+        rows.append(dict(name=row_name, route="cuda", source="sar_tpu_torch/csrc/decode_s8.cu",
                          replaces="sar_tpu/ops/decode_cross.py:109", library_ms=None,
-                         beam_width=K, max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
-                         bound_ms=b_ms, bound_by=b_by))
+                         beam_width=K, **k7[K],
+                         extra={"cluster": C, "slice_rows": rows_per, **k7_extra[K],
+                                "other_widths": {W: {**v, **k7_extra[W]} for W, v in k7.items()
+                                                 if W != K}}))
     return rows
 
 
@@ -1813,6 +1850,8 @@ def phase_kernels_k8_k10(cfg, params, device, batch):
              vq.reshape(L, batch, Sm, Dd), vs.transpose(2, 3).contiguous())
     del kq, ks, vq, vs
     by_len = {}
+    C, rows_per = s8_split(Sm, True)
+    smem, regs = decode_self.shared_bytes(Sm), ptxas_of("s8_decode_kernelILi1ELi1E")
     for n in K9_LENGTHS:
         abs_err, rel_err = 0.0, 0.0
         for layer in range(L):
@@ -1826,20 +1865,26 @@ def phase_kernels_k8_k10(cfg, params, device, batch):
         sweep = lambda fn: lambda: [fn(*cache, n, layer=layer, n_heads=Hd) for layer in range(L)]
         ms = time_cuda(sweep(decode_self.self_decode_attention)) / L
         plain_ms = time_cuda(sweep(decode_self.self_decode_reference)) / L
+        slab_bytes = 2 * batch * n * Dd + 2 * 4 * batch * Hd * n
         b_ms, b_by = bound(4.0 * batch * Hd * n * 64,
-                           2 * batch * n * Dd + 2 * 4 * batch * Hd * n + batch * Dd
-                           + 4 * batch * Hd + 2 * batch * Dd, PEAK_INT8_OPS)
+                           slab_bytes + batch * Dd + 4 * batch * Hd + 2 * batch * Dd,
+                           PEAK_INT8_OPS)
         by_len[n] = dict(max_abs_err=abs_err, max_rel_err=rel_err, ms=ms, plain_ms=plain_ms,
-                         bound_ms=b_ms, bound_by=b_by)
+                         bound_ms=b_ms, bound_by=b_by, gbps=slab_bytes / ms / 1e6)
         print(f"K9 self_decode_attention s8 [L={L}, B={batch}, max_len={Sm}, D={Dd}, n={n}, all "
               f"{L} layers]: max_abs_err {abs_err:.3e} max_rel_err {rel_err:.3e} (tol "
               f"{S8_ABS_TOL} abs or {S8_REL_TOL} rel) | per call over a {L}-layer sweep: kernel "
-              f"{ms:.4f} ms plain {plain_ms:.4f} ms | bound {b_ms:.5f} ms ({b_by}) | library: none")
+              f"{ms:.4f} ms plain {plain_ms:.4f} ms | {slab_bytes / 1e6:.2f} MB of the first n "
+              f"rows -> {slab_bytes / ms / 1e6:.1f} GB/s | bound {b_ms:.5f} ms ({b_by}) | "
+              f"clusters of C={C} blocks of {rows_per} rows per (head, sample) | shared memory "
+              f"{smem} B per block | ptxas {regs} | library: none")
     rows.append(dict(name="self_decode_attention", route="cuda",
-                     source="sar_tpu_torch/csrc/decode_self.cu",
+                     source="sar_tpu_torch/csrc/decode_s8.cu",
                      replaces="sar_tpu/ops/attic/decode_self.py:80", library_ms=None,
-                     **{k: v for k, v in by_len[Sm].items() if k != "max_rel_err"},
-                     extra={"by_valid_len": by_len, "standalone": "no caller in either package"}))
+                     **{k: v for k, v in by_len[Sm].items() if k not in ("max_rel_err", "gbps")},
+                     extra={"by_valid_len": by_len, "cluster": C, "slice_rows": rows_per,
+                            "smem": smem, "ptxas": regs,
+                            "standalone": "no caller in either package"}))
     del cache
 
     # K10: q [B, H, 64] against the cross shape's k/v [B, H, S, 64], full

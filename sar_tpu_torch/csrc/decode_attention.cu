@@ -41,6 +41,7 @@
 // pulling the statistics with four barriers were slower).
 #include <cooperative_groups.h>
 
+#include "cluster.cuh"
 #include "mma.cuh"
 
 namespace cg = cooperative_groups;
@@ -75,15 +76,6 @@ __host__ __device__ constexpr int dynamic_smem_bytes(int S) {
   return ring_stages(S) * RG * HD * 2 + (slice_rows(S) + 3) / 4 * 16;
 }
 
-// The two halves of a cluster barrier: this thread has arrived (relaxed:
-// it publishes nothing), and waits until every thread of the cluster has.
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-}
-
 __global__ void __launch_bounds__(NT)
 decode_attention_kernel(const __nv_bfloat16* __restrict__ q,  // [B, H, 64]
                         const __nv_bfloat16* __restrict__ k,  // [B, H, S, 64]
@@ -100,7 +92,7 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,  // [B, H, 64]
   __shared__ float parts[MAX_CLUSTER][HD];  // every block's P.V (rank 0's)
 
   cg::cluster_group cluster = cg::this_cluster();
-  cluster_arrive();  // paired with cluster_wait() before the first remote store
+  sar::cluster_arrive();  // paired with cluster_wait() before the first remote store
   const int C = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
   const int tid = threadIdx.x;
@@ -173,7 +165,7 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,  // [B, H, 64]
   float lsum = 0.f;
   for (int i = tid; i < hi - lo; i += NT) lsum += expf(sc[i] - m);
   lsum = sar::block_reduce<false>(lsum, scratch);
-  cluster_wait();  // every block of the cluster has started
+  sar::cluster_wait();  // every block of the cluster has started
   if (tid < C) {
     float* dst = cluster.map_shared_rank(&stats[0][0], tid);
     dst[2 * rank] = m;

@@ -47,6 +47,7 @@
 // four threads of 16 bytes a row, and 128-thread blocks were slower.
 #include <cooperative_groups.h>
 
+#include "cluster.cuh"
 #include "mma.cuh"
 
 namespace cg = cooperative_groups;
@@ -90,13 +91,6 @@ __host__ __device__ constexpr int ring_stages(int S) {
 // (fp32).
 __host__ __device__ constexpr int dynamic_smem_bytes(int K, int S) {
   return ring_stages(S) * STAGE_ROWS * HD + 4 * (K + 1) * slice_rows(S);
-}
-
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
@@ -180,7 +174,7 @@ cross_decode_exact_kernel(const __nv_bfloat16* __restrict__ q,  // [B, K, D]
   __shared__ float parts[MAX_CLUSTER][K][HD];   // every block's P.V (rank 0's)
 
   cg::cluster_group cluster = cg::this_cluster();
-  cluster_arrive();  // paired with cluster_wait() before the first remote store
+  sar::cluster_arrive();  // paired with cluster_wait() before the first remote store
   const int C = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
   const int tid = threadIdx.x;
@@ -278,7 +272,7 @@ cross_decode_exact_kernel(const __nv_bfloat16* __restrict__ q,  // [B, K, D]
     }
   }
   __syncthreads();
-  cluster_wait();  // every block of the cluster has started
+  sar::cluster_wait();  // every block of the cluster has started
   if (tid < C * K) {
     const int r = tid / K, k = tid % K;
     float* dst = cluster.map_shared_rank(&stats[0][0][0], r);

@@ -1,6 +1,7 @@
 // Tensor-core fragment and async-copy helpers shared by the mma.sync
 // kernels (flash_attn.cu: K1, K6, K8's attention; flash_enc.cu: K8's LN +
-// projection half) and the cp.async ring of decode_attention.cu (K10).
+// projection half; decode_s8.cu: K7/K9's s8 products) and the cp.async
+// rings of the decode kernels.
 #pragma once
 
 #include "common.cuh"
@@ -65,6 +66,19 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c (16 x 8, s32) += a (16 x 32, s8, row) . b (32 x 8, s8, col): exact
+// integer sums. Fragments (lane = 4g + t): a0 holds row g, bytes k = 4t ..
+// 4t+3; a1 row g+8; a2 and a3 the same rows at k + 16; b0 holds column g at
+// k = 4t .. 4t+3, b1 at k + 16; c as for the bf16 product.
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

@@ -86,6 +86,8 @@ SIGNATURES = {
     # device, stream
     "sar_cross_decode_s8": [_P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # S, length_mask (K9's split if not 0) -> the cluster size K7/K9 launch
+    "sar_s8_cluster_size": [_I, _I],
 }
 
 _lock = threading.Lock()

@@ -16,8 +16,10 @@ cache's device, so one build serves every position.
 
 `self_decode_attention` dispatches on the tensors' device: CPU tensors take
 `self_decode_reference`; CUDA tensors launch the hand-written kernel
-(csrc/decode_self.cu) or raise. The kernel takes head_dim 64 and writes
-bf16.
+(csrc/decode_s8.cu, K7's kernel body with one query and the length mask)
+or raise. The kernel takes head_dim 64 and any max_len, splits max_len
+over a thread-block cluster of `cluster_split(max_len)` blocks per (head,
+sample), and writes bf16.
 """
 
 from __future__ import annotations
@@ -25,12 +27,14 @@ from __future__ import annotations
 import torch
 
 from sar_tpu_torch.ops import _build
-from sar_tpu_torch.ops.decode_cross import int_einsum
+from sar_tpu_torch.ops.decode_cross import (MAX_SHARED_BYTES, int_einsum, s8_cluster_split,
+                                            s8_shared_bytes)
 
 NEG = -1e30
 KERNEL_HEAD_DIM = 64
-# One H100 block's shared memory less the kernel's static scratch.
-MAX_SHARED_BYTES = 232_448 - 256
+# K9's least slice of max_len per block (csrc/decode_s8.cu,
+# SAR_S8_SELF_MIN_SLICE): C is fixed by max_len at launch, n is dynamic.
+MIN_SLICE = 256
 
 LAUNCHES = 0  # K9 launches by self_decode_attention (CUDA tensors only)
 
@@ -57,10 +61,16 @@ def self_decode_reference(qq, qs, kq, ks, vq, vs, valid_len, *, layer: int,
     return o.reshape(B, D).to(out_dtype)
 
 
+def cluster_split(S: int) -> tuple[int, int]:
+    """(C, rows) of K9's split of max_len S over a cluster (K7's rule with
+    MIN_SLICE); a block whose rows start at or past n > 0 reads nothing."""
+    return s8_cluster_split(S, MIN_SLICE)
+
+
 def shared_bytes(S: int) -> int:
-    """K9's dynamic shared memory: S fp32 scores (reused by the cross-warp
-    int32 reduction, [8 warps][64]) and S s8 probabilities."""
-    return 4 * max(S, 8 * KERNEL_HEAD_DIM) + S
+    """K9's dynamic shared memory per block: K7's with one query over a
+    slice of `cluster_split(S)` rows."""
+    return s8_shared_bytes(1, S, MIN_SLICE)
 
 
 def self_decode_attention(qq, qs, kq, ks, vq, vs, valid_len, *, layer: int,
@@ -98,7 +108,8 @@ def self_decode_attention(qq, qs, kq, ks, vq, vs, valid_len, *, layer: int,
                    f"{name}: the kernel writes bfloat16, not {out_dtype}")
     _build.require(shared_bytes(S) <= MAX_SHARED_BYTES,
                    f"{name}: max_len={S} needs {shared_bytes(S)} bytes of "
-                   f"shared memory, more than a block has ({MAX_SHARED_BYTES})")
+                   f"shared memory per block, more than the {MAX_SHARED_BYTES} a "
+                   f"block may have")
     n_ptr, n_host = _build.valid_len_arg(name, valid_len, qq.device, S)
     out = torch.empty((B, D), dtype=torch.bfloat16, device=qq.device)
     lib = _build.load()

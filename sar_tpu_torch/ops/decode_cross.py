@@ -21,13 +21,14 @@ and beam folding as K3/K5 (qq [B, D] or [B, K, D], qs [B, H, 1] or
 
 `cross_decode_attention_exact` and `cross_decode_attention` dispatch on the
 tensors' device: CPU tensors take the plain version; CUDA tensors launch
-the hand-written kernel (csrc/decode_cross.cu, csrc/decode_cross_s8.cu) or
+the hand-written kernel (csrc/decode_cross.cu, csrc/decode_s8.cu) or
 raise. The kernels take head_dim 64 and S_pad a multiple of 64, beam
 widths 2..8 (K7 also 1), and write bf16; the layer is an offset into the
 stacked cache (nothing is sliced or copied per step). K3 and K5 are one
 kernel (`cross_decode_exact_kernel<K>`, K = 1 for K3) that splits S_pad
 over a thread-block cluster of `cluster_split(S_pad)` blocks per (head,
-sample).
+sample); K7 shares its kernel body with K9 (`s8_decode_kernel<K, mask>`)
+and splits S_pad over `s8_cluster_split(S_pad)` blocks.
 """
 
 from __future__ import annotations
@@ -173,15 +174,39 @@ def beam_shared_bytes(K: int, S: int) -> int:
     return stages * RING_ROWS * KERNEL_HEAD_DIM + 4 * (K + 1) * rows
 
 
-# K7: one H100 block's shared memory less its static scratch (32 + 8 floats).
-S8_MAX_SHARED_BYTES = 232_448 - 256
+# K7/K9's split and shared memory (csrc/decode_s8.cu): clusters of at most
+# MAX_CLUSTER blocks, slices of at least S8_MIN_SLICE rows where S_pad
+# allows (K9 has its own minimum, ops/attic/decode_self.py), v through a
+# ring of stages of S8_STAGE_ROWS int8 rows of 64 that holds at most
+# S8_RING_ROWS rows, and the s8 probabilities in rows of whole
+# S8_KSTEP-row product steps plus 16 bytes.
+S8_MIN_SLICE = 512
+S8_THREADS = 256
+S8_KSTEP = 32
+S8_STAGE_ROWS = S8_THREADS // 32 * S8_KSTEP // 2
+S8_RING_ROWS = 512
 
 
-def s8_shared_bytes(K: int, S: int) -> int:
-    """K7's dynamic shared memory: K rows of S_pad fp32 scores (reused by
-    the cross-warp int32 reduction, [8 warps][K][64]) and K rows of S_pad
-    s8 re-quantized probabilities."""
-    return 4 * K * max(S, 8 * KERNEL_HEAD_DIM) + K * S
+def s8_cluster_split(S: int, min_slice: int = S8_MIN_SLICE) -> tuple[int, int]:
+    """(C, rows): K7 (and K9, with its own `min_slice`) run C =
+    ceil(S / min_slice) blocks per (head, sample), at most MAX_CLUSTER, in
+    one cluster; block r owns rows [r * rows, min(S, (r + 1) * rows)) with
+    rows = ceil(S / C)."""
+    C = min(MAX_CLUSTER, -(-S // min_slice))
+    return C, -(-S // C)
+
+
+def s8_shared_bytes(K: int, S: int, min_slice: int = S8_MIN_SLICE) -> int:
+    """K7/K9's dynamic shared memory per block: the int8 v ring (the whole
+    slice when it has at most S8_RING_ROWS rows, else that many rows that
+    it streams through), K rows of the slice's fp32
+    scores and its fp32 v scales, K rows of s8 probabilities, then the C
+    blocks' int32 [K][64] P.V partials."""
+    C, rows = s8_cluster_split(S, min_slice)
+    ring = min(S8_RING_ROWS, -(-rows // S8_STAGE_ROWS) * S8_STAGE_ROWS)
+    pq_stride = -(-rows // S8_KSTEP) * S8_KSTEP + 16
+    return (ring * KERNEL_HEAD_DIM + 4 * (K + 1) * rows + K * pq_stride
+            + 4 * C * K * KERNEL_HEAD_DIM)
 
 
 def int_einsum(equation: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -244,9 +269,11 @@ def cross_decode_attention(qq, qs, kq, ks, vq, vs, *, layer: int,
                    f"{name}: the kernel takes beam widths "
                    f"{S8_BEAM_WIDTHS.start}..{S8_BEAM_WIDTHS.stop - 1}, got {K}")
     smem = s8_shared_bytes(K, S)
-    _build.require(smem <= S8_MAX_SHARED_BYTES,
+    _build.require(smem <= MAX_SHARED_BYTES,
                    f"{name}: K={K} x S_pad={S} needs {smem} bytes of shared "
-                   f"memory, more than a block has ({S8_MAX_SHARED_BYTES})")
+                   f"memory per block (v ring, scores, v scales and s8 "
+                   f"probabilities of a {s8_cluster_split(S)[1]}-row slice), "
+                   f"more than the {MAX_SHARED_BYTES} a block may have")
     out = torch.empty(qq.shape, dtype=torch.bfloat16, device=qq.device)
     lib = _build.load()
     _build.check(lib.sar_cross_decode_s8(

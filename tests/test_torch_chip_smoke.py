@@ -39,9 +39,9 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 def test_build_key_covers_every_source():
     from sar_tpu_torch.ops import _build
     names = {p.name for p in _build.sources()}
-    assert {"flash_enc.cu", "kv_init.cu", "decode_cross.cu", "decode_cross_s8.cu",
-            "flash_attn.cu", "decode_self.cu", "decode_attention.cu",
-            "common.cuh", "mma.cuh"} <= names
+    assert {"flash_enc.cu", "kv_init.cu", "decode_cross.cu", "decode_s8.cu",
+            "flash_attn.cu", "decode_attention.cu",
+            "common.cuh", "mma.cuh", "cluster.cuh"} <= names
     assert _build.source_hash() == _build.source_hash()
     assert set(_build.SIGNATURES) == {"sar_encoder_attention_hm",
                                       "sar_encoder_attention_fused",
@@ -49,7 +49,7 @@ def test_build_key_covers_every_source():
                                       "sar_fused_kv_init", "sar_fused_kv_init_lora",
                                       "sar_cross_decode_exact",
                                       "sar_cross_decode_exact_beam",
-                                      "sar_cross_decode_s8",
+                                      "sar_cross_decode_s8", "sar_s8_cluster_size",
                                       "sar_flash_attn_fwd", "sar_flash_attn_bwd_dkv",
                                       "sar_flash_attn_bwd_dq", "sar_self_decode_s8",
                                       "sar_decode_attention"}

@@ -4,7 +4,9 @@ interpret mode and against its jnp reference, at tests/test_decode_self.py's
 shapes, layers and valid lengths, fp32 on the CPU within 2e-5 (that test's
 tolerance: the integer sums are exact, the fp32 softmax sums in another
 order). Also the valid length as a 0-d tensor, CPU dispatch without a
-launch, and a tensor on a device with no kernel raising."""
+launch, a tensor on a device with no kernel raising, whisper's max_len at
+n = 0 and at an n inside a slice, and the Python mirror of the kernel's
+cluster split and shared memory."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -71,4 +73,45 @@ def test_cpu_dispatch_and_refusals(data):
     meta = [torch.empty(a.shape, dtype=a.dtype, device="meta") for a in args]
     with pytest.raises(ValueError, match="no kernel"):
         decode_self.self_decode_attention(*meta, 5, layer=0, n_heads=H)
-    assert decode_self.shared_bytes(448) == 4 * 512 + 448
+    # One block of whisper's 448 rows split 2 ways: a two-stage v ring (256
+    # rows), 224 fp32 scores and v scales, 224 + 16 s8 probabilities, and
+    # the 2 blocks' int32 [1][64] partials.
+    assert decode_self.shared_bytes(448) == 256 * 64 + 4 * 2 * 224 + 224 + 16 + 4 * 2 * 64
+
+
+@pytest.mark.parametrize("S_,want", [(448, (2, 224)), (40, (1, 40)), (1, (1, 1)),
+                                     (257, (2, 129)), (46_438, (8, 5805))])
+def test_cluster_split_picks(S_, want):
+    """K9 splits max_len into C = ceil(max_len / 256) blocks, at most 8:
+    whisper's 448 rows go to 2 blocks of 224; a ragged 40 to one block."""
+    assert decode_self.cluster_split(S_) == want
+    assert decode_self.shared_bytes(S_) <= decode_self.MAX_SHARED_BYTES
+
+
+def test_every_max_len_the_single_block_kernel_took_is_taken():
+    """The single-block K9 took max(max_len, 512) fp32 scores and max_len s8
+    probabilities in 227 KB less 256 bytes; the split takes them all."""
+    took = [S_ for S_ in range(1, 50_000) if 4 * max(S_, 512) + S_ <= 232_448 - 256]
+    assert took[-1] == 46_438
+    assert all(decode_self.shared_bytes(S_) <= decode_self.MAX_SHARED_BYTES for S_ in took)
+
+
+@pytest.mark.parametrize("valid", [0, 300], ids=["n0-uniform", "n-inside-a-slice"])
+def test_plain_version_matches_jax_at_whisper_max_len(valid):
+    """At max_len 448 (2 slices of 224): n = 0, where every row is masked and
+    the softmax is uniform over all 448 rows, and n = 300, which ends inside
+    the second slice."""
+    rng = np.random.default_rng(12)
+    L_, B_, H_, S_ = 1, 2, 2, 448
+    D_ = H_ * hd
+    kq, ks = jw.quantize_kv(jnp.asarray(rng.standard_normal((L_, B_, S_, H_, hd)), jnp.float32))
+    vq, vs = jw.quantize_kv(jnp.asarray(rng.standard_normal((L_, B_, S_, H_, hd)), jnp.float32))
+    qq, qs = jw.quantize_kv(jnp.asarray(rng.standard_normal((B_, H_, 1, hd)), jnp.float32))
+    data = [np.asarray(a) for a in (qq[:, :, 0].reshape(B_, D_), qs, kq.reshape(L_, B_, S_, D_),
+                                    ks.transpose(0, 1, 3, 2), vq.reshape(L_, B_, S_, D_),
+                                    vs.transpose(0, 1, 3, 2))]
+    want = jax_reference(*[jnp.asarray(a) for a in data], valid, layer=0, n_heads=H_,
+                         out_dtype=jnp.float32)
+    got = decode_self.self_decode_reference(*(t(a) for a in data), valid, layer=0, n_heads=H_,
+                                            out_dtype=torch.float32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL, rtol=TOL)

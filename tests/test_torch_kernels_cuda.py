@@ -380,12 +380,64 @@ def test_cross_decode_s8_wrapper_refuses_what_the_kernel_does_not_take(dev):
         decode_cross.cross_decode_attention(qq.float(), qs, kq, ks, kq, ks, layer=0, n_heads=H)
     with pytest.raises(ValueError, match="layer"):
         decode_cross.cross_decode_attention(qq, qs, kq, ks, kq, ks, layer=1, n_heads=H)
-    # 8 rows of 5824 fp32 scores and s8 probabilities: 232,960 B > one block.
-    big = torch.zeros((L, B, 5824, H * 64), dtype=torch.int8, device=dev)
-    bigs = torch.ones((L, B, H, 5824), device=dev)
+    # The cluster split's slice of 3048 rows at K=8 needs more than a
+    # block's shared memory (S_pad 24,320 is the largest taken).
+    big = torch.zeros((L, B, 24384, H * 64), dtype=torch.int8, device=dev)
+    bigs = torch.ones((L, B, H, 24384), device=dev)
     qq, qs = _s8_query(g, dev, B, 8, H, folded=True)
     with pytest.raises(ValueError, match="shared"):
         decode_cross.cross_decode_attention(qq, qs, big, bigs, big, bigs, layer=0, n_heads=H)
+
+
+# K7's cluster split at its edges: one block (S_pad 128, a plain launch),
+# three (whisper's S_pad 1536, slices of 512 rows) with t_valid on a slice
+# boundary (1024), one past it, and small enough that two slices hold
+# padding only, four (S_pad 2048, t_valid on a boundary), and eight (8192:
+# slices of 1024 rows stream through the 512-row v ring); K = 1, 2, 4 and
+# 8; every layer of a 3-layer cache; two runs give the same bits (no
+# atomics). Limit as test_cross_decode_s8_kernel's.
+@pytest.mark.parametrize("S_pad,t_valid,C", [(128, 100, 1), (1536, 1024, 3), (1536, 1025, 3),
+                                             (1536, 100, 3), (2048, 1536, 4), (8192, 8000, 8)])
+@pytest.mark.parametrize("K", [1, 2, 4, 8])
+def test_cross_decode_s8_cluster_split_edges(dev, S_pad, t_valid, C, K):
+    from sar_tpu_torch.ops import decode_cross
+    g = torch.Generator(device=dev).manual_seed(12)
+    L, B, H = 3, 2, 4
+    assert decode_cross.s8_cluster_split(S_pad)[0] == C
+    kq, ks, vq, vs = _beam_cache(g, dev, L, B, t_valid, S_pad, H)
+    qq, qs = _s8_query(g, dev, B, K, H, folded=K > 1)
+    for layer in range(L):
+        got = decode_cross.cross_decode_attention(qq, qs, kq, ks, vq, vs, layer=layer, n_heads=H)
+        again = decode_cross.cross_decode_attention(qq, qs, kq, ks, vq, vs, layer=layer,
+                                                    n_heads=H)
+        want = decode_cross.cross_decode_reference(qq, qs, kq, ks, vq, vs, layer=layer,
+                                                   n_heads=H)
+        torch.cuda.synchronize()
+        assert got.shape == qq.shape and torch.isfinite(got.float()).all()
+        assert torch.equal(got, again)
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= 2e-2 and err <= 2e-2 * want.float().abs().max().item()
+
+
+@pytest.mark.parametrize("K", [1, 4])
+def test_cross_decode_s8_all_rows_masked_is_uniform(dev, K):
+    """A sample whose every key scale is 0 (every slice all padding) attends
+    uniformly over all S_pad rows, as the TPU kernel's softmax of all -1e30
+    does; its v scales are 0 there too, so its output is 0."""
+    from sar_tpu_torch.ops import decode_cross
+    g = torch.Generator(device=dev).manual_seed(13)
+    L, B, S_pad, H = 2, 2, 1536, 2
+    kq, ks, vq, vs = _beam_cache(g, dev, L, B, 1500, S_pad, H)
+    ks, vs = ks.clone(), vs.clone()
+    ks[:, 1] = 0
+    vs[:, 1, :, 1500:] = 1.0 / 127   # pad rows with a v scale: the uniform average shows
+    qq, qs = _s8_query(g, dev, B, K, H, folded=K > 1)
+    got = decode_cross.cross_decode_attention(qq, qs, kq, ks, vq, vs, layer=1, n_heads=H)
+    want = decode_cross.cross_decode_reference(qq, qs, kq, ks, vq, vs, layer=1, n_heads=H)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all() and want[1].float().abs().max().item() > 0
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 2e-2 and err <= 2e-2 * want.float().abs().max().item()
 
 
 def test_beam_decode_kernels_agree_with_the_plain_path(dev):
@@ -827,6 +879,33 @@ def test_self_decode_kernel(dev, L, B, S, H):
                 assert got.shape == (B, H * 64) and got.dtype == torch.bfloat16
                 err = (got.float() - want.float()).abs().max().item()
                 assert err <= 1e-3 or err <= 8e-3 * want.float().abs().max().item()
+
+
+# K9's cluster split at its edges: whisper's max_len 448 (2 slices of 224
+# rows) at n = 0 (every row masked: uniform over all 448, every block reads
+# its v), 100 (inside the first slice: rank 0 alone), 224 (a slice border:
+# rank 0 alone), 225 (block 1 reads one row), 300 (inside the second
+# slice) and 448; a ragged 40 (one block) at n = 0; 1500 (6 slices of 250)
+# at n = 600, where blocks 3-5 read nothing; and 5000 (8 slices of 625 rows
+# that stream through the v ring) inside a slice. Two runs give the same
+# bits. Limit as test_self_decode_kernel's.
+@pytest.mark.parametrize("S,n,C", [(448, 0, 2), (448, 100, 2), (448, 224, 2), (448, 225, 2),
+                                   (448, 300, 2), (448, 448, 2), (40, 0, 1), (1500, 600, 6),
+                                   (5000, 4321, 8)])
+def test_self_decode_cluster_split_edges(dev, S, n, C):
+    from sar_tpu_torch.ops.attic import decode_self
+    assert decode_self.cluster_split(S)[0] == C
+    L, B, H = 2, 3, 4
+    args = _k9_inputs(dev, L, B, S, H, seed=14)
+    got = decode_self.self_decode_attention(*args, n, layer=1, n_heads=H)
+    again = decode_self.self_decode_attention(*args, torch.tensor(n, dtype=torch.int32,
+                                                                  device=dev),
+                                              layer=1, n_heads=H)
+    want = decode_self.self_decode_reference(*args, n, layer=1, n_heads=H)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all() and torch.equal(got, again)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 1e-3 or err <= 8e-3 * want.float().abs().max().item()
 
 
 def test_self_decode_wrapper_refuses_what_the_kernel_does_not_take(dev):
