@@ -97,7 +97,25 @@ Phases, each printing its own line(s); any failure raises and exits non-zero:
    beams through beam_decode with its defaults, the JAX package's
    unquantized classic cache in plain torch (every counter 0), ms per
    token-step.
-10. result: one JSON line with every kernel's numbers, then the last line
+10. bench: the port's benchmark CLI (sar_tpu_torch.scripts.benchmark)
+   in-process at whisper-small, batch 8, 64 new tokens, 2 timed
+   iterations, one call per row: greedy over the int8 cache (head-minor
+   and classic layouts), the unquantized (bf16) and the int4 caches, beam
+   4 over int8, s8 scores, one train row (accumulation 2), one routed row
+   (LID at layer 3) and one serving row (16 requests), each with the
+   launch counters zeroed before and read after and the decode steps
+   counted by layout: K3 = 12 per head-minor greedy step (K2 > 0), K5 =
+   12 per head-minor beam step, K7 = 12 per s8 step, no decode kernel on
+   the classic, bf16 and int4 rows; every row present, without "error",
+   its agreement keys in [0, 1].
+11. lid: LIDTrainer at whisper-small (random weights), tap layer 3, mean
+   pooling, 4 synthetic languages: the frozen-feature pass
+   (precompute_features; K1 = 4 per batch, counted), train_cached for
+   LID_STEPS steps (ms per step) and evaluate_cached; then
+   AdapterRouter.forward with labels under each strategy (hard, soft,
+   threshold) on one batch: K6's forward 36 per teacher-forced pass (one
+   pass for hard, one per adapter for soft), K1 = 4 for the LID tap.
+12. result: one JSON line with every kernel's numbers, then the last line
    {"ok": true, "device": {...}}.
 
 With --kernels-only, it runs phases 1-3 and prints the kernel table
@@ -235,6 +253,14 @@ K10_SETS = 5
 # order, which can move a bf16(h) by one ulp, and with it every sum that h
 # enters by |w| ulp(h)).
 K8_HALF_FLOOR = 2e-3
+# Bench cell: the benchmark CLI's rows at BATCH, MAX_NEW_TOKENS new tokens,
+# BENCH_ITERS timed iterations; the serving row's requests.
+BENCH_ITERS = 2
+BENCH_SERVING_REQUESTS = 16
+# LID cell: LID_ITEMS synthetic items per language, a cached-feature head
+# trained LID_STEPS steps in batches of LID_BATCH, teacher-forced labels
+# of LID_LABEL_LEN tokens for AdapterRouter.forward.
+LID_ITEMS, LID_STEPS, LID_BATCH, LID_LABEL_LEN = 16, 40, 16, 64
 
 
 def fail(msg: str) -> None:
@@ -2105,6 +2131,222 @@ def phase_fq(cfg, params, device, batch, n_batches, max_new_tokens):
     return {"fq": c_fq, "fq_lora": c_lora, "beam_default": c_beam}
 
 
+DECODE_KERNELS = ("cross_decode_attention_exact", "cross_decode_attention_exact_beam",
+                  *K7_NAMES)
+
+
+def phase_bench(cfg, device):
+    """The benchmark CLI's rows through `benchmark.main`, one call per row,
+    with the launch counters and the decode steps (by cache layout) counted
+    around each; returns the counts summed over the rows."""
+    import torch
+    from sar_tpu_torch.models import whisper
+    from sar_tpu_torch.scripts import benchmark
+
+    common = ["--model", cfg.name, "--device", str(device), "--batch_sizes", str(BATCH),
+              "--max_new_tokens", str(MAX_NEW_TOKENS), "--iters", str(BENCH_ITERS)]
+    rows = [("int8", ["--kv_cache", "int8"]),
+            ("int8 classic", ["--kv_cache", "int8", "--kv_layout", "classic"]),
+            ("bf16", ["--kv_cache", "bf16"]),
+            ("int4", ["--kv_cache", "int4"]),
+            ("beam 4", ["--num_beams", str(BEAM_WIDTH)]),
+            ("s8", ["--attn_scores", "int8"]),
+            ("train", ["--train", "--train_accum", "2"]),
+            ("routed", ["--routed", "--routed_lid_layer", str(LID_LAYER)]),
+            ("serving", ["--serving", "--serving_requests", str(BENCH_SERVING_REQUESTS)])]
+    steps = {}
+    orig = whisper.decode_step
+
+    def counted_step(params, tokens, pos, cache, cfg_, **kw):
+        """decode_step, counted as a head-minor greedy, beam or s8 step, or
+        a step over a classic cache."""
+        if cache.cross_k.dim() != 4:
+            key = "classic"
+        elif kw.get("scores_int8"):
+            key = "s8"
+        else:
+            key = "beam" if kw.get("beam_width", 1) > 1 else "greedy"
+        steps[key] = steps.get(key, 0) + 1
+        return orig(params, tokens, pos, cache, cfg_, **kw)
+
+    total = dict.fromkeys(KERNEL_NAMES, 0)
+    t_phase = time.perf_counter()
+    whisper.decode_step = counted_step
+    try:
+        for name, extra in rows:
+            steps.clear()
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            report = benchmark.main(common + extra)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            c = read_counts()
+            for k in total:
+                total[k] += c[k]
+            res = report["results"]
+            if len(res) != 1 or "error" in res[0]:
+                fail(f"bench {name}: want one row without an error, got {res}")
+            row = res[0]
+            agree = {k: v for k, v in row.items() if k.startswith("token_agreement")}
+            if any(not 0.0 <= v <= 1.0 for v in agree.values()):
+                fail(f"bench {name}: agreement out of [0, 1]: {agree}")
+            hm, beam, s8 = (steps.get(k, 0) for k in ("greedy", "beam", "s8"))
+            dec = {k: c[k] for k in DECODE_KERNELS}
+            print(f"bench {name}: {wall:.1f} s | {json.dumps(row)} | peak "
+                  f"{report.get('peak_mem_gb')} GB | steps {json.dumps(steps)} | "
+                  f"launches {json.dumps({k: v for k, v in c.items() if v})}")
+            want_dec = None
+            if name == "int8":
+                if row["layout"] != "head_minor" or "token_agreement_vs_classic" not in agree:
+                    fail(f"bench int8: layout {row['layout']}, agreement keys {list(agree)}")
+                if hm == 0 or c["fused_kv_init"] == 0:
+                    fail(f"bench int8: {hm} head-minor steps, K2 {c['fused_kv_init']}")
+                want_dec = dict.fromkeys(DECODE_KERNELS, 0) | {
+                    "cross_decode_attention_exact": 12 * hm}
+            elif name in ("int8 classic", "bf16", "int4"):
+                if row["layout"] != "classic" or hm + beam + s8 != 0:
+                    fail(f"bench {name}: layout {row['layout']}, head-minor steps "
+                         f"{hm + beam + s8}")
+                want_dec = dict.fromkeys(DECODE_KERNELS, 0)
+                if name == "int4" and "token_agreement_vs_int8" not in agree:
+                    fail("bench int4: no token_agreement_vs_int8")
+            elif name == "beam 4":
+                if beam == 0:
+                    fail("bench beam 4: no head-minor beam step")
+                want_dec = dict.fromkeys(DECODE_KERNELS, 0) | {
+                    "cross_decode_attention_exact_beam": 12 * beam}
+            elif name == "s8":
+                if "token_agreement_vs_bf16" not in agree or s8 == 0:
+                    fail(f"bench s8: agreement keys {list(agree)}, {s8} s8 steps")
+                want_dec = dict.fromkeys(DECODE_KERNELS, 0) | {
+                    "cross_decode_attention": 12 * s8}
+            elif name == "train":
+                if min(c[k] for k in K6_NAMES) == 0:
+                    fail(f"bench train: K6 launched {[c[k] for k in K6_NAMES]}")
+            elif name == "routed":
+                if c["fused_kv_init_lora"] == 0 or c["cross_decode_attention_exact"] != 12 * hm:
+                    fail(f"bench routed: K4 {c['fused_kv_init_lora']}, K3 "
+                         f"{c['cross_decode_attention_exact']} for {hm} steps")
+                if row["token_agreement_vs_oracle"] < LOCKSTEP_MIN_AGREEMENT:
+                    fail(f"bench routed: routed vs oracle tokens "
+                         f"{row['token_agreement_vs_oracle']}")
+            elif name == "serving":
+                if row["requests"] != BENCH_SERVING_REQUESTS or row["batches"] < 2:
+                    fail(f"bench serving: {row['requests']} requests in {row['batches']} batches")
+            if want_dec is not None and dec != want_dec:
+                fail(f"bench {name}: decode-kernel launches {dec}, the design says {want_dec}")
+    finally:
+        whisper.decode_step = orig
+    print(f"bench: {len(rows)} rows in {time.perf_counter() - t_phase:.1f} s | launches "
+          f"{json.dumps(total)}")
+    check_counts("bench", total, want_zero=("cross_decode_attention_beam", *OFF_PATH))
+    return total
+
+
+def phase_lid(cfg, params, device):
+    """LID training on the cached-feature path at whisper-small, then the
+    router's teacher-forced strategies; returns the launch counts."""
+    import numpy as np
+    import torch
+    from sar_tpu_torch.data import DataLoader, LIDCollator, SyntheticASRDataset
+    from sar_tpu_torch.models import classifier as clf
+    from sar_tpu_torch.models import lora as lora_lib
+    from sar_tpu_torch.models.config import TARGET_LANGUAGES
+    from sar_tpu_torch.models.router import AdapterRouter
+    from sar_tpu_torch.training.lid_trainer import LIDDataset, LIDTrainer, LIDTrainingArgs
+
+    t_phase = time.perf_counter()
+    langs = tuple(TARGET_LANGUAGES)
+    ds = {l: SyntheticASRDataset(cfg, size=LID_ITEMS, language=l, language_id=i, seed=i)
+          for i, l in enumerate(langs)}
+    g = torch.Generator(device=device).manual_seed(SEED + 6)
+    ccfg = clf.ClassifierConfig(input_dim=clf.get_hidden_dim(cfg), hidden_dims=(256, 128),
+                                num_classes=len(langs), dropout=0.1, pooling="mean",
+                                languages=langs, encoder_layer=LID_LAYER)
+    trainer = LIDTrainer(cfg, params, clf.init_classifier(g, ccfg), ccfg, LIDTrainingArgs(
+        learning_rate=1e-3, warmup_steps=5, max_steps=LID_STEPS, eval_steps=0,
+        encoder_layer=LID_LAYER, seed=SEED, device=str(device)))
+    loader = DataLoader(LIDDataset(ds, langs), BATCH,
+                        LIDCollator(num_mels=cfg.num_mel_bins, num_frames=cfg.num_audio_frames),
+                        shuffle=False, drop_last=False)
+    trainer.features(next(loader.one_epoch())["input_features"])    # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    feats, labels = trainer.precompute_features(loader)
+    torch.cuda.synchronize()
+    t_feat = time.perf_counter() - t0
+    c_feat = read_counts()
+    n_batches = len(loader)
+    Le = LID_LAYER + 1
+    print(f"lid features: {feats.shape[0]} items at layer {LID_LAYER} in {n_batches} batches "
+          f"of {BATCH}: {1e3 * t_feat / n_batches:.2f} ms per batch | cache "
+          f"{tuple(feats.shape)} {feats.dtype} | launches "
+          f"{json.dumps({k: v for k, v in c_feat.items() if v})}")
+    if c_feat["encoder_attention_hm"] != Le * n_batches:
+        fail(f"lid features: K1 launched {c_feat['encoder_attention_hm']} times, the design "
+             f"says {Le} per batch x {n_batches}")
+    check_counts("lid features", c_feat, want_zero=tuple(
+        k for k in KERNEL_NAMES if k != "encoder_attention_hm"))
+    if not bool(torch.isfinite(feats.float()).all()):
+        fail("lid features: non-finite features")
+    t0 = time.perf_counter()
+    hist = trainer.train_cached(feats, labels, batch_size=LID_BATCH)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    ev = trainer.evaluate_cached(feats, labels)
+    losses = hist["loss"]
+    if len(losses) != LID_STEPS or not np.isfinite(losses).all():
+        fail(f"lid train: {len(losses)} steps, losses {losses[:3]} ...")
+    print(f"lid train (cached, batch {LID_BATCH}): {LID_STEPS} steps, "
+          f"{1e3 * t_train / LID_STEPS:.3f} ms per step | loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} | eval accuracy {ev['accuracy']:.4f} over {ev['num_samples']} "
+          f"(random encoder weights: the path, not the accuracy)")
+
+    lcfg = lora_lib.LoraConfig(r=LORA_RANK, alpha=LORA_ALPHA, dropout=0.0,
+                               target_modules=("q_proj", "v_proj"))
+    bank = lora_lib.map_with_path(
+        lambda path, x: (torch.randn(x.shape, generator=g, device=device) * LORA_B_STD
+                         if path[-1] == "b" else x),
+        lora_lib.init_lora(g, cfg, lcfg, num_adapters=len(langs)))
+    head = {k: {kk: v.detach() for kk, v in d.items()} for k, d in trainer.params.items()}
+    mel = torch.as_tensor(next(loader.one_epoch())["input_features"]).to(device)
+    lab = torch.randint(0, cfg.vocab_size, (mel.shape[0], LID_LABEL_LEN), generator=g,
+                        device=device)
+    total = dict(c_feat)
+    for strategy, threshold in (("hard", 0.7), ("soft", 0.7), ("threshold", 0.7)):
+        router = AdapterRouter(cfg, params, bank, lcfg, head, trainer.clf_cfg,
+                               strategy=strategy, threshold=threshold, device=device)
+        router.forward(mel, lab)                                     # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = router.forward(mel, lab)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        c = read_counts()
+        for k in total:
+            total[k] += c[k]
+        passes = (len(langs) if strategy == "soft" or (strategy == "threshold"
+                                                       and not bool(out["confident"]))
+                  else 1)
+        fwd = cfg.encoder_layers + 2 * cfg.decoder_layers     # K6 forwards per pass
+        print(f"lid router.forward({strategy}): {1e3 * dt:.1f} ms | loss "
+              f"{float(out['loss']):.4f} | logits {tuple(out['logits'].shape)} | "
+              f"{passes} teacher-forced pass(es) | launches "
+              f"{json.dumps({k: v for k, v in c.items() if v})}")
+        if not bool(torch.isfinite(out["logits"]).all()) or not np.isfinite(float(out["loss"])):
+            fail(f"lid router.forward({strategy}): non-finite output")
+        if (c["flash_attention_fwd"], c["encoder_attention_hm"]) != (fwd * passes, Le):
+            fail(f"lid router.forward({strategy}): K6 forward {c['flash_attention_fwd']}, K1 "
+                 f"{c['encoder_attention_hm']}; the design says {fwd * passes} and {Le}")
+        check_counts(f"lid router.forward({strategy})", c, want_zero=tuple(
+            k for k in KERNEL_NAMES if k not in ("encoder_attention_hm", "flash_attention_fwd")))
+    print(f"lid: {time.perf_counter() - t_phase:.1f} s | launches {json.dumps(total)}")
+    return total
+
+
 def main() -> int:
     device, name, _ = phase_device()
     import torch
@@ -2131,7 +2373,9 @@ def main() -> int:
                                     profile="--profile" in sys.argv[1:]),
                "s8": phase_s8(cfg, params, device, BATCH, N_BATCHES, MAX_NEW_TOKENS,
                               profile="--profile" in sys.argv[1:]),
-               **phase_fq(cfg, params, device, BATCH, N_BATCHES, MAX_NEW_TOKENS)}
+               **phase_fq(cfg, params, device, BATCH, N_BATCHES, MAX_NEW_TOKENS),
+               "bench": phase_bench(cfg, device),
+               "lid": phase_lid(cfg, params, device)}
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}
         r["launches"] = sum(r["launches_by_path"].values())

@@ -50,28 +50,30 @@
 //     bytes) from the ring, and B = the s8 probabilities, which sit
 //     row-contiguous in shared memory. Every sum is an exact int32, so
 //     either path gives the same bits;
-//   - the softmax and the re-quantization across the cluster in two
+//   - the softmax and the re-quantization across the cluster in three
 //     exchanges through distributed shared memory, no atomics: (1) the
-//     warps of each beam form the block's (max m, sum exp(s - m)) and its
-//     candidate for the row of largest |pw|, the row of largest exp(s - m)
-//     * |vs|, and push (m, sum, candidate score, candidate v scale) into
-//     every block; after a cluster barrier each block forms the global M
-//     and tot in rank order, and ps from the candidates' pw = (exp(s - M) /
-//     tot) * vs, evaluated as every row's pw is (the plain version rounds
-//     exp(s - M), so the local exponentials are not rescaled); (2) each
-//     block quantizes its own slice and pushes its int32 [K][64] P.V
-//     partial into rank 0, which adds them (integers: any order, the same
-//     bits) and stores bf16. The candidate is the row of largest |pw| but
-//     where two rows' products tie to rounding, so ps is max |pw| / 127 to
-//     an ulp; a third exchange of the exact max cost a cluster barrier and
-//     a block reduction. A slice of padding rows posts (-1e30, its row
-//     count), a K9 slice past n (-inf, 0), which a real row's M turns into
-//     0. K9 with every valid row in rank 0's slice runs rank 0 alone, with
-//     no exchange (the other blocks leave at once).
+//     warps of each beam form the block's (max m, sum exp(s - m)) and push
+//     it into every block; after a cluster barrier each block forms the
+//     global M and tot in rank order; (2) each block evaluates its slice's
+//     pw = (exp(s - M) / tot) * vs, keeps it in place of the scores, and
+//     pushes its max |pw| into every block, so that ps = max(max_s |pw_s|,
+//     1e-8) / 127 is the exact maximum over the kernel's own pw (a max is
+//     the same in any order); (3) each block quantizes its own slice and
+//     pushes its int32 [K][64] P.V partial into rank 0, which adds them
+//     (integers: any order, the same bits) and stores bf16. A slice of
+//     padding rows posts (-1e30, its row count), a K9 slice past n (-inf,
+//     0), which a real row's M turns into 0. K9 with every valid row in
+//     rank 0's slice runs rank 0 alone, with no exchange (the other blocks
+//     leave at once). Until a repair, exchange 2 rode on exchange 1 as one
+//     candidate row per block, which picked the wrong row where two rows'
+//     products tie to rounding (ps an ulp short).
+//   - a probe build of the same kernel (non-null probe pointers) also
+//     writes every row's pw and each row's ps, for the tests that hold ps
+//     and the s8 probabilities to the kernel's own pw bit for bit.
 // The sizes are those of the sweep (sar_tpu_torch/scripts/sweep_s8.py) at
-// whisper-small B=8 on an H100 80GB HBM3 at 700 W: after the data, a
-// call's critical path is the exchanges and block barriers (~4.5 us of
-// K7's ~13 us at K = 1), so fewer, longer slices that fit in one wave won
+// whisper-small B=8 on an H100 80GB HBM3 at 700 W, before the third
+// exchange: after the data, a call's critical path is the exchanges and
+// block barriers (~4.5 us of K7's ~13 us at K = 1), so fewer, longer slices that fit in one wave won
 // (K7: C = 3 of 512 rows over C = 6 of 256; K9: C = 2 of 224 over 4 or 7),
 // 256 threads over 128, 8 loads a lane over 16; the tensor cores win from
 // K = 2 (at K = 8 0.0236 ms against __dp4a's 0.0345), __dp4a at K = 1.
@@ -170,9 +172,9 @@ __device__ __forceinline__ int ring_chunk(int c, int row) { return c ^ ((row >> 
 // With SAR_S8_TRACE (the sweep's --trace builds only), thread 0 of each of
 // the first kTraceBlocks blocks records the global timer (ns) at the end of
 // each phase: start, scores (and v scales landed), stats posted, exchange
-// 1, global stats, P.V, exchange 2, stored.
+// 1, global stats, max |pw| exchange, P.V, exchange 3, stored.
 constexpr int kTraceBlocks = 1024;
-constexpr int kTraceMarks = 8;
+constexpr int kTraceMarks = 9;
 #if SAR_S8_TRACE
 __device__ unsigned long long s8_trace[kTraceBlocks][kTraceMarks];
 #define S8_MARK(i)                                                                        \
@@ -202,6 +204,9 @@ s8_decode_kernel(const int8_t* __restrict__ qq,   // [B, K, D]
                  const float* __restrict__ vs,
                  const int* __restrict__ n_dev, int n_host,  // K9's valid length
                  __nv_bfloat16* __restrict__ out,  // [B, K, D]
+                 float* __restrict__ probe_pw,     // [B, K, H, S] or null
+                 float* __restrict__ probe_ps,     // [B, K, H] or null
+                 int8_t* __restrict__ probe_pq,    // [B, K, H, S] or null
                  int B, int S, int D, int H, int layer, int slice) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int pqs = pq_stride(slice);
@@ -210,9 +215,10 @@ s8_decode_kernel(const int8_t* __restrict__ qq,   // [B, K, D]
   float* vsc = sc + K * slice;                                                          // [slice]
   int8_t* pq = reinterpret_cast<int8_t*>(vsc + slice);                                  // [K][pqs]
   int* parts = reinterpret_cast<int*>(pq + K * pqs);                     // [C][K][64]
-  // Per beam: this block's (max, sum of exp(s - max), candidate score,
-  // candidate v scale), pushed into every block; the global (M, tot, ps).
-  __shared__ float4 stats[MAX_CLUSTER][K];
+  // Per beam: this block's (max, sum of exp(s - max)) and its max |pw|,
+  // pushed into every block; the global (M, tot, ps).
+  __shared__ float2 stats[MAX_CLUSTER][K];
+  __shared__ float pmax[MAX_CLUSTER][K];
   __shared__ float3 glob[K];
   __shared__ int red[NW / 2][K][HD];          // the warp pairs' P.V partials
 
@@ -353,15 +359,13 @@ s8_decode_kernel(const int8_t* __restrict__ qq,   // [B, K, D]
   S8_MARK(1);
   if (!solo) sar::cluster_wait();  // every block of the cluster has started
 
-  // Exchange 1: this block's max m and sum of exp(s - m) per beam, and its
-  // candidate for the row of largest |pw| = exp(s - M) / tot * |vs|: the
-  // row of largest exp(s - m) * |vs| (the same row but where two products
-  // tie to rounding). WPB warps share a beam's rows; the block's statistics
-  // are pushed into every block of the cluster.
+  // Exchange 1: this block's max m and sum of exp(s - m) per beam. WPB
+  // warps share a beam's rows; the block's statistics are pushed into
+  // every block of the cluster.
   constexpr int WPB = NW / K > 0 ? NW / K : 1;  // warps per beam
   const int part = warp % WPB;
   __shared__ float wmax[K * WPB];
-  __shared__ float4 wpart[K * WPB];  // each warp's sum, key, candidate score and v scale
+  __shared__ float wsum[K * WPB];
   for (int k = warp / WPB; k < K; k += NW / WPB) {
     float m = -INFINITY;
     for (int i = part * 32 + lane; i < nv; i += WPB * 32) m = fmaxf(m, sc[k * slice + i]);
@@ -373,43 +377,20 @@ s8_decode_kernel(const int8_t* __restrict__ qq,   // [B, K, D]
     const float* sk = sc + k * slice;
     float m = wmax[k * WPB];
     for (int p = 1; p < WPB; ++p) m = fmaxf(m, wmax[k * WPB + p]);
-    float l = 0.f, key = -1.f, cs = sar::kNeg, cv = 0.f;
-    for (int i = part * 32 + lane; i < nv; i += WPB * 32) {
-      const float e = expf(sk[i] - m);
-      l += e;
-      if (e * fabsf(vsc[i]) > key) {
-        key = e * fabsf(vsc[i]);
-        cs = sk[i];
-        cv = vsc[i];
-      }
-    }
-#pragma unroll
-    for (int o = 16; o >= 1; o >>= 1) {
-      l += __shfl_xor_sync(0xffffffffu, l, o);
-      const float key2 = __shfl_xor_sync(0xffffffffu, key, o);
-      const float cs2 = __shfl_xor_sync(0xffffffffu, cs, o);
-      const float cv2 = __shfl_xor_sync(0xffffffffu, cv, o);
-      if (key2 > key || (key2 == key && (lane & o) != 0)) {  // the same pick in both lanes
-        key = key2;
-        cs = cs2;
-        cv = cv2;
-      }
-    }
-    if (lane == 0) wpart[k * WPB + part] = make_float4(l, key, cs, cv);
+    float l = 0.f;
+    for (int i = part * 32 + lane; i < nv; i += WPB * 32) l += expf(sk[i] - m);
+    l = sar::group_sum<32>(l);
+    if (lane == 0) wsum[k * WPB + part] = l;
   }
   __syncthreads();
   for (int k = warp; k < K; k += NW) {
     if (lane < CE) {
-      float4 best = wpart[k * WPB];
-      float l = best.x;
+      float l = wsum[k * WPB], m = wmax[k * WPB];
       for (int p = 1; p < WPB; ++p) {
-        const float4 w = wpart[k * WPB + p];
-        l += w.x;
-        if (w.y > best.y) best = w;
+        l += wsum[k * WPB + p];
+        m = fmaxf(m, wmax[k * WPB + p]);
       }
-      float m = wmax[k * WPB];
-      for (int p = 1; p < WPB; ++p) m = fmaxf(m, wmax[k * WPB + p]);
-      const float4 own = make_float4(m, l, best.z, best.w);
+      const float2 own = make_float2(m, l);
       if (solo)
         stats[0][k] = own;
       else
@@ -422,38 +403,88 @@ s8_decode_kernel(const int8_t* __restrict__ qq,   // [B, K, D]
   else
     cluster.sync();
   S8_MARK(3);
-  // The global max, sum and s8 scale per beam in rank order, the same in
-  // every block: a block's rows have sum exp(s - M) = l_r * exp(m_r - M),
-  // and ps is the largest |pw| of the blocks' candidates over 127.
+  // The global max and sum per beam in rank order, the same in every
+  // block: a block's rows have sum exp(s - M) = l_r * exp(m_r - M).
   if (tid < K) {
     float M = -INFINITY;
     for (int r = 0; r < CE; ++r) M = fmaxf(M, stats[r][tid].x);
     float tot = 0.f;
     for (int r = 0; r < CE; ++r) tot += stats[r][tid].y * expf(stats[r][tid].x - M);
-    float mx = 0.f;
-    for (int r = 0; r < CE; ++r)
-      mx = fmaxf(mx, fabsf((expf(stats[r][tid].z - M) / tot) * stats[r][tid].w));
-    glob[tid] = make_float3(M, tot, fmaxf(mx, 1e-8f) / 127.f);
+    glob[tid] = make_float3(M, tot, 0.f);
   }
   __syncthreads();
   S8_MARK(4);
 
-  // The slice's pw = (exp(s - M) / tot) * vs quantized to s8 (zeros past
-  // it, to whole k-steps).
-  float gM[K], gtot[K], gps[K];
+  // Exchange 2: the slice's pw = (exp(s - M) / tot) * vs, kept in place of
+  // its scores, and the block's max |pw| per beam, pushed into every block;
+  // ps is the largest over 127, exact whatever the order.
+  {
+    float gM[K], gtot[K], mx[K];
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
-    gM[k] = glob[k].x;
-    gtot[k] = glob[k].y;
-    gps[k] = glob[k].z;
+    for (int k = 0; k < K; ++k) {
+      gM[k] = glob[k].x;
+      gtot[k] = glob[k].y;
+      mx[k] = 0.f;
+    }
+    for (int i = tid; i < nv; i += NT) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const float pw = (expf(sc[k * slice + i] - gM[k]) / gtot[k]) * vsc[i];
+        sc[k * slice + i] = pw;
+        mx[k] = fmaxf(mx[k], fabsf(pw));
+      }
+    }
+    __shared__ float wpm[NW][K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const float m = sar::group_max<32>(mx[k]);
+      if (lane == 0) wpm[warp][k] = m;
+    }
+    __syncthreads();
+    if (tid < K * CE) {
+      const int k = tid % K, dst = tid / K;
+      float m = wpm[0][k];
+      for (int w = 1; w < NW; ++w) m = fmaxf(m, wpm[w][k]);
+      if (solo)
+        pmax[0][k] = m;
+      else
+        cluster.map_shared_rank(&pmax[0][0], dst)[rank * K + k] = m;
+    }
   }
+  if (solo)
+    __syncthreads();
+  else
+    cluster.sync();
+  if (tid < K) {
+    float mx = 0.f;
+    for (int r = 0; r < CE; ++r) mx = fmaxf(mx, pmax[r][tid]);
+    glob[tid].z = fmaxf(mx, 1e-8f) / 127.f;
+  }
+  __syncthreads();
+  S8_MARK(5);
+
+  // The slice's pw quantized to s8 (zeros past it, to whole k-steps).
+  float gps[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) gps[k] = glob[k].z;
   for (int i = tid; i < pqs; i += NT) {
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       int v = 0;
-      if (i < nv) v = __float2int_rn(((expf(sc[k * slice + i] - gM[k]) / gtot[k]) * vsc[i]) / gps[k]);
+      if (i < nv) v = __float2int_rn(sc[k * slice + i] / gps[k]);
       pq[k * pqs + i] = (int8_t)max(-127, min(127, v));
     }
+  }
+  if (probe_pw != nullptr) {
+    __syncthreads();  // pq is written
+    for (int i = tid; i < rows; i += NT)
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const size_t at = (((size_t)b * K + k) * H + h) * S + lo + i;
+        probe_pw[at] = i < nv ? sc[k * slice + i] : 0.f;
+        probe_pq[at] = pq[k * pqs + i];
+      }
+    if (rank == 0 && tid < K) probe_ps[((size_t)b * K + tid) * H + h] = gps[tid];
   }
 
   // Warp w takes k-step w / 2 of each stage and columns 32 (w % 2) ..
@@ -523,7 +554,7 @@ s8_decode_kernel(const int8_t* __restrict__ qq,   // [B, K, D]
       sar::cp_async_commit();
     }
   }
-  S8_MARK(5);
+  S8_MARK(6);
   const int col = 32 * half + 4 * g;
   if constexpr (PV_MMA) {
     // c[e] of tile `tile`: column 4g + 2 tile + (e >> 1), beam 2t + (e & 1).
@@ -544,7 +575,7 @@ s8_decode_kernel(const int8_t* __restrict__ qq,   // [B, K, D]
       }
   }
   __syncthreads();
-  // Exchange 2: the block's int32 [K][64] P.V partial, pushed into rank 0.
+  // Exchange 3: the block's int32 [K][64] P.V partial, pushed into rank 0.
   int* dst = solo ? parts : cluster.map_shared_rank(parts, 0);
   for (int i = tid; i < K * HD; i += NT) {
     int o = 0;
@@ -556,7 +587,7 @@ s8_decode_kernel(const int8_t* __restrict__ qq,   // [B, K, D]
     __syncthreads();
   else
     cluster.sync();  // every partial is in rank 0; no block touches another after this
-  S8_MARK(6);
+  S8_MARK(7);
   if (rank == 0) {
     for (int i = tid; i < K * HD; i += NT) {
       int o = 0;
@@ -565,15 +596,16 @@ s8_decode_kernel(const int8_t* __restrict__ qq,   // [B, K, D]
           __float2bfloat16_rn((float)o * glob[i / HD].z);
     }
   }
-  S8_MARK(7);
+  S8_MARK(8);
 }
 
 bool smem_done[2][MAX_BEAMS + 1][sar::kMaxDevices] = {};
 
 template <int K, int MASK>
 int launch(const void* qq, const void* qs, const void* kq, const void* ks, const void* vq,
-           const void* vs, const void* n_dev, int n_host, void* out, int B, int S, int D,
-           int H, int layer, int device, cudaStream_t stream) {
+           const void* vs, const void* n_dev, int n_host, void* out, void* probe_pw,
+           void* probe_ps, void* probe_pq, int B, int S, int D, int H, int layer, int device,
+           cudaStream_t stream) {
   const auto kernel = s8_decode_kernel<K, MASK>;
   // The limit is raised once; each launch asks for what its slice needs.
   cudaError_t err = sar::allow_smem_once(smem_done[MASK][K], device, kernel, kMaxDynamicSmem);
@@ -596,7 +628,9 @@ int launch(const void* qq, const void* qs, const void* kq, const void* ks, const
                            static_cast<const float*>(qs), static_cast<const int8_t*>(kq),
                            static_cast<const float*>(ks), static_cast<const int8_t*>(vq),
                            static_cast<const float*>(vs), static_cast<const int*>(n_dev), n_host,
-                           static_cast<__nv_bfloat16*>(out), B, S, D, H, layer, slice);
+                           static_cast<__nv_bfloat16*>(out), static_cast<float*>(probe_pw),
+                           static_cast<float*>(probe_ps), static_cast<int8_t*>(probe_pq), B, S,
+                           D, H, layer, slice);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -624,8 +658,8 @@ extern "C" int sar_cross_decode_s8(const void* qq, const void* qs, const void* k
   switch (K) {
 #define SAR_S8_CASE(N)                                                                     \
   case N:                                                                                  \
-    return launch<N, kScaleMask>(qq, qs, kq, ks, vq, vs, nullptr, 0, out, B, S_pad, D,     \
-                                 n_heads, layer, device, st);
+    return launch<N, kScaleMask>(qq, qs, kq, ks, vq, vs, nullptr, 0, out, nullptr, nullptr,  \
+                                 nullptr, B, S_pad, D, n_heads, layer, device, st);
     SAR_S8_CASE(1)
     SAR_S8_CASE(2)
     SAR_S8_CASE(3)
@@ -651,8 +685,49 @@ extern "C" int sar_self_decode_s8(const void* qq, const void* qs, const void* kq
     return (int)cudaErrorInvalidValue;
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  return launch<1, kLengthMask>(qq, qs, kq, ks, vq, vs, n_dev, n_host, out, B, S, D, n_heads,
-                                layer, device, static_cast<cudaStream_t>(stream));
+  return launch<1, kLengthMask>(qq, qs, kq, ks, vq, vs, n_dev, n_host, out, nullptr, nullptr,
+                                nullptr, B, S, D, n_heads, layer, device,
+                                static_cast<cudaStream_t>(stream));
+}
+
+// K7 (length_mask 0, K = 1..8, S a multiple of 64) or K9 (length_mask not
+// 0, K = 1) as above, and also every row's fp32 pw into probe_pw [B, K, H,
+// S] (0 past n) and its s8 probability into probe_pq [B, K, H, S] (rows of
+// blocks that do not run stay as they were), and each row's ps into
+// probe_ps [B, K, H]: the tests' view of the re-quantization.
+extern "C" int sar_s8_decode_probe(const void* qq, const void* qs, const void* kq,
+                                   const void* ks, const void* vq, const void* vs,
+                                   const void* n_dev, int n_host, void* out, void* probe_pw,
+                                   void* probe_ps, void* probe_pq, int L, int B, int K, int S, int D,
+                                   int n_heads, int layer, int length_mask, int device,
+                                   void* stream) {
+  const int min_slice = length_mask ? SAR_S8_SELF_MIN_SLICE : SAR_S8_CROSS_MIN_SLICE;
+  if (!shape_ok(L, B, K, S, D, n_heads, layer, min_slice) || probe_pw == nullptr ||
+      probe_ps == nullptr || probe_pq == nullptr || (length_mask ? K != 1 : S % HD != 0))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (length_mask)
+    return launch<1, kLengthMask>(qq, qs, kq, ks, vq, vs, n_dev, n_host, out, probe_pw,
+                                  probe_ps, probe_pq, B, S, D, n_heads, layer, device, st);
+  switch (K) {
+#define SAR_S8_CASE(N)                                                                   \
+  case N:                                                                                \
+    return launch<N, kScaleMask>(qq, qs, kq, ks, vq, vs, nullptr, 0, out, probe_pw,      \
+                                 probe_ps, probe_pq, B, S, D, n_heads, layer, device, st);
+    SAR_S8_CASE(1)
+    SAR_S8_CASE(2)
+    SAR_S8_CASE(3)
+    SAR_S8_CASE(4)
+    SAR_S8_CASE(5)
+    SAR_S8_CASE(6)
+    SAR_S8_CASE(7)
+    SAR_S8_CASE(8)
+#undef SAR_S8_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // The cluster size the launches above pick for S rows (K9's rule when

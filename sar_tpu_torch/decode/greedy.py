@@ -10,7 +10,8 @@ is available and off by default.
 
 The cache is, as in the JAX package, the unquantized classic one by
 default; the int8 head-minor one of serving (`cross_kv_int8=True,
-self_kv_int8=True`, kernels K2 and K3), or the int4 classic one
+self_kv_int8=True`, kernels K2 and K3), the classic int8 one (the same
+flags with `head_minor=False`, plain torch), or the int4 classic one
 (`cross_kv_int4=True, self_kv_int4=True`) on request; `scores_int8` takes
 the decode steps over the int8 cache to s8 scores (kernel K7). The self cache
 is allocated at the full length `total`: the reference's
@@ -35,14 +36,17 @@ def greedy_decode(params: dict, enc_out: torch.Tensor, cfg: WhisperConfig,
                   suppress_ids: tuple[int, ...] = (),
                   cross_kv_int8: bool = False, self_kv_int8: bool = False,
                   cross_kv_int4: bool = False, self_kv_int4: bool = False,
-                  scores_int8: bool = False,
+                  scores_int8: bool = False, head_minor: bool | None = None,
                   kernels: bool = True) -> torch.Tensor:
     """Greedy decode over a cache built from `enc_out`: the unquantized
     classic one (the default, the JAX package's), the int8 head-minor one
     with cross_kv_int8 = self_kv_int8 = True (serving's), or the int4
     classic one (the int4 flags supersede the int8 ones); the layout is
-    `whisper.use_head_minor`'s. `scores_int8` needs the int8 flags and
-    decodes over that cache with s8 scores (K7).
+    `whisper.use_head_minor`'s unless `head_minor` says otherwise
+    (head_minor=False with the int8 flags: the classic int8 cache).
+    `scores_int8` needs the int8 flags and decodes over that cache with s8
+    scores (K7 over the head-minor slabs, plain torch over the classic
+    ones).
     prompt_ids: [P] or [B, P] (e.g. cfg.prompt_ids(lang)). `lora` (a bank)
     adapts the cache build and every step, with adapter 0 for the batch or
     `adapter_idx` [B] per row.
@@ -55,7 +59,8 @@ def greedy_decode(params: dict, enc_out: torch.Tensor, cfg: WhisperConfig,
                                cross_kv_int8=cross_kv_int8,
                                self_kv_int8=self_kv_int8,
                                cross_kv_int4=cross_kv_int4,
-                               self_kv_int4=self_kv_int4, kernels=kernels)
+                               self_kv_int4=self_kv_int4, head_minor=head_minor,
+                               kernels=kernels)
     return greedy_decode_from_cache(params, cache, cfg, prompt_ids, lora=lora,
                                     adapter_idx=adapter_idx,
                                     lora_scale=lora_scale,

@@ -3,7 +3,8 @@ sar_tpu/evaluation/evaluator.py::ASREvaluator, int8-KV or int4-KV greedy
 and beam decoding, with or without one LoRA adapter).
 
 Greedy runs two phases per batch, as in the reference: `prep` (encoder +
-the int8 head-minor cross-KV cache, or the int4 classic one) and `dec`
+the int8 head-minor cross-KV cache, the int4 classic one, or with
+kv_int8=False the unquantized classic one in plain torch) and `dec`
 (the greedy loop over that cache). Beam search (`num_beams` > 1) runs the
 encoder alone and then `beam_decode`, which builds its own cache (one
 cross slab per sample, B*K self-cache rows). Both pass the cache flags
@@ -17,8 +18,8 @@ dataloader's split and returns corpus WER/CER; `evaluate_per_sample`,
 quantized decode is the JAX evaluator's too: `scores_int8` (s8 scores
 over the int8 cache, kernel K7) and `kv_int4` (the nibble-packed int4
 cache, which supersedes kv_int8), with its checks
-(`quantized_decode_options`). Meshes, temperature fallback and a bf16
-cache (kv_int8=False) are not ported and raise NotImplementedError.
+(`quantized_decode_options`). Meshes and temperature fallback are not
+ported and raise NotImplementedError.
 
 The evaluator runs on the CUDA card unless `device` says otherwise (see
 sar_tpu_torch/device.py); params and the adapter on another device are
@@ -63,8 +64,9 @@ def quantized_decode_options(kv_int8: bool, kv_int4: bool,
 
 
 class ASREvaluator:
-    """Greedy or beam int8-KV (or int4-KV) transcription of whole batches
-    on one device.
+    """Greedy or beam transcription of whole batches on one device, over
+    the int8 KV cache (the default), the int4 one or the unquantized one
+    (kv_int8=False).
 
     `lora` is a bank whose adapter 0 adapts every row (a single adapter, as
     the JAX evaluator takes it), with `lora_scale` = alpha / r; its cross_v
@@ -80,13 +82,12 @@ class ASREvaluator:
                  task: str = "transcribe", kv_int4: bool = False,
                  device: torch.device | str | None = None,
                  kernels: bool = True):
-        lacking = {"kv_int8=False (a bf16 cache)": not (kv_int8 or kv_int4),
-                   "mesh": mesh is not None, "fallback": fallback}
+        lacking = {"mesh": mesh is not None, "fallback": fallback}
         missing = [name for name, asked in lacking.items() if asked]
         if missing:
             raise NotImplementedError(
-                f"sar_tpu_torch ASREvaluator has int8-KV and int4-KV greedy "
-                f"and beam decoding only; not yet ported: {', '.join(missing)}")
+                f"sar_tpu_torch ASREvaluator: not yet ported: "
+                f"{', '.join(missing)}")
         if num_beams < 1:
             raise ValueError(f"num_beams must be >= 1, got {num_beams}")
         self.kv_int8, self.kv_int4 = quantized_decode_options(

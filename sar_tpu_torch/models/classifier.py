@@ -1,9 +1,11 @@
 """Language-identification (LID) classifier in PyTorch (counterpart of
-sar_tpu/models/classifier.py, inference and loss; training is a later
-slice).
+sar_tpu/models/classifier.py; training/lid_trainer.py trains it).
 
 - optional input LayerNorm, optional 2-layer 1-D CNN front (kernel 5,
-  padding k//2, ReLU), MLP of Linear + LayerNorm + ReLU, softmax;
+  padding k//2, ReLU), MLP of Linear + LayerNorm + ReLU, softmax; in
+  training (`train=True` with a generator) inverted dropout after each CNN
+  layer and each MLP layer, as the JAX package places it (the masks come
+  from torch's generator, not jax.random);
 - pooling mean | max | attention (a Tanh-MLP scorer softmaxed over time),
   each mask-aware;
 - the weighted, label-smoothed cross entropy (torch CrossEntropyLoss
@@ -177,13 +179,26 @@ def _pool(params, ccfg, feats, mask):
     raise ValueError(f"Unknown pooling: {ccfg.pooling}")
 
 
+def _dropout(x: torch.Tensor, rate: float,
+             generator: torch.Generator | None) -> torch.Tensor:
+    """Inverted dropout: keep with probability 1 - rate, scale by
+    1 / (1 - rate); the identity without a generator or at rate 0."""
+    if generator is None or rate <= 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1 - rate
+    return x * keep / (1 - rate)
+
+
 def apply_classifier(params: dict, ccfg: ClassifierConfig,
                      hidden_states: torch.Tensor,
                      attention_mask: torch.Tensor | None = None,
-                     labels: torch.Tensor | None = None) -> dict:
-    """Forward pass at inference (no dropout) -> {"logits", "probs",
-    "loss"}; the loss only when `labels` are given."""
+                     labels: torch.Tensor | None = None, train: bool = False,
+                     generator: torch.Generator | None = None) -> dict:
+    """Forward pass -> {"logits", "probs", "loss"}; the loss only when
+    `labels` are given. `train` with a `generator` (on the features'
+    device) applies the classifier's dropout."""
     x = hidden_states.float()
+    g = generator if train else None
     if ccfg.use_layer_norm:
         x = _ln(x, params["ln"])
     if ccfg.use_cnn:
@@ -191,11 +206,12 @@ def apply_classifier(params: dict, ccfg: ClassifierConfig,
         for name in ("cnn1", "cnn2"):
             x = F.relu(F.conv1d(x, params[name]["w"], params[name]["b"],
                                 padding=ccfg.cnn_kernel_size // 2))
+            x = _dropout(x, ccfg.dropout, g)
         x = x.transpose(1, 2)
     h = _pool(params, ccfg, x, attention_mask)
     for i in range(len(ccfg.hidden_dims)):
         h = h @ params[f"mlp_{i}"]["w"] + params[f"mlp_{i}"]["b"]
-        h = F.relu(_ln(h, params[f"mlp_ln_{i}"]))
+        h = _dropout(F.relu(_ln(h, params[f"mlp_ln_{i}"])), ccfg.dropout, g)
     logits = h @ params["out"]["w"] + params["out"]["b"]
     loss = _weighted_smoothed_ce(logits, labels, ccfg) if labels is not None else None
     return {"logits": logits, "probs": torch.softmax(logits, -1), "loss": loss}
@@ -259,6 +275,11 @@ def encode_features(base_params: dict, mel: torch.Tensor, cfg: WhisperConfig,
                          f"{L}-layer encoder")
     x = whisper.encoder_front(enc, mel)
     return whisper.encoder_layers(enc, x, cfg, k + 1, flash=flash)
+
+
+def get_hidden_dim(cfg: WhisperConfig) -> int:
+    """The width of the encoder features the head takes (d_model)."""
+    return cfg.d_model
 
 
 class LanguageClassifier:

@@ -1,5 +1,5 @@
 """AdapterRouter: routed multi-adapter transcription on one device
-(counterpart of sar_tpu/models/router.py, hard routing).
+(counterpart of sar_tpu/models/router.py).
 
 A batch of utterances in mixed languages goes through the LID classifier
 at its tap layer; each utterance then takes its language's adapter from
@@ -17,8 +17,15 @@ sar_tpu_torch/device.py); base, bank and classifier params are moved to
 its device once. `flash` defaults to the attention kernel ("hm") on the
 card and exact attention on the CPU; "fq" passes through to `encode`,
 which keeps "hm" for a bank that adapts q/k/v (the usual q_proj/v_proj
-bank) and for the LID tap. Teacher-forced `forward` (the hard, soft and
-threshold strategies) is not ported yet and raises NotImplementedError.
+bank) and for the LID tap.
+
+Teacher-forced `forward` takes the JAX router's three strategies: "hard"
+(each row through its LID-chosen adapter), "soft" (every adapter on the
+whole batch, the logits weighted by the LID probabilities and the loss
+sum_i mean(p_i) * loss_i) and "threshold" (hard when every row's top
+probability clears `threshold`, else soft). Its teacher-forced passes are
+`whisper.forward`, with the blockwise attention K6 on the card (exact
+attention on the CPU); they keep autograd, as a training-style forward.
 """
 
 from __future__ import annotations
@@ -95,10 +102,80 @@ class AdapterRouter:
             return clf.predict(self.clf_params, self.clf_cfg, feats)
 
     # -- Teacher-forced routing (training) -----------------------------------
-    def forward(self, input_features, labels=None, strategy=None):
-        raise NotImplementedError(
-            "AdapterRouter.forward: the teacher-forced hard, soft and "
-            "threshold routing strategies are not ported yet")
+    def forward(self, input_features: torch.Tensor,
+                labels: torch.Tensor | None = None,
+                strategy: str | None = None) -> dict:
+        """LID, then the strategy's teacher-forced pass -> {"probs",
+        "adapter_idx", and "logits" [B, T, V] fp32 and "loss" with labels,
+        else (hard) "encoder_out"}; threshold with labels adds
+        "confident"."""
+        strategy = strategy or self.strategy
+        mel = input_features.to(self.device, self.dtype)
+        if labels is not None:
+            labels = torch.as_tensor(labels, device=self.device).long()
+        idx, probs = clf.predict(self.clf_params, self.clf_cfg,
+                                 self.extract_encoder_features(mel))
+        if strategy == "hard":
+            return self._hard(mel, idx, probs, labels)
+        if strategy == "soft":
+            return self._soft(mel, probs, labels)
+        if strategy == "threshold":
+            return self._threshold(mel, idx, probs, labels)
+        raise ValueError(f"Unknown routing strategy: {strategy}")
+
+    def _threshold(self, mel, idx, probs, labels):
+        """Hard when every row clears the threshold, else soft. Without
+        labels the flag decides which output comes back (soft then raises);
+        with labels both give the same keys plus the `confident` flag."""
+        confident = (probs.max(-1).values > self.threshold).all()
+        if labels is None:
+            if bool(confident):
+                return self._hard(mel, idx, probs, labels)
+            return self._soft(mel, probs, labels)
+        logits, loss = (self._hard_terms(mel, idx, labels) if bool(confident)
+                        else self._soft_terms(mel, probs, labels))
+        return {"loss": loss, "logits": logits, "probs": probs,
+                "adapter_idx": idx, "confident": confident}
+
+    def _teacher_logits(self, mel, labels, adapter_idx):
+        dec_in = whisper.shift_tokens_right(labels, self.cfg.sot_token_id,
+                                            self.cfg.pad_token_id)
+        return whisper.forward(self.base_params, mel, dec_in,
+                               self.cfg, lora=self._bank,
+                               adapter_idx=adapter_idx,
+                               lora_scale=self.lora_cfg.scale,
+                               flash=self.device.type == "cuda")
+
+    def _hard_terms(self, mel, adapter_idx, labels):
+        logits = self._teacher_logits(mel, labels, adapter_idx)
+        return logits, whisper.cross_entropy_loss(logits, labels)
+
+    def _hard(self, mel, adapter_idx, probs, labels):
+        out = {"probs": probs, "adapter_idx": adapter_idx}
+        if labels is not None:
+            out["logits"], out["loss"] = self._hard_terms(mel, adapter_idx, labels)
+        else:
+            out["encoder_out"] = self.encode(mel, adapter_idx)
+        return out
+
+    def _soft_terms(self, mel, probs, labels):
+        """Every adapter on the full batch: (probability-weighted logits,
+        sum_i mean(p_i) * loss_i)."""
+        B = mel.shape[0]
+        weighted, loss = None, 0.0
+        for i in range(len(self.languages)):
+            idx = torch.full((B,), i, dtype=torch.int64, device=self.device)
+            logits = self._teacher_logits(mel, labels, idx)
+            w = probs[:, i][:, None, None]
+            weighted = w * logits if weighted is None else weighted + w * logits
+            loss = loss + probs[:, i].mean() * whisper.cross_entropy_loss(logits, labels)
+        return weighted, loss
+
+    def _soft(self, mel, probs, labels):
+        if labels is None:
+            raise ValueError("soft routing requires labels (teacher-forced)")
+        weighted, loss = self._soft_terms(mel, probs, labels)
+        return {"loss": loss, "logits": weighted, "probs": probs}
 
     # -- Routed generation ----------------------------------------------------
     @torch.no_grad()
@@ -112,18 +189,19 @@ class AdapterRouter:
 
     @torch.no_grad()
     def cache(self, enc: torch.Tensor, adapter_idx: torch.Tensor,
-              max_new_tokens: int = 256,
-              kv_int4: bool = False) -> whisper.DecodeCache:
+              max_new_tokens: int = 256, kv_int4: bool = False,
+              kv_int8: bool = True) -> whisper.DecodeCache:
         """The int8 head-minor cache of the adapted encoder output, with
-        each row's cross_v adapter (kernel K4); or, with `kv_int4`, the
-        int4 classic one (plain torch projections)."""
+        each row's cross_v adapter (kernel K4); with `kv_int4`, the int4
+        classic one, and with neither flag the unquantized classic one
+        (plain torch projections)."""
         total = min(self.prompt_len + max_new_tokens,
                     self.cfg.max_target_positions)
+        int8 = kv_int8 and not kv_int4
         return whisper.init_cache(self.base_params, enc, self.cfg, total,
                                   lora=self._bank, adapter_idx=adapter_idx,
                                   lora_scale=self.lora_cfg.scale,
-                                  cross_kv_int8=not kv_int4,
-                                  self_kv_int8=not kv_int4,
+                                  cross_kv_int8=int8, self_kv_int8=int8,
                                   cross_kv_int4=kv_int4, self_kv_int4=kv_int4,
                                   kernels=self.kernels)
 
@@ -137,10 +215,12 @@ class AdapterRouter:
             lora_scale=self.lora_cfg.scale, kernels=self.kernels)
 
     def decode(self, enc: torch.Tensor, adapter_idx: torch.Tensor,
-               max_new_tokens: int = 256, kv_int4: bool = False) -> torch.Tensor:
+               max_new_tokens: int = 256, kv_int4: bool = False,
+               kv_int8: bool = True) -> torch.Tensor:
         """Routed greedy decode: `cache`, then `decode_from_cache`."""
         return self.decode_from_cache(
-            self.cache(enc, adapter_idx, max_new_tokens, kv_int4), adapter_idx)
+            self.cache(enc, adapter_idx, max_new_tokens, kv_int4, kv_int8),
+            adapter_idx)
 
     @torch.no_grad()
     def step(self, tokens: torch.Tensor, pos: int, cache: whisper.DecodeCache,

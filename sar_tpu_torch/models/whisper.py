@@ -20,8 +20,9 @@ blockwise attention of ops/flash.py, kernel K6, forward and backward;
 the JAX package's policy does, `_remat`; inference: "hm" is the head-minor
 attention kernel K1, "fq" the fused LN + QKV + attention kernel K8, both
 in ops/flash_enc.py); `init_cache` and `decode_step` over the unquantized
-classic cache (the default, as in the JAX package) and the int8
-head-minor cache of serving. Each takes optional LoRA from an
+classic cache (the default, as in the JAX package), the int8
+head-minor cache of serving and, on request (`head_minor=False`), the JAX
+package's classic int8 cache in plain torch. Each takes optional LoRA from an
 adapter bank (models/lora.py): one adapter for the whole batch, or one per
 utterance (`adapter_idx`, masked-dense routing, `lora_delta`), with the
 LoRA dropout of training (`lora_dropout`, masks drawn from a seed folded
@@ -676,11 +677,12 @@ def unpack_kv4(p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def use_head_minor(*, cross_kv_int8: bool, self_kv_int8: bool,
                    cross_kv_int4: bool = False,
                    self_kv_int4: bool = False) -> bool:
-    """The cross-KV layout of a decode path: head-minor slabs (the layout
-    K3, K5 and K7 stream) for a full int8 KV cache, the classic layout
-    for int4 packing or an unquantized cache. The JAX package also keeps
-    a classic int8 layout (for a CPU run without scores_int8, and meshes);
-    the port's int8 cache is head-minor on every device."""
+    """The default cross-KV layout of a decode path: head-minor slabs (the
+    layout K3, K5 and K7 stream) for a full int8 KV cache, the classic
+    layout for int4 packing or an unquantized cache. The classic int8
+    layout (the JAX package's choice on a CPU without scores_int8, and
+    under meshes) is built only when `init_cache(head_minor=False)` asks
+    for it."""
     return (cross_kv_int8 and self_kv_int8
             and not (cross_kv_int4 or self_kv_int4))
 
@@ -701,7 +703,10 @@ def init_cache(params: Params, enc_out: torch.Tensor, cfg: WhisperConfig,
     serving: cross K/V projected and quantized by kernel K2
     (fused_kv_init) into head-minor slabs, an int8 self cache. With
     cross_kv_int4 = self_kv_int4 = True (which supersede the int8 flags),
-    the classic nibble-packed int4 cache.
+    the classic nibble-packed int4 cache. With the int8 flags and
+    head_minor=False, the JAX package's classic int8 cache (plain torch,
+    as its jnp body): cross K/V [L, B, H, S, hd] int8 with per-row scales
+    [L, B, H, S], which `decode_step` reads through `_attention_int8`.
 
     `self_batch` (default B) sizes the self cache apart from the cross
     slabs: beam search keeps ONE cross slab per sample, shared by its K
@@ -716,9 +721,8 @@ def init_cache(params: Params, enc_out: torch.Tensor, cfg: WhisperConfig,
     `kernels=False` runs the plain PyTorch version on any device (the
     reference path the card's results are compared with).
 
-    `head_minor` defaults to `use_head_minor`'s choice; the port has no
-    classic int8 cache, so the int8 flags with head_minor=False raise, as
-    does one int8 flag without the other."""
+    `head_minor` defaults to `use_head_minor`'s choice; one int8 flag
+    without the other raises."""
     int4 = cross_kv_int4 or self_kv_int4
     if head_minor is None:
         head_minor = use_head_minor(cross_kv_int8=cross_kv_int8,
@@ -731,15 +735,20 @@ def init_cache(params: Params, enc_out: torch.Tensor, cfg: WhisperConfig,
     if int4 and not (cross_kv_int4 and self_kv_int4):
         raise NotImplementedError("the port's int4 cache packs the cross and "
                                   "the self K/V both")
-    if int4 or not (cross_kv_int8 or self_kv_int8 or head_minor):
+    int8 = cross_kv_int8 or self_kv_int8
+    if int8 and not int4 and not (cross_kv_int8 and self_kv_int8):
+        raise NotImplementedError("the port's int8 cache quantizes the cross "
+                                  "and the self K/V both")
+    if head_minor and not (cross_kv_int8 and self_kv_int8):
+        raise ValueError("head_minor requires an int8 KV cache "
+                         "(cross_kv_int8 and self_kv_int8)")
+    if not head_minor:
         return _init_cache_classic(params, enc_out, cfg, max_len, lora=lora,
                                    adapter_idx=adapter_idx,
                                    lora_scale=lora_scale,
-                                   self_batch=self_batch, int4=int4)
-    if not (cross_kv_int8 and self_kv_int8 and head_minor):
-        raise NotImplementedError(
-            "the port's decode cache is the int8 head-minor variant, the "
-            "int4 classic one or the unquantized classic one")
+                                   self_batch=self_batch,
+                                   quant="int4" if int4 else
+                                   "int8" if int8 else None)
     dec = params["decoder"]
     B, S, _ = enc_out.shape
     H, hd = cfg.decoder_heads, cfg.d_model // cfg.decoder_heads
@@ -782,37 +791,46 @@ def _init_cache_classic(params: Params, enc_out: torch.Tensor,
                         lora: Params | None = None, adapter_idx=None,
                         lora_scale: float = 1.0,
                         self_batch: int | None = None,
-                        int4: bool = False) -> DecodeCache:
+                        quant: str | None = None) -> DecodeCache:
     """A classic-layout cache (plain torch, as the JAX package's jnp body):
     each layer's (adapted) projection of `enc_out` split into heads, cross
     K/V [L, B, H, S, hd] in the compute dtype and a zeroed self cache
-    [L, self_batch, H, max_len, hd] with no scales; or, with `int4`, both
-    nibble-packed by `quantize_kv4` ([.., hd/2] s8, fp32 scales)."""
+    [L, self_batch, H, max_len, hd] with no scales; with `quant` "int8",
+    both quantized per row by `quantize_kv` (s8, fp32 scales [.., S]); with
+    "int4", both nibble-packed by `quantize_kv4` ([.., hd/2] s8)."""
     lay = params["decoder"]["layers"]
     B = enc_out.shape[0]
     H, hd = cfg.decoder_heads, cfg.d_model // cfg.decoder_heads
     dec_lora = lora.get("decoder") if lora else None
     ctx = lora_ctx(dec_lora, adapter_idx, lora_scale, enc_out.dtype)
     L = lay["cross_k"]["w"].shape[0]
-    ks, vs = [], []
+    # Quantized per layer, as the JAX package's scan body does: the fp32
+    # temporaries of one layer, not of the whole stack.
+    quantize = quantize_kv4 if quant == "int4" else quantize_kv
+    ks, vs, kss, vss = [], [], [], []
     for l in range(L):
         p, lo = _layer(lay, l), (_layer(dec_lora, l) if dec_lora else {})
-        ks.append(split_heads(_proj(enc_out, p["cross_k"], lo.get("cross_k"), ctx, 5), H))
-        vs.append(split_heads(_proj(enc_out, p["cross_v"], lo.get("cross_v"), ctx, 6), H))
+        k = split_heads(_proj(enc_out, p["cross_k"], lo.get("cross_k"), ctx, 5), H)
+        v = split_heads(_proj(enc_out, p["cross_v"], lo.get("cross_v"), ctx, 6), H)
+        if quant is not None:
+            (k, k_s), (v, v_s) = quantize(k), quantize(v)
+            kss.append(k_s)
+            vss.append(v_s)
+        ks.append(k)
+        vs.append(v)
     ck, cv = torch.stack(ks), torch.stack(vs)
-    cks = cvs = None
-    if int4:
-        (ck, cks), (cv, cvs) = quantize_kv4(ck), quantize_kv4(cv)
+    cks, cvs = (torch.stack(kss), torch.stack(vss)) if quant is not None else (None, None)
     SB = B if self_batch is None else self_batch
     dev = enc_out.device
-    shape = (L, SB, H, max_len, hd // 2 if int4 else hd)
-    dtype = torch.int8 if int4 else enc_out.dtype
+    shape = (L, SB, H, max_len, hd // 2 if quant == "int4" else hd)
+    dtype = enc_out.dtype if quant is None else torch.int8
+    scales = (lambda: None) if quant is None else (
+        lambda: torch.zeros(shape[:4], device=dev))
     return DecodeCache(
         self_k=torch.zeros(shape, dtype=dtype, device=dev),
         self_v=torch.zeros(shape, dtype=dtype, device=dev),
         cross_k=ck, cross_v=cv, cross_k_scale=cks, cross_v_scale=cvs,
-        self_k_scale=torch.zeros(shape[:4], device=dev) if int4 else None,
-        self_v_scale=torch.zeros(shape[:4], device=dev) if int4 else None)
+        self_k_scale=scales(), self_v_scale=scales())
 
 
 def _cross_kv_torch(enc_pad, lay, dec_lora, n_heads, t_valid, ctx):
@@ -966,8 +984,9 @@ def decode_step(params: Params, tokens: torch.Tensor, pos: int,
     also takes the self-attention to s8 (`_attention_int8_mxu`);
     `kernels=False` runs the kernels' plain versions on any device. An int4
     cache (told apart by its hd/2 axis) is read by `_attention_int4`, the
-    unquantized classic cache (no scales) by plain `attention`, as in the
-    JAX package.
+    unquantized classic cache (no scales) by plain `attention`, and the
+    classic int8 cache (5-d cross K/V with scales) by `_attention_int8`
+    (`_attention_int8_mxu` with `scores_int8`), as in the JAX package.
     `lora` adapts the decoder hooks it holds (self_q/k/v/o, cross_q/o;
     cross_k/v live in the cache), per row when `adapter_idx` is given.
 
@@ -986,10 +1005,8 @@ def decode_step(params: Params, tokens: torch.Tensor, pos: int,
     self_int4 = not plain_cache and cache.self_k.shape[-1] == half
     cross_int4 = (cache.cross_k_scale is not None and cache.cross_k.dim() == 5
                   and cache.cross_k.shape[-1] == half)
-    if not plain_cache and not cross_int4 and cache.cross_k.dim() != 4:
-        raise NotImplementedError("decode_step takes the int8 head-minor "
-                                  "cache, the int4 classic one or the "
-                                  "unquantized classic one")
+    cross_int8_classic = (cache.cross_k_scale is not None
+                          and cache.cross_k.dim() == 5 and not cross_int4)
     if scores_int8 and (plain_cache or cache.cross_k_scale is None):
         raise ValueError("scores_int8 requires an int8 KV cache "
                          "(cross_kv_int8=True and self_kv_int8=True)")
@@ -1053,8 +1070,8 @@ def decode_step(params: Params, tokens: torch.Tensor, pos: int,
                               cache.self_k_scale[l], cache.self_v[l],
                               cache.self_v_scale[l], mask=pos_mask)
         x = x + _proj(merge_heads(a), p["self_o"], lo.get("self_o"), ctx)
-        # Cross-attention: exact over the classic cache, int4 over the
-        # packed classic slabs, or over the head-minor int8 slabs of layer
+        # Cross-attention: exact over the classic cache, int4 or int8 over
+        # the quantized classic slabs, or over the head-minor int8 slabs of layer
         # l (K3/K5 exact, K7 with scores_int8); beam queries are folded per
         # sample ([B/K, K, ...]) when beam_width > 1.
         h = layer_norm(x, p["cross_ln"]["scale"], p["cross_ln"]["bias"])
@@ -1065,10 +1082,12 @@ def decode_step(params: Params, tokens: torch.Tensor, pos: int,
             qh = q.reshape(B // beam_width, beam_width, H, -1).transpose(1, 2)
             a = attention(qh, cache.cross_k[l], cache.cross_v[l])
             o = a.transpose(1, 2).reshape(B, 1, -1)
-        elif cross_int4:
+        elif cross_int4 or cross_int8_classic:
             qh = q.reshape(B // beam_width, beam_width, H, -1).transpose(1, 2)
-            a = _attention_int4(qh, cache.cross_k[l], cache.cross_k_scale[l],
-                                cache.cross_v[l], cache.cross_v_scale[l])
+            attn = (_attention_int4 if cross_int4 else
+                    _attention_int8_mxu if scores_int8 else _attention_int8)
+            a = attn(qh, cache.cross_k[l], cache.cross_k_scale[l],
+                     cache.cross_v[l], cache.cross_v_scale[l])
             o = a.transpose(1, 2).reshape(B, 1, -1)
         elif scores_int8:
             o = _cross_attention_int8_mxu(q, cache.cross_k, cache.cross_k_scale,

@@ -86,6 +86,11 @@ SIGNATURES = {
     # device, stream
     "sar_cross_decode_s8": [_P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # qq, qs, kq, ks, vq, vs, n (device int32 or NULL), n_host, out,
+    # probe_pw, probe_ps, probe_pq, L, B, K, S, D, n_heads, layer,
+    # length_mask, device, stream
+    "sar_s8_decode_probe": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # S, length_mask (K9's split if not 0) -> the cluster size K7/K9 launch
     "sar_s8_cluster_size": [_I, _I],
 }

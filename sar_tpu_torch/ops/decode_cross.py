@@ -285,3 +285,35 @@ def cross_decode_attention(qq, qs, kq, ks, vq, vs, *, layer: int,
     else:
         S8_LAUNCHES += 1
     return out
+
+
+def s8_decode_probe(qq, qs, kq, ks, vq, vs, *, layer: int, n_heads: int,
+                    valid_len=None) -> tuple[torch.Tensor, ...]:
+    """K7 (valid_len None; qq [B, D] or [B, K, D]) or K9 (a valid_len; qq
+    [B, D]) on CUDA tensors, launched through the kernel's probe entry
+    point, which also writes what the re-quantization saw: -> (out as
+    the wrapper returns it, pw [B, K, H, S] fp32 (0 past valid_len), pq
+    [B, K, H, S] s8, ps [B, K, H] fp32). The tests hold ps and pq to the
+    kernel's own pw with this; it counts no launch, and no path calls it."""
+    name = "s8_decode_probe"
+    _build.require(qq.device.type == "cuda",
+                   f"{name}: the probe launches the kernel, on a CUDA tensor only")
+    folded = qq.dim() == 3
+    B, D = qq.shape[0], qq.shape[-1]
+    K = qq.shape[1] if folded else 1
+    L, _, S, _ = kq.shape
+    H = n_heads
+    mask = valid_len is not None
+    _build.require(not (mask and folded), f"{name}: K9 takes one query per sample")
+    n_ptr, n_host = (_build.valid_len_arg(name, valid_len, qq.device, S)
+                     if mask else (None, 0))
+    out = torch.empty(qq.shape, dtype=torch.bfloat16, device=qq.device)
+    pw = torch.zeros((B, K, H, S), dtype=torch.float32, device=qq.device)
+    pq = torch.zeros((B, K, H, S), dtype=torch.int8, device=qq.device)
+    ps = torch.zeros((B, K, H), dtype=torch.float32, device=qq.device)
+    args = [t.contiguous() for t in (qq, qs, kq, ks, vq, vs)]
+    _build.check(_build.load().sar_s8_decode_probe(
+        *(t.data_ptr() for t in args), n_ptr, n_host, out.data_ptr(),
+        pw.data_ptr(), ps.data_ptr(), pq.data_ptr(), L, B, K, S, D, H, layer,
+        int(mask), qq.device.index, _build.stream_of(qq)), name)
+    return out, pw, pq, ps

@@ -12,9 +12,10 @@ card unless `--device` says otherwise. Real Whisper weights and corpora
 wait for files in the repository, so `--model` whisper-test with the
 `synthetic` source is what runs today. `--attn_scores int8` (s8 scores,
 kernel K7) and `--kv_cache int4` (the nibble-packed cache) are the opt-in
-quantized decode, refused together as the evaluator refuses them. Flags of
-the JAX script that the port has not got (meshes, fallback, a bf16 cache,
-...) fail with a message.
+quantized decode, refused together as the evaluator refuses them;
+`--kv_cache bf16` decodes over the unquantized cache. Flags of the JAX
+script that the port has not got (meshes, fallback, ...) fail with a
+message.
 """
 
 from __future__ import annotations
@@ -55,8 +56,8 @@ def parse_args(argv=None):
                    help="fp16 runs in bf16, as in the JAX script")
     p.add_argument("--kv_cache", type=str, default="int8",
                    choices=["int8", "bf16", "int4"],
-                   help="int8 (default) or int4 (nibble-packed, opt-in); the "
-                        "port has no bf16 cache")
+                   help="int8 (default), int4 (nibble-packed, opt-in) or "
+                        "bf16 (the unquantized cache)")
     p.add_argument("--attn_scores", type=str, default="bf16",
                    choices=["bf16", "int8"],
                    help="int8: s8 query and probabilities in the decode's "
@@ -77,9 +78,6 @@ def parse_args(argv=None):
     if given:
         p.error(f"{', '.join(given)}: not ported to sar_tpu_torch yet "
                 f"(use scripts/evaluate_model.py, the JAX version)")
-    if args.kv_cache == "bf16":
-        p.error("--kv_cache bf16: sar_tpu_torch has the int8 and int4 "
-                "caches only")
     from sar_tpu_torch.evaluation.evaluator import quantized_decode_options
     try:
         quantized_decode_options(args.kv_cache == "int8", args.kv_cache == "int4",

@@ -64,8 +64,8 @@ RUNS = 20
 SPIN_CYCLES = 50_000_000
 
 
-TRACE_MARKS = ("start", "scores", "stats posted", "exchange 1", "global stats", "P.V",
-               "exchange 2", "stored")
+TRACE_MARKS = ("start", "scores", "stats posted", "exchange 1", "global stats",
+               "max |pw| exchange", "P.V", "exchange 3", "stored")
 TRACE_BLOCKS = 1024
 
 

@@ -18,9 +18,10 @@ burst, rides the same two programs:
 
 The precision options are the evaluator's (`kv_int4`, `scores_int8`, with
 its checks); every program passes its cache flags explicitly (the int8
-head-minor cache unless `kv_int4`), since the decode functions' own
-default is the unquantized cache. A routed service decodes over the int4
-cache when asked, and turns `scores_int8` off with a warning, as the JAX
+head-minor cache unless `kv_int4`, or the unquantized one with
+kv_int8=False), since the decode functions' own default is the
+unquantized cache. A routed service decodes over the int4 or the
+unquantized cache when asked, and turns `scores_int8` off with a warning, as the JAX
 service does. `flash` goes to the evaluator and on to `encode` ("fq" is
 kernel K8; a routed service takes the router's `flash`).
 
@@ -94,18 +95,13 @@ class TranscriptionService:
         if router is not None and num_beams > 1:
             raise ValueError("routed serving decodes greedily "
                              "(no beam-routed program)")
-        if not (kv_int8 or kv_int4):
-            raise NotImplementedError(
-                "sar_tpu_torch TranscriptionService decodes over the int8 or "
-                "the int4 KV cache; kv_int8=False (a bf16 cache) is not yet "
-                "ported")
         kv_int8, kv_int4 = quantized_decode_options(kv_int8, kv_int4,
                                                     scores_int8)
         if scores_int8 and router is not None:
             logger.warning("scores_int8 applies to the non-routed serving "
                            "programs; decoding with bf16 scores")
             scores_int8 = False
-        self.kv_int4 = kv_int4
+        self.kv_int8, self.kv_int4 = kv_int8, kv_int4
         if router is not None and task != "transcribe":
             raise ValueError("routed serving is transcription-only (the "
                              "router's adapters are transcription-trained)")
@@ -254,7 +250,8 @@ class TranscriptionService:
             idx, _ = self.router.route(feats)
             tokens = self.router.decode(self.router.encode(feats, idx), idx,
                                         self.max_new_tokens,
-                                        kv_int4=self.kv_int4)
+                                        kv_int4=self.kv_int4,
+                                        kv_int8=self.kv_int8)
             return tokens, [self.router.languages[i] for i in idx[:n].tolist()]
         prompts = torch.tensor(
             [self.cfg.prompt_ids(r.language or self.language, self.task)

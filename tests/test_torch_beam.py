@@ -149,9 +149,13 @@ def test_beam_select_alone_advances_the_state(model):
 
 def test_options_not_ported_raise(model):
     _, tp, enc = model
-    for kw in (dict(timestamps=True), dict(head_minor=False, **INT8)):
-        with pytest.raises(NotImplementedError):
-            beam_decode(tp, t(enc), CFG, PROMPT, num_beams=2, max_new_tokens=2, **kw)
+    with pytest.raises(NotImplementedError):
+        beam_decode(tp, t(enc), CFG, PROMPT, num_beams=2, max_new_tokens=2, timestamps=True)
+    # The classic int8 layout is ported (tests/test_torch_cache_layouts.py
+    # holds its tokens to JAX's): it runs.
+    out = beam_decode(tp, t(enc), CFG, PROMPT, num_beams=2, max_new_tokens=2,
+                      head_minor=False, **INT8)
+    assert out.shape == (B, len(PROMPT) + 2)
     with pytest.raises(ValueError):
         tw.decode_step(tp, torch.zeros(B, dtype=torch.long), 0,
                        tw.init_cache(tp, t(enc), CFG, 4, **INT8), CFG,

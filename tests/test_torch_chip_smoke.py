@@ -52,7 +52,7 @@ def test_build_key_covers_every_source():
                                       "sar_cross_decode_s8", "sar_s8_cluster_size",
                                       "sar_flash_attn_fwd", "sar_flash_attn_bwd_dkv",
                                       "sar_flash_attn_bwd_dq", "sar_self_decode_s8",
-                                      "sar_decode_attention"}
+                                      "sar_decode_attention", "sar_s8_decode_probe"}
     for name in _build.SIGNATURES:
         assert f'extern "C" int {name}(' in "".join(
             p.read_text() for p in _build.sources())

@@ -237,7 +237,7 @@ def test_evaluate_cli_in_process(model, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("extra", [["--fallback"], ["--attn_scores", "int8", "--kv_cache", "int4"],
-                                   ["--tp", "2"], ["--kv_cache", "bf16"]])
+                                   ["--tp", "2"], ["--dcn_dp", "2"]])
 def test_evaluate_cli_refuses_flags_not_ported(extra, capsys):
     from sar_tpu_torch.scripts import evaluate_model
     with pytest.raises(SystemExit):

@@ -970,3 +970,103 @@ def test_decode_attention_wrapper_refuses_what_the_kernel_does_not_take(dev):
                                    k[..., :32].contiguous())
     with pytest.raises(ValueError, match="contiguous"):
         attention.decode_attention(q, k.transpose(1, 2).contiguous().transpose(1, 2), k)
+
+
+def _tie_case(dev, L, B, S, H, n_valid, seed):
+    """An s8 cache whose valid rows tie to rounding: per (layer, sample,
+    head) every row holds the same k bytes, so the scores differ only by
+    the k scales, which sit within 3 ulps of each other (and are small, so
+    exp(s - M) is near 1 for every row); every 5th valid
+    row (spread over every slice of the cluster) has a v scale within 3
+    ulps of one value, the others 0.2-0.9 of it. The |pw| of those rows
+    then tie to rounding across blocks and within a block. Rows past
+    n_valid carry scale 0 (K7's layout padding). Returns the K7/K9
+    operands kq, ks, vq, vs on `dev`."""
+    g = torch.Generator().manual_seed(seed)
+    D = H * 64
+    ulp = 2.0 ** -23
+    krow = torch.randint(-127, 128, (L, B, 1, D), generator=g, dtype=torch.int8)
+    kq = krow.expand(L, B, S, D).contiguous()
+    vq = torch.randint(-127, 128, (L, B, S, D), generator=g, dtype=torch.int8)
+    jitter = lambda: torch.randint(-3, 4, (L, B, H, S), generator=g).float() * ulp
+    ks = 1e-3 * (1 + jitter())                  # small scores: exp(s - M) near 1
+    top = (torch.arange(S) % 5 == 0)
+    vs = torch.where(top, 0.05 * (1 + jitter()),
+                     0.05 * (0.2 + 0.7 * torch.rand((L, B, H, S), generator=g)))
+    ks[..., n_valid:] = 0
+    vs[..., n_valid:] = 0
+    return kq.to(dev), ks.to(dev), vq.to(dev), vs.to(dev)
+
+
+def _assert_exact_scale(out, pw, pq, ps, want, n_valid, C):
+    """ps = max(max_s |pw_s|, 1e-8) / 127 of the kernel's own pw and pq =
+    clamp(rint(pw / ps)) bit for bit (fp32 on the host, round half to
+    even: the plain version's quantization); the rows do tie to rounding
+    (several entries within 2^-20 of the largest |pw|, in more than one
+    slice when C > 1); the output within K7/K9's limits."""
+    pw, pq, ps = pw.cpu(), pq.cpu(), ps.cpu()
+    want_ps = pw.abs().amax(-1).clamp_min(1e-8) / 127.0
+    assert torch.equal(ps, want_ps)
+    want_pq = torch.clamp(torch.round(pw / ps[..., None]), -127, 127).to(torch.int8)
+    assert torch.equal(pq[..., :n_valid], want_pq[..., :n_valid])
+    assert not pq[..., n_valid:].any()
+    a = pw.abs()
+    near = a >= a.amax(-1, keepdim=True) * (1 - 2.0 ** -20)
+    assert (near.sum(-1) >= 2).float().mean() >= 0.5
+    if C > 1:
+        slice_rows = -(-pw.shape[-1] // C)
+        first = near.float().argmax(-1)
+        last = pw.shape[-1] - 1 - near.flip(-1).float().argmax(-1)
+        assert ((last // slice_rows) != (first // slice_rows)).float().mean() >= 0.5
+    err = (out.float() - want.float()).abs().max().item()
+    assert err <= 1e-3 or err <= 8e-3 * want.float().abs().max().item()
+
+
+# K7's re-quantization scale on rows that tie to rounding (ROADMAP's Queue
+# C 1, repaired): at whisper-small's width, S_pad 1536 (3 slices of 512)
+# with 1500 valid rows, K = 1, 4 and 8, every layer of a 2-layer cache.
+@pytest.mark.parametrize("K", [1, 4, 8])
+def test_cross_decode_s8_scale_is_the_exact_max_on_ties(dev, K):
+    from sar_tpu_torch.ops import decode_cross
+    L, B, H, S_pad, S = 2, 2, 12, 1536, 1500
+    kq, ks, vq, vs = _tie_case(dev, L, B, S_pad, H, S, seed=K)
+    g = torch.Generator(device=dev).manual_seed(21)
+    qq, qs = _s8_query(g, dev, B, K, H, folded=K > 1)
+    C = decode_cross.s8_cluster_split(S_pad)[0]
+    for layer in range(L):
+        n = (decode_cross.S8_LAUNCHES, decode_cross.S8_BEAM_LAUNCHES)
+        out, pw, pq, ps = decode_cross.s8_decode_probe(qq, qs, kq, ks, vq, vs, layer=layer,
+                                                       n_heads=H)
+        got = decode_cross.cross_decode_attention(qq, qs, kq, ks, vq, vs, layer=layer,
+                                                  n_heads=H)
+        want = decode_cross.cross_decode_reference(qq, qs, kq, ks, vq, vs, layer=layer,
+                                                   n_heads=H)
+        torch.cuda.synchronize()
+        assert torch.equal(out, got)            # the probe is the same kernel
+        assert (decode_cross.S8_LAUNCHES + decode_cross.S8_BEAM_LAUNCHES) == sum(n) + 1
+        _assert_exact_scale(out, pw, pq, ps, want.reshape(out.shape), S, C)
+
+
+# K9's: whisper's max_len 448 (2 slices of 224) at n = 448 and 300 (both
+# blocks) and 100 (rank 0 alone), 12 heads.
+@pytest.mark.parametrize("n", [448, 300, 100])
+def test_self_decode_scale_is_the_exact_max_on_ties(dev, n):
+    from sar_tpu_torch.ops import decode_cross
+    from sar_tpu_torch.ops.attic import decode_self
+    L, B, H, S = 2, 3, 12, 448
+    kq, ks, vq, vs = _tie_case(dev, L, B, S, H, S, seed=n)
+    g = torch.Generator(device=dev).manual_seed(22)
+    qq, qs = _s8_query(g, dev, B, 1, H, folded=False)
+    qs = qs.reshape(B, H, 1)
+    C = decode_self.cluster_split(S)[0] if n > S // 2 else 1
+    for layer in range(L):
+        out, pw, pq, ps = decode_cross.s8_decode_probe(qq, qs, kq, ks, vq, vs, layer=layer,
+                                                       n_heads=H, valid_len=n)
+        got = decode_self.self_decode_attention(qq, qs, kq, ks, vq, vs, n, layer=layer,
+                                                n_heads=H)
+        want = decode_self.self_decode_reference(qq, qs, kq, ks, vq, vs, n, layer=layer,
+                                                 n_heads=H)
+        torch.cuda.synchronize()
+        assert torch.equal(out, got)
+        _assert_exact_scale(out.reshape(B, 1, H * 64), pw, pq, ps, want.reshape(B, 1, H * 64),
+                            n, C)

@@ -122,8 +122,11 @@ def test_routed_generate_tokens_equal_jax(world):
     np.testing.assert_array_equal(
         router.generate(t(mel), max_new_tokens=10).numpy(),
         router.generate(t(mel), adapter_idx=lid_idx, max_new_tokens=10).numpy())
-    with pytest.raises(NotImplementedError, match="hard, soft and threshold"):
-        router.forward(t(mel))
+    # Teacher-forced forward without labels (hard): LID and the adapted
+    # encoder (the strategies against JAX's: test_forward_strategies_match_jax).
+    out = router.forward(t(mel))
+    assert set(out) == {"probs", "adapter_idx", "encoder_out"}
+    torch.testing.assert_close(out["encoder_out"], router.encode(t(mel), lid_idx))
 
 
 def test_build_router_from_sar_tpu_checkpoints(world, tmp_path):
@@ -174,3 +177,50 @@ def test_single_adapter_evaluator_matches_jax(world):
                       lora=tone, lora_scale=SCALE, device="cpu")
     assert ev.from_audio(clips) == [JaxCharTokenizer(CFG).decode(r) for r in want]
     jax.clear_caches()
+
+
+# Teacher-forced routing (AdapterRouter.forward) against the JAX router on
+# the same weights, bank, head, mel and labels (two positions of one row
+# are -100 padding): hard, soft, and threshold at 0.0 (every row
+# confident: hard) and 1.0 (none: soft). Tolerances: losses 1e-5
+# relative, logits 2e-4 absolute (fp32 on the CPU, the teacher-forced
+# passes summed in other orders), probabilities 1e-5.
+@pytest.mark.parametrize("strategy,threshold", [("hard", 0.7), ("soft", 0.7),
+                                                ("threshold", 0.0), ("threshold", 1.0)])
+def test_forward_strategies_match_jax(world, strategy, threshold):
+    jp, _, jb, _, jccfg, jcp, router, mel = world
+    labels = np.random.default_rng(3).integers(10, 100, (4, 6)).astype(np.int32)
+    labels[0, -2:] = -100
+    jr = jrouter.AdapterRouter(CFG, jp, jb, jlora.LoraConfig(r=R, alpha=ALPHA), jcp, jccfg,
+                               threshold=threshold)
+    want = jr.forward(jnp.asarray(mel), jnp.asarray(labels), strategy=strategy)
+    saved, router.threshold = router.threshold, threshold
+    try:
+        got = router.forward(t(mel), t(labels), strategy=strategy)
+    finally:
+        router.threshold = saved
+    assert set(got) == set(want)
+    np.testing.assert_allclose(float(got["loss"]), float(want["loss"]), rtol=1e-5)
+    np.testing.assert_allclose(got["logits"].detach().numpy(), np.asarray(want["logits"]),
+                               atol=2e-4, rtol=0)
+    np.testing.assert_allclose(got["probs"].detach().numpy(), np.asarray(want["probs"]),
+                               atol=1e-5)
+    if "adapter_idx" in want:
+        assert got["adapter_idx"].tolist() == np.asarray(want["adapter_idx"]).tolist()
+    if "confident" in want:
+        assert bool(got["confident"]) == bool(want["confident"]) == (threshold == 0.0)
+
+
+def test_forward_without_labels_matches_jax(world):
+    """Hard routing without labels returns the adapted encoder output, as
+    JAX's does; soft (and threshold with an unconfident batch) needs
+    labels and raises."""
+    jp, _, jb, _, jccfg, jcp, router, mel = world
+    want = _jax_router(world).forward(jnp.asarray(mel), strategy="hard")
+    got = router.forward(t(mel), strategy="hard")
+    np.testing.assert_allclose(got["encoder_out"].numpy(), np.asarray(want["encoder_out"]),
+                               atol=1e-4, rtol=0)
+    with pytest.raises(ValueError, match="requires labels"):
+        router.forward(t(mel), strategy="soft")
+    with pytest.raises(ValueError, match="Unknown routing strategy"):
+        router.forward(t(mel), strategy="nearest")

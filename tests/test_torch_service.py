@@ -145,8 +145,11 @@ def test_options_not_yet_ported_raise(world, router):
     tp, _ = world
     with pytest.raises(ValueError, match="greedily"):
         TranscriptionService(router=router, num_beams=2)
-    with pytest.raises(NotImplementedError):
-        TranscriptionService(CFG, tp, kv_int8=False, device="cpu")
+    # The unquantized cache is ported: the service runs over it.
+    with TranscriptionService(CFG, tp, kv_int8=False, batch_size=1, max_new_tokens=NEW,
+                              device="cpu") as svc:
+        assert svc.kv_int8 is False and svc.kv_int4 is False
+        assert isinstance(svc.transcribe(np.zeros(1600, np.float32), timeout=300), list)
     # The int4 cache is ported: the service runs over it.
     with TranscriptionService(CFG, tp, kv_int4=True, batch_size=1, max_new_tokens=NEW,
                               device="cpu") as svc:

@@ -146,12 +146,14 @@ def test_evaluator_from_audio_matches_jax_prep_dec(model):
 
 def test_evaluator_refuses_options_not_yet_ported(model):
     _, tp, _, _ = model
-    for kw in (dict(kv_int8=False), dict(fallback=True)):
+    for kw in (dict(mesh=object()), dict(fallback=True)):
         with pytest.raises(NotImplementedError):
             ASREvaluator(CFG, tp, device="cpu", **kw)
-    with pytest.raises(NotImplementedError):
-        tw.init_cache(tp, torch.zeros((1, 32, CFG.d_model)), CFG, 8, head_minor=False,
-                      **INT8)
+    # The unquantized cache and the classic int8 layout are ported.
+    assert ASREvaluator(CFG, tp, device="cpu", kv_int8=False).kv_int8 is False
+    cache = tw.init_cache(tp, torch.zeros((1, 32, CFG.d_model)), CFG, 8, head_minor=False,
+                          **INT8)
+    assert cache.cross_k.dtype == torch.int8 and cache.cross_k.dim() == 5
 
 
 def test_bf16_slice_runs_and_keeps_logits_fp32(model):
