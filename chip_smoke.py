@@ -3,7 +3,14 @@
 
     python3 chip_smoke.py [--profile | --kernels-only]
 
-Phases, each printing its own line(s); any failure raises and exits non-zero:
+Phases, each printing its own line(s); any failure raises and exits non-zero.
+Every decode loop of phases 4-11 runs as the entry points run it: each
+segment of the greedy or beam loop a CUDA graph captured at the first
+batch of its shape and replayed after (decode/graphs.py); each such phase
+warms up (and so captures) before its counted run, counts the decode
+steps run and the host syncs with decode/segments.py's counters (replays
+included) beside the launch counters, and holds the captured tokens to an
+eager evaluator's (capture=False) on one batch.
 
 1. device: requires CUDA (no CPU fallback), prints the card's name and its
    `nvidia-smi --query-gpu=name,power.limit` line, turns TF32 off.
@@ -45,7 +52,8 @@ Phases, each printing its own line(s); any failure raises and exits non-zero:
 4. greedy end to end: random bf16 whisper-small (seeded), two batches of 8
    random 30 s clips through the port's ASREvaluator (mel ->
    encode(flash="hm") -> the int8 cache -> greedy, 64 new tokens), with the
-   launch counters zeroed before and read after; then the first batch
+   launch counters zeroed before and read after (K3 = 12 per step run, the
+   steps and host syncs those the tokens predict); then the first batch
    through the plain path, compared in lockstep (both paths fed the same
    tokens) and free running.
 5. routed end to end: the same model with a random 4-adapter bank (r=16,
@@ -104,18 +112,26 @@ Phases, each printing its own line(s); any failure raises and exits non-zero:
    4 over int8, s8 scores, one train row (accumulation 2), one routed row
    (LID at layer 3) and one serving row (16 requests), each with the
    launch counters zeroed before and read after and the decode steps
-   counted by layout: K3 = 12 per head-minor greedy step (K2 > 0), K5 =
+   run counted by layout: K3 = 12 per head-minor greedy step (K2 > 0), K5 =
    12 per head-minor beam step, K7 = 12 per s8 step, no decode kernel on
    the classic, bf16 and int4 rows; every row present, without "error",
    its agreement keys in [0, 1].
-11. lid: LIDTrainer at whisper-small (random weights), tap layer 3, mean
+11. graphs: the decode loop's compiled form at whisper-small, batch 8:
+   greedy at 64 and 256 new tokens and beam 4 at 64, each through an
+   eager evaluator (capture=False) and a captured one: the captured one's
+   first batch (eager pass + capture) on its own line with its graphs,
+   nodes, capture seconds and peak memory; then eager, captured,
+   captured, eager on one batch (at 256 tokens captured, eager): tokens equal, ms per step run, steps
+   needed and run, host syncs per batch, RTFx, peak memory, and launches
+   equal; one decode step captured alone against its eager logits.
+12. lid: LIDTrainer at whisper-small (random weights), tap layer 3, mean
    pooling, 4 synthetic languages: the frozen-feature pass
    (precompute_features; K1 = 4 per batch, counted), train_cached for
    LID_STEPS steps (ms per step) and evaluate_cached; then
    AdapterRouter.forward with labels under each strategy (hard, soft,
    threshold) on one batch: K6's forward 36 per teacher-forced pass (one
    pass for hard, one per adapter for soft), K1 = 4 for the LID tap.
-12. result: one JSON line with every kernel's numbers, then the last line
+13. result: one JSON line with every kernel's numbers, then the last line
    {"ok": true, "device": {...}}.
 
 With --kernels-only, it runs phases 1-3 and prints the kernel table
@@ -126,10 +142,12 @@ first on the path:
 runpy.run_path('<this file>', run_name='__main__')"
 
 With --profile, the routed, beam and s8 phases also run PROFILE_STEPS
-steady-state decode steps of the greedy, routed, beam and s8 paths under
-torch.profiler (after the counted runs), and the train phase one optimizer
-step, and print, for each, the wall and device time per step, the device
-busy share and the kernels that take the most time.
+steady-state eager decode steps of the greedy, routed, beam and s8 paths
+under torch.profiler (after the counted runs), the train phase one
+optimizer step, and the graphs phase one captured and one eager
+64-token greedy loop at batch 8 and one captured at PROFILE_BIG_BATCH, and
+print, for each, the wall and device time per
+step, the device busy share and the kernels that take the most time.
 """
 
 from __future__ import annotations
@@ -257,6 +275,12 @@ K8_HALF_FLOOR = 2e-3
 # BENCH_ITERS timed iterations; the serving row's requests.
 BENCH_ITERS = 2
 BENCH_SERVING_REQUESTS = 16
+# Graphs cell: eager against captured greedy at each of GRAPH_TOKENS new
+# tokens (beam BEAM_WIDTH at the first).
+GRAPH_TOKENS = (64, 256)
+# With --profile, the captured 64-token greedy loop is also profiled at this
+# batch, where the device sets the pace.
+PROFILE_BIG_BATCH = 128
 # LID cell: LID_ITEMS synthetic items per language, a cached-feature head
 # trained LID_STEPS steps in batches of LID_BATCH, teacher-forced labels
 # of LID_LABEL_LEN tokens for AdapterRouter.forward.
@@ -983,15 +1007,25 @@ def _kv_errors(name, got, want, t_valid):
     return flip, scale_err, deq_err
 
 
-def decode_steps(tokens, cfg, prompt_len: int) -> int:
-    """decode_step calls the greedy loop made: it stops once every row has
-    emitted EOS after the prompt, or at total - 1."""
+def decode_steps(tokens, cfg, prompt_len: int, segment: int = 32) -> tuple[int, int]:
+    """(steps needed, steps run) of a greedy batch's tokens: the loop needs
+    the steps up to the one after which every row has emitted EOS after the
+    prompt (or total - 1), and runs on to the end of the segment that holds
+    that step, where the host asks whether to stop (decode/segments.py)."""
+    from sar_tpu_torch.decode.segments import grid
     total = tokens.shape[1]
     gen = tokens[:, prompt_len:] == cfg.eos_token_id
-    if not bool(gen.any(1).all()):
-        return total - 1
-    first = gen.int().argmax(1) + prompt_len
-    return min(int(first.max()), total - 1)
+    needed = total - 1
+    if bool(gen.any(1).all()):
+        needed = min(int((gen.int().argmax(1) + prompt_len).max()), total - 1)
+    run = next(hi for lo, hi, _ in grid(total, segment) if lo < needed <= hi)
+    return needed, run
+
+
+def segments_run(total: int, steps_run: int, segment: int = 32) -> int:
+    """The segments (= host syncs) of a loop that ran `steps_run` steps."""
+    from sar_tpu_torch.decode.segments import grid
+    return sum(lo < steps_run for lo, _, _ in grid(total, segment))
 
 
 K6_NAMES = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
@@ -1006,8 +1040,13 @@ INT8 = dict(cross_kv_int8=True, self_kv_int8=True)   # the int8 head-minor cache
 
 
 def reset_counts():
+    """Every kernel's launch counter, the decode steps by path and the
+    decode loops' host syncs to 0."""
+    from sar_tpu_torch.decode import segments
     from sar_tpu_torch.ops import decode_cross, flash, flash_enc, kv_init
     from sar_tpu_torch.ops.attic import attention, decode_self
+    segments.STEPS.update(dict.fromkeys(segments.STEPS, 0))
+    segments.HOST_SYNCS = 0
     flash_enc.LAUNCHES = flash_enc.FUSED_LAUNCHES = 0
     kv_init.LAUNCHES = kv_init.LORA_LAUNCHES = 0
     decode_cross.LAUNCHES = decode_cross.BEAM_LAUNCHES = 0
@@ -1029,6 +1068,14 @@ def read_counts() -> dict:
                                    attention.LAUNCHES)))
 
 
+def read_steps() -> dict:
+    """Decode steps run by path (greedy, beam and s8 over the head-minor
+    cache, classic over the others) and the decode loops' host syncs, as
+    counted since reset_counts, captured replays included."""
+    from sar_tpu_torch.decode import segments
+    return {**segments.STEPS, "host_syncs": segments.HOST_SYNCS}
+
+
 def check_counts(path: str, counts: dict, want_zero: tuple) -> None:
     """Every kernel of the path launched, and none that is not on it."""
     missing = [k for k in KERNEL_NAMES if k not in want_zero and counts[k] == 0]
@@ -1037,6 +1084,28 @@ def check_counts(path: str, counts: dict, want_zero: tuple) -> None:
     extra = [k for k in want_zero if counts[k] != 0]
     if extra:
         fail(f"the {path} path launched {', '.join(extra)}, which is not on it")
+
+
+def check_steps(path: str, counts: dict, steps: dict, want_steps: int, want_syncs: int,
+                kernel: str | None, layers: int, key: str = "greedy") -> None:
+    """The decode steps run on `path` (by the step counters, replays
+    included) are those its tokens predict, the host synced once per
+    segment, and `kernel` launched once per layer of every step run."""
+    if steps[key] != want_steps or steps["host_syncs"] != want_syncs:
+        fail(f"{path}: {steps[key]} {key} steps and {steps['host_syncs']} host syncs run, "
+             f"the tokens predict {want_steps} and {want_syncs}")
+    if kernel is not None and counts[kernel] != layers * steps[key]:
+        fail(f"{path}: {kernel} launched {counts[kernel]} times in {steps[key]} steps, "
+             f"not {layers} per step")
+
+
+def check_captured_equals_eager(path: str, captured, eager) -> None:
+    """The captured decode's tokens equal the eager loop's on one batch."""
+    same = bool((captured == eager).all())
+    print(f"{path}: captured tokens {'equal' if same else 'DIFFER FROM'} the eager loop's "
+          f"(batch of {captured.shape[0]}, {captured.shape[1]} positions)")
+    if not same:
+        fail(f"{path}: the captured decode's tokens differ from the eager loop's")
 
 
 def make_model(cfg, device):
@@ -1085,36 +1154,48 @@ def phase_e2e(cfg, params, n_params, device, batch, n_batches, max_new_tokens,
         t.append(time.perf_counter())
         return tokens, [b - a_ for a_, b in zip(t, t[1:])]
 
-    # Warm-up batch (cuBLAS handles, allocator), not counted.
+    # Warm-up batch (the capture of the segments it reaches, cuBLAS
+    # handles, allocator), not counted: the counted batches replay.
     run(ev, audio[0])
+    if not ev.capture:
+        fail("the evaluator does not capture its decode loop on the card")
     reset_counts()
-    outs, wall = [], 0.0
+    outs, wall, syncs = [], 0.0, 0
     for i, a in enumerate(audio):
         t_b = time.perf_counter()
         tokens, (t_mel, t_prep, t_dec) = run(ev, a)
         dt = time.perf_counter() - t_b
         wall += dt
-        steps = decode_steps(tokens, cfg, P)
+        needed, steps = decode_steps(tokens, cfg, P)
+        syncs += segments_run(ev.total, steps)
         if tokens.shape != (batch, ev.total) or tokens.min() < 0 or tokens.max() >= cfg.vocab_size:
             fail(f"batch {i}: bad token tensor {tuple(tokens.shape)}")
         print(f"e2e batch {i}: wall {dt * 1e3:.1f} ms (mel {t_mel * 1e3:.1f}, "
-              f"prep {t_prep * 1e3:.1f}, decode {t_dec * 1e3:.1f} ms for {steps} steps "
-              f"= {t_dec * 1e3 / steps:.3f} ms/token-step at batch {batch})")
+              f"prep {t_prep * 1e3:.1f}, decode {t_dec * 1e3:.1f} ms for {steps} steps run "
+              f"({needed} needed) = {t_dec * 1e3 / steps:.3f} ms/token-step at batch {batch})")
         outs.append((tokens, steps, t_dec))
-    counts = read_counts()
+    counts, run_steps = read_counts(), read_steps()
     audio_s = n_batches * batch * mel_ops.CHUNK_SECONDS
     ms_tok = 1e3 * sum(o[2] for o in outs) / sum(o[1] for o in outs)
-    print(f"e2e: {audio_s} audio-s in {wall:.3f} s -> RTFx {audio_s / wall:.1f} | "
-          f"{ms_tok:.3f} ms/token-step (batch {batch}) | launches {json.dumps(counts)}")
+    print(f"e2e (captured): {audio_s} audio-s in {wall:.3f} s -> RTFx {audio_s / wall:.1f} | "
+          f"{ms_tok:.3f} ms/token-step (batch {batch}) | steps {json.dumps(run_steps)} | "
+          f"launches {json.dumps(counts)}")
     check_counts("greedy", counts, want_zero=("fused_kv_init_lora",
                                               "cross_decode_attention_exact_beam", *K6_NAMES,
                                               *K7_NAMES, *OFF_PATH))
+    check_steps("greedy", counts, run_steps, sum(o[1] for o in outs), syncs,
+                "cross_decode_attention_exact", cfg.decoder_layers)
+    # The captured loop against the eager one on the replayed batch 0.
+    eager = ASREvaluator(cfg, params, language=language, max_new_tokens=max_new_tokens,
+                         device=device, capture=False)
+    check_captured_equals_eager("greedy", outs[0][0], run(eager, audio[0])[0])
 
     # Lockstep: both paths fed the kernel path's tokens, argmax compared at
     # every generated position; then the plain path free-running.
     plain = ASREvaluator(cfg, params, language=language, max_new_tokens=max_new_tokens,
                          device=device, flash=False, kernels=False)
-    tok_k, steps, _ = outs[0]
+    tok_k = outs[0][0]
+    steps = decode_steps(tok_k, cfg, P)[0]
     feats = mel_ops.log_mel_spectrogram(
         audio[0], cfg.num_mel_bins, dtype=torch.bfloat16)[:, :, :cfg.num_audio_frames]
     cache_k, cache_p = ev.prep(feats), plain.prep(feats)
@@ -1235,19 +1316,31 @@ def phase_routed(cfg, params, device, batch, max_new_tokens, profile=False):
     cache, t_cache = fenced(lambda: router.cache(enc, idx, max_new_tokens))
     tok_k, t_dec = fenced(lambda: router.decode_from_cache(cache, idx))
     del enc, cache
-    steps = decode_steps(tok_k, cfg, router.prompt_len)
-    counts = read_counts()
+    steps, steps_run = decode_steps(tok_k, cfg, router.prompt_len)
+    counts, run_steps = read_counts(), read_steps()
     if tok_k.shape != (batch, router.prompt_len + max_new_tokens) or tok_k.min() < 0 \
             or tok_k.max() >= cfg.vocab_size:
         fail(f"routed generate: bad token tensor {tuple(tok_k.shape)}")
     print(f"routed generate, adapters {MIXED_ADAPTERS[:batch]}: adapted encode "
           f"{t_enc * 1e3:.1f} ms, cache (K4) {t_cache * 1e3:.1f} ms, decode "
-          f"{t_dec * 1e3:.1f} ms for {steps} steps = {t_dec * 1e3 / steps:.3f} "
-          f"ms/token-step at batch {batch}")
-    print(f"routed launches {json.dumps(counts)}")
+          f"{t_dec * 1e3:.1f} ms for {steps_run} steps run ({steps} needed) = "
+          f"{t_dec * 1e3 / steps_run:.3f} ms/token-step at batch {batch} (captured)")
+    print(f"routed steps {json.dumps(run_steps)} | launches {json.dumps(counts)}")
     check_counts("routed", counts, want_zero=("fused_kv_init",
                                               "cross_decode_attention_exact_beam", *K6_NAMES,
                                               *K7_NAMES, *OFF_PATH))
+    # The service's batches and the mixed one: K3 once per layer of every
+    # step run, replays included, and at least one host sync per batch.
+    if (counts["cross_decode_attention_exact"] != cfg.decoder_layers * run_steps["greedy"]
+            or run_steps["host_syncs"] < st["batches"] + 1):
+        fail(f"routed: K3 {counts['cross_decode_attention_exact']} for "
+             f"{run_steps['greedy']} steps, {run_steps['host_syncs']} host syncs for "
+             f"{st['batches'] + 1} batches")
+    eager = AdapterRouter(cfg, params, bank, lcfg, router.clf_params, ccfg, device=device,
+                          capture=False)
+    check_captured_equals_eager("routed", tok_k, eager.decode(eager.encode(feats, idx), idx,
+                                                              max_new_tokens))
+    del eager
 
     # LID overhead: tap (the first LID_LAYER + 1 encoder layers) + head.
     def lid():
@@ -1333,26 +1426,16 @@ def phase_beam(cfg, params, device, batch, max_new_tokens, profile=False):
     P = int(ev._prompt.shape[0])
     print(f"beam setup: {BEAM_ITEMS} synthetic {cfg.name} items, batches of {batch}, "
           f"K={K}, {time.perf_counter() - t0:.1f} s")
-    ev.tokens(feats)                                   # warm-up batch, not counted
+    ev.tokens(feats)                                   # warm-up batch (capture), not counted
     torch.cuda.synchronize()
 
-    steps = [0]
-    real_step = whisper.decode_step
-
-    def counting_step(*a, **k):
-        steps[0] += 1
-        return real_step(*a, **k)
-
     reset_counts()
-    whisper.decode_step = counting_step
-    try:
-        t0 = time.perf_counter()
-        res = ev.evaluate(loader, return_predictions=True)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    finally:
-        whisper.decode_step = real_step
-    counts = read_counts()
+    t0 = time.perf_counter()
+    res = ev.evaluate(loader, return_predictions=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, run_steps = read_counts(), read_steps()
+    steps = [run_steps["beam"]]
     if res["num_samples"] != BEAM_ITEMS or not all(
             np.isfinite(res[m]) and res[m] >= 0 for m in ("wer", "cer")):
         fail(f"beam evaluate: bad result {({k: res[k] for k in ('wer', 'cer', 'num_samples')})}")
@@ -1360,7 +1443,8 @@ def phase_beam(cfg, params, device, batch, max_new_tokens, profile=False):
     print(f"beam evaluate: WER {res['wer']:.4f} CER {res['cer']:.4f} over "
           f"{res['num_samples']} items (random weights: the path, not the accuracy) | "
           f"{audio_s:.0f} audio-s in {wall:.3f} s -> RTFx {audio_s / wall:.1f} | "
-          f"{steps[0]} decode steps | launches {json.dumps(counts)}")
+          f"{steps[0]} decode steps run (captured), {run_steps['host_syncs']} host syncs | "
+          f"launches {json.dumps(counts)}")
     check_counts("beam", counts, want_zero=("fused_kv_init_lora",
                                             "cross_decode_attention_exact", *K6_NAMES,
                                             *K7_NAMES, *OFF_PATH))
@@ -1376,13 +1460,9 @@ def phase_beam(cfg, params, device, batch, max_new_tokens, profile=False):
         return out, time.perf_counter() - t
 
     enc, t_enc = fenced(lambda: ev.encode(feats))
-    steps[0] = 0
-    whisper.decode_step = counting_step
-    try:
-        tok_k, t_dec = fenced(lambda: ev.beam(feats))
-    finally:
-        whisper.decode_step = real_step
-    n_steps = steps[0]
+    reset_counts()
+    tok_k, t_dec = fenced(lambda: ev.beam(feats))
+    n_steps = read_steps()["beam"]
     if tok_k.shape != (batch, ev.total) or tok_k.min() < 0 or tok_k.max() >= cfg.vocab_size:
         fail(f"beam decode: bad token tensor {tuple(tok_k.shape)}")
     print(f"beam batch 0: encode {t_enc * 1e3:.1f} ms, beam decode (cache + loop) "
@@ -1453,6 +1533,11 @@ def phase_beam(cfg, params, device, batch, max_new_tokens, profile=False):
           f"search {'reproduced' if replayed else 'did NOT reproduce'} the kernel path's tokens")
     if lock_best < LOCKSTEP_MIN_AGREEMENT or lock_near < LOCKSTEP_MIN_AGREEMENT:
         fail("the beam kernel path disagrees with the beam plain path")
+    eager = ASREvaluator(cfg, params, CharTokenizer(cfg), language="english",
+                         max_new_tokens=max_new_tokens, num_beams=K, device=device,
+                         capture=False)
+    check_captured_equals_eager("beam", tok_k, eager.tokens(feats))
+    del eager
     if profile:
         holder = {"state": beam_lib.init_state(prompt, K, total, cfg.eos_token_id)}
 
@@ -1505,28 +1590,17 @@ def phase_s8(cfg, params, device, batch, n_batches, max_new_tokens, profile=Fals
     if ev.flash != "hm" or not ev.kernels or not ev.scores_int8:
         fail(f"the s8 evaluator did not pick the kernels (flash={ev.flash!r})")
     P = int(ev._prompt.shape[0])
-    steps = [0]
-    real_step = whisper.decode_step
 
-    def counting_step(*a, **k):
-        steps[0] += 1
-        return real_step(*a, **k)
-
-    def counted(fn):
-        """fn() with the launch counters zeroed before and read after and
-        its decode steps counted: (out, counts, steps, wall seconds)."""
+    def counted(fn, key):
+        """fn() with the launch and step counters zeroed before and read
+        after: (out, counts, `key` steps run, wall seconds)."""
         torch.cuda.synchronize()
         reset_counts()
-        steps[0] = 0
-        whisper.decode_step = counting_step
-        try:
-            t0 = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        finally:
-            whisper.decode_step = real_step
-        return out, read_counts(), steps[0], wall
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return out, read_counts(), read_steps()[key], wall
 
     def mel(a):
         return mel_ops.log_mel_spectrogram(a, cfg.num_mel_bins,
@@ -1550,7 +1624,7 @@ def phase_s8(cfg, params, device, batch, n_batches, max_new_tokens, profile=Fals
 
     others = [k for k in KERNEL_NAMES if k not in ("encoder_attention_hm", "fused_kv_init")]
     greedy(ev, audio[:1])                                          # warm-up, not counted
-    outs, c_greedy, n_steps, wall = counted(lambda: greedy(ev, audio))
+    outs, c_greedy, n_steps, wall = counted(lambda: greedy(ev, audio), "s8")
     for i, (tokens, _) in enumerate(outs):
         check_tokens(f"s8 greedy batch {i}", tokens, ev.total)
     audio_s = n_batches * batch * mel_ops.CHUNK_SECONDS
@@ -1568,10 +1642,10 @@ def phase_s8(cfg, params, device, batch, n_batches, max_new_tokens, profile=Fals
     # fed the kernel path's tokens; then the gate's readings against the
     # exact-scores path on the same batch.
     plain = ASREvaluator(cfg, params, scores_int8=True, flash=False, kernels=False, **kw)
-    exact = ASREvaluator(cfg, params, **kw)
+    exact = ASREvaluator(cfg, params, capture=False, **kw)        # the gate's reference
     tok_k = outs[0][0]
     f0 = mel(audio[0])
-    lock_steps = decode_steps(tok_k, cfg, P)
+    lock_steps = decode_steps(tok_k, cfg, P)[0]
     cache_k, cache_p = ev.prep(f0), plain.prep(f0)
     agree, n, max_dlogit = 0, 0, 0.0
     with torch.no_grad():
@@ -1604,13 +1678,17 @@ def phase_s8(cfg, params, device, batch, n_batches, max_new_tokens, profile=Fals
           f"{min(4, P)} forced prompt steps {gate_dlogit:.4e}")
     if lock < LOCKSTEP_MIN_AGREEMENT:
         fail("the s8 kernel path disagrees with the s8 plain path")
+    eager = ASREvaluator(cfg, params, scores_int8=True, capture=False, **kw)
+    check_captured_equals_eager("s8 greedy", tok_k, eager.dec(eager.prep(f0)))
+    del eager
     if profile:
         step = lambda tok, pos, c: whisper.decode_step(params, tok, pos, c, cfg, scores_int8=True)
         profile_steps("s8 greedy", step, ev.prep(f0), tok_k, P)
 
     # Beams: one batch of `batch` samples x K beams, K7 beam-folded.
     ev_b = ASREvaluator(cfg, params, scores_int8=True, num_beams=K, **kw)
-    tok_b, c_beam, n_beam, wall_b = counted(lambda: ev_b.tokens(f0))
+    ev_b.tokens(f0)                                                # warm-up (capture)
+    tok_b, c_beam, n_beam, wall_b = counted(lambda: ev_b.tokens(f0), "s8")
     check_tokens("s8 beam", tok_b, ev_b.total)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1674,11 +1752,15 @@ def phase_s8(cfg, params, device, batch, n_batches, max_new_tokens, profile=Fals
     if lock_best < LOCKSTEP_MIN_AGREEMENT or lock_near < LOCKSTEP_MIN_AGREEMENT:
         fail("the s8 beam kernel path disagrees with the s8 beam plain path")
     del cache_k, cache_p, state
+    eager = ASREvaluator(cfg, params, scores_int8=True, num_beams=K, capture=False, **kw)
+    check_captured_equals_eager("s8 beam", tok_b, eager.tokens(f0))
+    del eager
 
     # int4: one greedy batch over the nibble-packed cache (plain torch; the
     # encoder is K1's), against the exact int8 path's tokens.
     ev4 = ASREvaluator(cfg, params, kv_int4=True, **kw)
-    out4, c_int4, n4, _ = counted(lambda: greedy(ev4, audio[:1]))
+    greedy(ev4, audio[:1])                                         # warm-up (capture)
+    out4, c_int4, n4, _ = counted(lambda: greedy(ev4, audio[:1]), "classic")
     tok4, t4 = out4[0]
     check_tokens("int4 greedy", tok4, ev4.total)
     check_counts("int4 greedy", c_int4, want_zero=(*others, "fused_kv_init"))
@@ -1728,6 +1810,22 @@ def profile_steps(name, step, cache, tokens, first_pos):
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
     print_profile(f"{name} decode", prof, wall_ms, PROFILE_STEPS)
+
+
+def profile_loop(label, ev, feats, n_steps):
+    """One greedy loop of evaluator `ev` over `feats` (its prep unprofiled)
+    under torch.profiler; printed per step run."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    cache = ev.prep(feats)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ev.dec(cache)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    print_profile(label, prof, wall_ms, n_steps, top_k=8)
 
 
 def print_profile(label, prof, wall_ms, n_steps, top_k=5):
@@ -1990,28 +2088,17 @@ def phase_fq(cfg, params, device, batch, n_batches, max_new_tokens):
     ev = ASREvaluator(cfg, params, flash="fq", **kw)
     hm = ASREvaluator(cfg, params, flash="hm", **kw)
     P = int(ev._prompt.shape[0])
-    steps = [0]
-    real_step = whisper.decode_step
 
-    def counting_step(*a, **k):
-        steps[0] += 1
-        return real_step(*a, **k)
-
-    def counted(fn):
-        """(fn(), launch counts, decode steps, wall seconds), the counters
-        zeroed before and read after."""
+    def counted(fn, key="greedy"):
+        """(fn(), launch counts, `key` decode steps run, wall seconds), the
+        counters zeroed before and read after."""
         torch.cuda.synchronize()
         reset_counts()
-        steps[0] = 0
-        whisper.decode_step = counting_step
-        try:
-            t0 = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        finally:
-            whisper.decode_step = real_step
-        return out, read_counts(), steps[0], wall
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return out, read_counts(), read_steps()[key], wall
 
     def mel(a):
         return mel_ops.log_mel_spectrogram(a, cfg.num_mel_bins,
@@ -2032,7 +2119,8 @@ def phase_fq(cfg, params, device, batch, n_batches, max_new_tokens):
             out.append((tokens, t1 - t0, time.perf_counter() - t1))
         return out
 
-    greedy(ev, audio[:1])                                          # warm-up, not counted
+    greedy(ev, audio[:1])                               # warm-ups (captures), not counted
+    greedy(hm, audio[:1])
     runs = {}
     for name, e in (("fq", ev), ("hm", hm)):
         runs[name] = counted(lambda e=e: greedy(e, audio))
@@ -2076,7 +2164,7 @@ def phase_fq(cfg, params, device, batch, n_batches, max_new_tokens):
 
     # Lockstep: both evaluators' caches of batch 0 fed the fq path's tokens.
     tok_f, tok_h = runs["fq"][0][0][0], runs["hm"][0][0][0]
-    lock_steps = decode_steps(tok_f, cfg, P)
+    lock_steps = decode_steps(tok_f, cfg, P)[0]
     cache_f, cache_h = ev.prep(f0), hm.prep(f0)
     agree, n, max_dlogit = 0, 0, 0.0
     with torch.no_grad():
@@ -2099,6 +2187,9 @@ def phase_fq(cfg, params, device, batch, n_batches, max_new_tokens):
           f"{(tok_f[:, P:] == tok_h[:, P:]).float().mean().item():.4f} (batch 0)")
     if lock < LOCKSTEP_MIN_AGREEMENT:
         fail("the fq path disagrees with the hm path")
+    eager = ASREvaluator(cfg, params, flash="fq", capture=False, **kw)
+    check_captured_equals_eager("fq greedy", tok_f, eager.dec(eager.prep(f0)))
+    del eager
 
     # An encoder q/v adapter: encode() takes "hm" (K1), not K8.
     lcfg = lora_lib.LoraConfig(r=LORA_RANK, alpha=LORA_ALPHA, dropout=0.0,
@@ -2121,14 +2212,162 @@ def phase_fq(cfg, params, device, batch, n_batches, max_new_tokens):
     enc = ev.encode(f0)
     tok_b, c_beam, n_beam, wall_b = counted(
         lambda: beam_decode(params, enc, cfg, ev._prompt, num_beams=K,
-                            max_new_tokens=max_new_tokens))
+                            max_new_tokens=max_new_tokens), "classic")
     if tok_b.shape != (batch, ev.total) or tok_b.min() < 0 or tok_b.max() >= cfg.vocab_size:
         fail(f"default beam: bad token tensor {tuple(tok_b.shape)}")
-    print(f"beam_decode with its defaults (unquantized classic cache, {batch} samples x {K} "
-          f"beams): {1e3 * wall_b / n_beam:.3f} ms/token-step over {n_beam} steps (cache + "
+    print(f"beam_decode with its defaults (the module function, eager; unquantized classic "
+          f"cache, {batch} samples x {K} beams): {1e3 * wall_b / n_beam:.3f} ms/token-step over {n_beam} steps (cache + "
           f"loop) | launches {json.dumps(c_beam)}")
     check_counts("default beam", c_beam, want_zero=KERNEL_NAMES)
     return {"fq": c_fq, "fq_lora": c_lora, "beam_default": c_beam}
+
+
+def phase_graphs(cfg, params, device, batch, profile=False):
+    """The decode loop's compiled form at whisper-small, batch `batch`, on
+    the greedy cell's clips: for greedy at each of GRAPH_TOKENS new tokens
+    and beam BEAM_WIDTH at the first, an eager evaluator (capture=False)
+    and a captured one (the default). The captured one's first batch (one
+    eager pass, then the capture and instantiation of every segment it
+    reaches) is timed on its own line with its graphs, nodes, seconds and
+    peak memory; then eager, captured, captured, eager on one batch (at the
+    longest greedy, captured then eager, once each), each
+    with its tokens (captured = eager), ms per step run, steps needed and
+    run, host syncs and peak memory. One decode step captured alone is held
+    to its eager logits. With `profile`, one captured and one eager 64-token
+    greedy loop under torch.profiler (wall, device time, busy share, top
+    kernels), and one captured at PROFILE_BIG_BATCH. Returns the launch
+    counts of the captured runs."""
+    import torch
+    from sar_tpu_torch.decode import beam_decode
+    from sar_tpu_torch.evaluation import ASREvaluator
+    from sar_tpu_torch.models import whisper
+    from sar_tpu_torch.ops import mel as mel_ops
+
+    g = torch.Generator(device=device).manual_seed(SEED + 1)      # the greedy cell's clips
+    audio = [torch.randn((batch, mel_ops.N_SAMPLES), generator=g, device=device) * 0.1
+             for _ in range(2)]
+    feats = [mel_ops.log_mel_spectrogram(a, cfg.num_mel_bins, dtype=torch.bfloat16)[
+        :, :, :cfg.num_audio_frames] for a in audio]
+    L, K = cfg.decoder_layers, BEAM_WIDTH
+    total_counts = dict.fromkeys(KERNEL_NAMES, 0)
+    t_phase = time.perf_counter()
+
+    def decode(ev, f):
+        """One batch: the prep, then the fenced loop -> (tokens, prep s,
+        loop s, steps, host syncs, launches, peak GB)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        cache = (ev.prep(f) if ev.num_beams == 1 else
+                 ev.runner.prep(ev.encode(f), ev.total, self_batch=batch * ev.num_beams,
+                                **ev._flags))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        reset_counts()
+        tokens = (ev.dec(cache) if ev.num_beams == 1 else
+                  ev.runner.beam(cache, ev._prompt, num_beams=ev.num_beams))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        st, c = read_steps(), read_counts()
+        return (tokens, t1 - t0, t2 - t1, sum(v for k, v in st.items() if k != "host_syncs"),
+                st["host_syncs"], c, torch.cuda.max_memory_allocated(device) / 1e9)
+
+    for new in (*GRAPH_TOKENS, None):
+        beams = 1 if new is not None else K
+        new = GRAPH_TOKENS[0] if new is None else new
+        label = f"greedy {new}" if beams == 1 else f"beam {beams} {new}"
+        kw = dict(language="hindi", max_new_tokens=new, num_beams=beams, device=device)
+        eager = ASREvaluator(cfg, params, capture=False, **kw)
+        cap = ASREvaluator(cfg, params, **kw)
+        # The capture pass: the key's first batch (batch 1), on its own.
+        first = decode(cap, feats[1])
+        gs = cap.runner.graph_stats()
+        print(f"graphs {label}: first batch of the key (eager pass + capture) prep "
+              f"{first[1] * 1e3:.1f} ms, loop {first[2] * 1e3:.1f} ms for {first[3]} steps | "
+              f"{gs['graphs']} graphs, {gs['nodes']} nodes ({gs['nodes'] / max(first[3], 1):.0f} "
+              f"per step), capture + instantiate {gs['capture_s']:.3f} s | peak "
+              f"{first[6]:.3f} GB")
+        runs = {"eager": [], "captured": []}
+        order = ((("eager", eager), ("captured", cap), ("captured", cap), ("eager", eager))
+                 if new == GRAPH_TOKENS[0] else (("captured", cap), ("eager", eager)))
+        for name, ev in order:
+            runs[name].append(decode(ev, feats[0]))
+        (tok_e, *_), (tok_c, *_) = runs["eager"][0], runs["captured"][0]
+        check_captured_equals_eager(f"graphs {label}", tok_c, tok_e)
+        if not all(torch.equal(r[0], tok_c) for r in runs["captured"] + runs["eager"]):
+            fail(f"graphs {label}: a repeated run changed the tokens")
+        if beams == 1:
+            needed, want_run = decode_steps(tok_c, cfg, len(cfg.prompt_ids("hindi")))
+        else:
+            # Beams: the steps a per-step stop check would run.
+            reset_counts()
+            beam_decode(params, eager.encode(feats[0]), cfg, eager._prompt, num_beams=K,
+                        max_new_tokens=new, segment=1, **INT8)
+            needed, want_run = read_steps()["beam"], runs["eager"][0][3]
+        c_e, c_c = runs["eager"][0][5], runs["captured"][0][5]
+        kernel = ("cross_decode_attention_exact" if beams == 1 else
+                  "cross_decode_attention_exact_beam")
+        for name, rs in runs.items():
+            steps, syncs = rs[0][3], rs[0][4]
+            ms = statistics.mean(r[2] for r in rs) * 1e3
+            prep = statistics.mean(r[1] for r in rs) * 1e3
+            audio_s = batch * mel_ops.CHUNK_SECONDS
+            print(f"graphs {label} {name}: loop {ms:.1f} ms = {ms / steps:.3f} ms per step run "
+                  f"({steps} run, {needed} needed) | prep {prep:.1f} ms | RTFx (prep + loop) "
+                  f"{audio_s * 1e3 / (prep + ms):.1f} | {syncs} host syncs per batch | peak "
+                  f"{max(r[6] for r in rs):.3f} GB | walls "
+                  f"{[round(r[2] * 1e3, 1) for r in rs]} ms")
+            if steps != want_run or syncs != segments_run(eager.total, steps):
+                fail(f"graphs {label} {name}: {steps} steps and {syncs} syncs, the tokens "
+                     f"predict {want_run} steps")
+        if c_e != c_c or c_c[kernel] != L * runs["captured"][0][3]:
+            fail(f"graphs {label}: captured launches {c_c}, eager {c_e}")
+        for k in KERNEL_NAMES:
+            total_counts[k] += sum(r[5][k] for r in runs["captured"])
+        if profile and beams == 1 and new == GRAPH_TOKENS[0]:
+            for name, ev in (("captured", cap), ("eager", eager)):
+                profile_loop(f"graphs greedy {new} {name} loop, batch {batch}", ev, feats[0],
+                             runs[name][0][3])
+        del eager, cap
+
+    if profile:
+        # The captured loop where the device, not the host, sets the pace.
+        big = [torch.randn((PROFILE_BIG_BATCH, mel_ops.N_SAMPLES), generator=g,
+                           device=device) * 0.1]
+        f_big = mel_ops.log_mel_spectrogram(big[0], cfg.num_mel_bins, dtype=torch.bfloat16)[
+            :, :, :cfg.num_audio_frames]
+        ev = ASREvaluator(cfg, params, language="hindi", max_new_tokens=GRAPH_TOKENS[0],
+                          device=device)
+        ev.dec(ev.prep(f_big))                                    # the capture pass
+        reset_counts()
+        ev.dec(ev.prep(f_big))
+        profile_loop(f"graphs greedy {GRAPH_TOKENS[0]} captured loop, batch "
+                     f"{PROFILE_BIG_BATCH}", ev, f_big, read_steps()["greedy"])
+        del ev, big, f_big
+
+    # One decode step captured alone against its eager logits.
+    ev = ASREvaluator(cfg, params, language="hindi", max_new_tokens=GRAPH_TOKENS[0],
+                      device=device, capture=False)
+    cache = ev.prep(feats[0])
+    ref = whisper.DecodeCache(*(x.clone() for x in cache))
+    tok = ev._prompt[:1].expand(batch).contiguous()
+    with torch.no_grad():
+        want, _ = whisper.decode_step(params, tok, 0, ref, cfg, self_len=32)
+        step = lambda: whisper.decode_step(params, tok, 0, cache, cfg, self_len=32)[0]
+        step()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            out = step()
+        graph.replay()
+    torch.cuda.synchronize()
+    dlogit = (out - want).abs().max().item()
+    print(f"graphs: one captured decode step against its eager logits: max |dlogit| "
+          f"{dlogit:.4e} ({'bit for bit' if dlogit == 0 else 'cuBLAS took another algorithm'})"
+          f" | argmax equal {bool(torch.equal(out.argmax(-1), want.argmax(-1)))}")
+    if not torch.equal(out.argmax(-1), want.argmax(-1)):
+        fail("graphs: the captured step's argmax differs from the eager step's")
+    print(f"graphs: {time.perf_counter() - t_phase:.1f} s | launches {json.dumps(total_counts)}")
+    return total_counts
 
 
 DECODE_KERNELS = ("cross_decode_attention_exact", "cross_decode_attention_exact_beam",
@@ -2140,7 +2379,6 @@ def phase_bench(cfg, device):
     with the launch counters and the decode steps (by cache layout) counted
     around each; returns the counts summed over the rows."""
     import torch
-    from sar_tpu_torch.models import whisper
     from sar_tpu_torch.scripts import benchmark
 
     common = ["--model", cfg.name, "--device", str(device), "--batch_sizes", str(BATCH),
@@ -2154,90 +2392,73 @@ def phase_bench(cfg, device):
             ("train", ["--train", "--train_accum", "2"]),
             ("routed", ["--routed", "--routed_lid_layer", str(LID_LAYER)]),
             ("serving", ["--serving", "--serving_requests", str(BENCH_SERVING_REQUESTS)])]
-    steps = {}
-    orig = whisper.decode_step
-
-    def counted_step(params, tokens, pos, cache, cfg_, **kw):
-        """decode_step, counted as a head-minor greedy, beam or s8 step, or
-        a step over a classic cache."""
-        if cache.cross_k.dim() != 4:
-            key = "classic"
-        elif kw.get("scores_int8"):
-            key = "s8"
-        else:
-            key = "beam" if kw.get("beam_width", 1) > 1 else "greedy"
-        steps[key] = steps.get(key, 0) + 1
-        return orig(params, tokens, pos, cache, cfg_, **kw)
-
     total = dict.fromkeys(KERNEL_NAMES, 0)
     t_phase = time.perf_counter()
-    whisper.decode_step = counted_step
-    try:
-        for name, extra in rows:
-            steps.clear()
-            torch.cuda.synchronize()
-            reset_counts()
-            t0 = time.perf_counter()
-            report = benchmark.main(common + extra)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            c = read_counts()
-            for k in total:
-                total[k] += c[k]
-            res = report["results"]
-            if len(res) != 1 or "error" in res[0]:
-                fail(f"bench {name}: want one row without an error, got {res}")
-            row = res[0]
-            agree = {k: v for k, v in row.items() if k.startswith("token_agreement")}
-            if any(not 0.0 <= v <= 1.0 for v in agree.values()):
-                fail(f"bench {name}: agreement out of [0, 1]: {agree}")
-            hm, beam, s8 = (steps.get(k, 0) for k in ("greedy", "beam", "s8"))
-            dec = {k: c[k] for k in DECODE_KERNELS}
-            print(f"bench {name}: {wall:.1f} s | {json.dumps(row)} | peak "
-                  f"{report.get('peak_mem_gb')} GB | steps {json.dumps(steps)} | "
-                  f"launches {json.dumps({k: v for k, v in c.items() if v})}")
-            want_dec = None
-            if name == "int8":
-                if row["layout"] != "head_minor" or "token_agreement_vs_classic" not in agree:
-                    fail(f"bench int8: layout {row['layout']}, agreement keys {list(agree)}")
-                if hm == 0 or c["fused_kv_init"] == 0:
-                    fail(f"bench int8: {hm} head-minor steps, K2 {c['fused_kv_init']}")
-                want_dec = dict.fromkeys(DECODE_KERNELS, 0) | {
-                    "cross_decode_attention_exact": 12 * hm}
-            elif name in ("int8 classic", "bf16", "int4"):
-                if row["layout"] != "classic" or hm + beam + s8 != 0:
-                    fail(f"bench {name}: layout {row['layout']}, head-minor steps "
-                         f"{hm + beam + s8}")
-                want_dec = dict.fromkeys(DECODE_KERNELS, 0)
-                if name == "int4" and "token_agreement_vs_int8" not in agree:
-                    fail("bench int4: no token_agreement_vs_int8")
-            elif name == "beam 4":
-                if beam == 0:
-                    fail("bench beam 4: no head-minor beam step")
-                want_dec = dict.fromkeys(DECODE_KERNELS, 0) | {
-                    "cross_decode_attention_exact_beam": 12 * beam}
-            elif name == "s8":
-                if "token_agreement_vs_bf16" not in agree or s8 == 0:
-                    fail(f"bench s8: agreement keys {list(agree)}, {s8} s8 steps")
-                want_dec = dict.fromkeys(DECODE_KERNELS, 0) | {
-                    "cross_decode_attention": 12 * s8}
-            elif name == "train":
-                if min(c[k] for k in K6_NAMES) == 0:
-                    fail(f"bench train: K6 launched {[c[k] for k in K6_NAMES]}")
-            elif name == "routed":
-                if c["fused_kv_init_lora"] == 0 or c["cross_decode_attention_exact"] != 12 * hm:
-                    fail(f"bench routed: K4 {c['fused_kv_init_lora']}, K3 "
-                         f"{c['cross_decode_attention_exact']} for {hm} steps")
-                if row["token_agreement_vs_oracle"] < LOCKSTEP_MIN_AGREEMENT:
-                    fail(f"bench routed: routed vs oracle tokens "
-                         f"{row['token_agreement_vs_oracle']}")
-            elif name == "serving":
-                if row["requests"] != BENCH_SERVING_REQUESTS or row["batches"] < 2:
-                    fail(f"bench serving: {row['requests']} requests in {row['batches']} batches")
-            if want_dec is not None and dec != want_dec:
-                fail(f"bench {name}: decode-kernel launches {dec}, the design says {want_dec}")
-    finally:
-        whisper.decode_step = orig
+    for name, extra in rows:
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        report = benchmark.main(common + extra)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = read_counts()
+        # Decode steps run by cache layout (head-minor greedy, beam, s8;
+        # classic), captured replays included.
+        steps = {k: v for k, v in read_steps().items() if v and k != "host_syncs"}
+        for k in total:
+            total[k] += c[k]
+        res = report["results"]
+        if len(res) != 1 or "error" in res[0]:
+            fail(f"bench {name}: want one row without an error, got {res}")
+        row = res[0]
+        agree = {k: v for k, v in row.items() if k.startswith("token_agreement")}
+        if any(not 0.0 <= v <= 1.0 for v in agree.values()):
+            fail(f"bench {name}: agreement out of [0, 1]: {agree}")
+        hm, beam, s8 = (steps.get(k, 0) for k in ("greedy", "beam", "s8"))
+        dec = {k: c[k] for k in DECODE_KERNELS}
+        print(f"bench {name}: {wall:.1f} s | {json.dumps(row)} | peak "
+              f"{report.get('peak_mem_gb')} GB | steps {json.dumps(steps)} | "
+              f"launches {json.dumps({k: v for k, v in c.items() if v})}")
+        want_dec = None
+        if name == "int8":
+            if row["layout"] != "head_minor" or "token_agreement_vs_classic" not in agree:
+                fail(f"bench int8: layout {row['layout']}, agreement keys {list(agree)}")
+            if hm == 0 or c["fused_kv_init"] == 0:
+                fail(f"bench int8: {hm} head-minor steps, K2 {c['fused_kv_init']}")
+            want_dec = dict.fromkeys(DECODE_KERNELS, 0) | {
+                "cross_decode_attention_exact": 12 * hm}
+        elif name in ("int8 classic", "bf16", "int4"):
+            if row["layout"] != "classic" or hm + beam + s8 != 0:
+                fail(f"bench {name}: layout {row['layout']}, head-minor steps "
+                     f"{hm + beam + s8}")
+            want_dec = dict.fromkeys(DECODE_KERNELS, 0)
+            if name == "int4" and "token_agreement_vs_int8" not in agree:
+                fail("bench int4: no token_agreement_vs_int8")
+        elif name == "beam 4":
+            if beam == 0:
+                fail("bench beam 4: no head-minor beam step")
+            want_dec = dict.fromkeys(DECODE_KERNELS, 0) | {
+                "cross_decode_attention_exact_beam": 12 * beam}
+        elif name == "s8":
+            if "token_agreement_vs_bf16" not in agree or s8 == 0:
+                fail(f"bench s8: agreement keys {list(agree)}, {s8} s8 steps")
+            want_dec = dict.fromkeys(DECODE_KERNELS, 0) | {
+                "cross_decode_attention": 12 * s8}
+        elif name == "train":
+            if min(c[k] for k in K6_NAMES) == 0:
+                fail(f"bench train: K6 launched {[c[k] for k in K6_NAMES]}")
+        elif name == "routed":
+            if c["fused_kv_init_lora"] == 0 or c["cross_decode_attention_exact"] != 12 * hm:
+                fail(f"bench routed: K4 {c['fused_kv_init_lora']}, K3 "
+                     f"{c['cross_decode_attention_exact']} for {hm} steps")
+            if row["token_agreement_vs_oracle"] < LOCKSTEP_MIN_AGREEMENT:
+                fail(f"bench routed: routed vs oracle tokens "
+                     f"{row['token_agreement_vs_oracle']}")
+        elif name == "serving":
+            if row["requests"] != BENCH_SERVING_REQUESTS or row["batches"] < 2:
+                fail(f"bench serving: {row['requests']} requests in {row['batches']} batches")
+        if want_dec is not None and dec != want_dec:
+            fail(f"bench {name}: decode-kernel launches {dec}, the design says {want_dec}")
     print(f"bench: {len(rows)} rows in {time.perf_counter() - t_phase:.1f} s | launches "
           f"{json.dumps(total)}")
     check_counts("bench", total, want_zero=("cross_decode_attention_beam", *OFF_PATH))
@@ -2354,8 +2575,10 @@ def main() -> int:
     phase_build()
     cfg = get_config(MODEL)
     params, n_params = make_model(cfg, device)
+    t0 = time.perf_counter()
     rows = (phase_kernels(cfg, device, BATCH) + phase_k6(cfg, device, BATCH)
             + phase_kernels_k8_k10(cfg, params, device, BATCH))
+    print(f"phase kernels: {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shapes", "extra")
     if "--kernels-only" in sys.argv[1:]:
@@ -2363,19 +2586,27 @@ def main() -> int:
         # no result line.
         print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r} for r in rows]}))
         return 0
-    by_path = {"greedy": phase_e2e(cfg, params, n_params, device, BATCH, N_BATCHES,
-                                   MAX_NEW_TOKENS),
-               "routed": phase_routed(cfg, params, device, BATCH, MAX_NEW_TOKENS,
-                                      profile="--profile" in sys.argv[1:]),
-               "beam": phase_beam(cfg, params, device, BATCH, MAX_NEW_TOKENS,
-                                  profile="--profile" in sys.argv[1:]),
-               "train": phase_train(cfg, params, device, BATCH,
-                                    profile="--profile" in sys.argv[1:]),
-               "s8": phase_s8(cfg, params, device, BATCH, N_BATCHES, MAX_NEW_TOKENS,
-                              profile="--profile" in sys.argv[1:]),
-               **phase_fq(cfg, params, device, BATCH, N_BATCHES, MAX_NEW_TOKENS),
-               "bench": phase_bench(cfg, device),
-               "lid": phase_lid(cfg, params, device)}
+    profile = "--profile" in sys.argv[1:]
+    phases = [("greedy", lambda: phase_e2e(cfg, params, n_params, device, BATCH, N_BATCHES,
+                                           MAX_NEW_TOKENS)),
+              ("routed", lambda: phase_routed(cfg, params, device, BATCH, MAX_NEW_TOKENS,
+                                              profile=profile)),
+              ("beam", lambda: phase_beam(cfg, params, device, BATCH, MAX_NEW_TOKENS,
+                                          profile=profile)),
+              ("train", lambda: phase_train(cfg, params, device, BATCH, profile=profile)),
+              ("s8", lambda: phase_s8(cfg, params, device, BATCH, N_BATCHES, MAX_NEW_TOKENS,
+                                      profile=profile)),
+              ("fq", lambda: phase_fq(cfg, params, device, BATCH, N_BATCHES, MAX_NEW_TOKENS)),
+              ("bench", lambda: phase_bench(cfg, device)),
+              ("graphs", lambda: phase_graphs(cfg, params, device, BATCH, profile=profile)),
+              ("lid", lambda: phase_lid(cfg, params, device))]
+    by_path = {}
+    for phase, run in phases:
+        t0 = time.perf_counter()
+        counts = run()
+        # phase_fq returns its counts by path (fq, fq_lora, beam_default).
+        by_path.update(counts if phase == "fq" else {phase: counts})
+        print(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}
         r["launches"] = sum(r["launches_by_path"].values())

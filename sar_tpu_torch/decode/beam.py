@@ -3,9 +3,14 @@
 The algorithm of transformers' `_beam_search`, as the JAX package runs it:
 beam width K, 2K candidates per step, separate running and finished sets
 merged by top-k, and the early-stopping heuristic of early_stopping=False.
-The JAX package runs it as one `lax.while_loop`; here it is a host loop
-over positions with one sync per step (whether any sample can still
-improve), as the port's greedy loop.
+The JAX package runs it as one `lax.while_loop` per segment; here each
+segment is a host loop over its positions, with JAX's `segment` grid
+(decode/segments.py: segment s reads the first min((s + 1) * segment,
+total) rows of the self cache) and one host sync per segment (whether any
+sample can still improve), as the port's greedy loop. A finished search
+leaves its state unchanged, so the tokens are those of a per-step check.
+The entry points replay each segment as a captured CUDA graph
+(decode/graphs.py), as JAX's wrap this loop in `jax.jit`.
 
 Semantics kept from the reference:
 - running scores start at 0 for beam 0 and -1e9 for the others (identical
@@ -38,10 +43,9 @@ per step with `torch.gather` instead of reordering the cache. The int4
 cache and `scores_int8` (kernel K7) keep the JAX package's physical
 reorder instead: after each step the self cache and its scales are
 gathered by the surviving beams' sources, within each sample (the cross
-slabs stay one per sample). The self cache is allocated at the full length
-`total`; the JAX package's `segment` only shortens its buffers and gives
-the same tokens, so the argument is accepted and changes nothing.
-`timestamps=True` is not ported and raises.
+slabs stay one per sample), in place and only over the segment's rows, as
+JAX gathers its segment-sized buffers. `timestamps=True` is not ported and
+raises.
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ from typing import NamedTuple
 
 import torch
 
+from sar_tpu_torch.decode import segments
 from sar_tpu_torch.models import whisper
 from sar_tpu_torch.models.config import WhisperConfig
 
@@ -169,17 +174,66 @@ def beam_select(state: BeamState, logits: torch.Tensor, pos: int,
                      anc=anc)
 
 
-def reorder_self_cache(cache: whisper.DecodeCache,
-                       src: torch.Tensor) -> whisper.DecodeCache:
-    """The physical reorder of the int4 and scores_int8 beams: the self
-    cache and its scales gathered so that new beam k of sample b takes the
-    rows of beam src[b, k] ([B, K], within the sample); the cross slabs,
-    one per sample, stay."""
+def reorder_self_cache(cache: whisper.DecodeCache, src: torch.Tensor,
+                       self_len: int | None = None) -> whisper.DecodeCache:
+    """The physical reorder of the int4 and scores_int8 beams, in place:
+    the first `self_len` rows (default all) of the self cache and its
+    scales gathered so that new beam k of sample b takes the rows of beam
+    src[b, k] ([B, K], within the sample); the cross slabs, one per sample,
+    stay. Returns `cache`."""
     B, K = src.shape
     rows = (torch.arange(B, device=src.device)[:, None] * K + src).reshape(-1)
-    return cache._replace(**{
-        f: getattr(cache, f).index_select(1, rows)
-        for f in ("self_k", "self_v", "self_k_scale", "self_v_scale")})
+    for f in ("self_k", "self_v", "self_k_scale", "self_v_scale"):
+        x = getattr(cache, f)[:, :, :, :self_len]
+        x.copy_(x.index_select(1, rows))
+    return cache
+
+
+def beam_segment(params: dict, cache: whisper.DecodeCache, cfg: WhisperConfig,
+                 state: BeamState, lo: int, hi: int, self_len: int,
+                 prompt_len: int, *, length_penalty: float = 1.0,
+                 lora: dict | None = None, adapter_idx=None,
+                 lora_scale: float = 1.0, scores_int8: bool = False,
+                 suppress: torch.Tensor | None = None,
+                 begin_suppress: torch.Tensor | None = None,
+                 kernels: bool = True) -> BeamState:
+    """Positions [lo, hi) of the beam loop over the first `self_len` rows
+    of the self cache -> the state after them (new tensors; the cache is
+    written in place). `adapter_idx` is per row of the B*K (beam-major).
+    Nothing here reads the device from the host: the body of one segment's
+    CUDA graph (decode/graphs.py)."""
+    B, K, total = state.run_seqs.shape
+    int4 = cache.self_k.shape[-1] == cfg.d_model // cfg.decoder_heads // 2
+    use_anc = K > 1 and not (int4 or scores_int8)
+    slots = torch.arange(K, device=state.anc.device)
+    for pos in range(lo, hi):
+        # This step writes each beam's row into its own slot: column `pos`
+        # of the ancestry is the identity.
+        state.anc[:, :, pos] = slots
+        logits, cache = whisper.decode_step(
+            params, state.run_seqs.reshape(B * K, total)[:, pos], pos, cache,
+            cfg, lora=lora, adapter_idx=adapter_idx, lora_scale=lora_scale,
+            scores_int8=scores_int8, beam_width=K,
+            ancestry=state.anc if use_anc else None, kernels=kernels,
+            self_len=self_len)
+        state = beam_select(state, logits, pos, prompt_len,
+                            length_penalty=length_penalty, eos=cfg.eos_token_id,
+                            suppress=suppress, begin_suppress=begin_suppress)
+        if K > 1 and not use_anc and pos + 1 >= prompt_len:
+            # Physical reorder: after the selection, column `pos` of the
+            # ancestry holds each new beam's source slot (alive_src).
+            reorder_self_cache(cache, state.anc[:, :, pos], self_len)
+    segments.STEPS[segments.step_kind(cache, K, scores_int8)] += hi - lo
+    return state
+
+
+def beam_row_adapters(adapter_idx, B: int, K: int, device):
+    """Per-sample adapter indices [B] -> per-row [B*K], beam-major, with no
+    host round trip (None stays None)."""
+    if adapter_idx is None:
+        return None
+    idx = torch.as_tensor(adapter_idx, device=device)
+    return idx[:, None].expand(B, K).reshape(B * K)
 
 
 @torch.no_grad()
@@ -210,12 +264,10 @@ def beam_decode(params: dict, enc_out: torch.Tensor, cfg: WhisperConfig,
     `lora` (a bank) adapts the cache build and every step, with adapter 0
     for the batch or `adapter_idx` [B] per sample (repeated K times for the
     steps). `scores_int8` decodes with s8 scores (kernel K7). `kernels=False`
-    runs the plain versions of the kernels on any device. `segment` changes
-    no token (see the module docstring)."""
-    del segment
+    runs the plain versions of the kernels on any device. `segment` as in
+    the module docstring."""
     if timestamps:
         raise NotImplementedError("beam_decode(timestamps=True) is not ported")
-    int4 = cross_kv_int4 or self_kv_int4
     B = enc_out.shape[0]
     K = num_beams
     dev = enc_out.device
@@ -232,34 +284,21 @@ def beam_decode(params: dict, enc_out: torch.Tensor, cfg: WhisperConfig,
                                cross_kv_int4=cross_kv_int4,
                                self_kv_int4=self_kv_int4, head_minor=head_minor,
                                self_batch=B * K, kernels=kernels)
-    idx_k = (None if adapter_idx is None else
-             torch.as_tensor(adapter_idx, device=dev).repeat_interleave(K))
+    idx_k = beam_row_adapters(adapter_idx, B, K, dev)
     suppress = (torch.as_tensor(suppress_ids, dtype=torch.int64, device=dev)
                 if suppress_ids else None)
     begin_suppress = (torch.as_tensor(begin_suppress_ids, dtype=torch.int64,
                                       device=dev)
                       if begin_suppress_ids else None)
     state = init_state(prompt, K, total, eos)
-    slots = torch.arange(K, device=dev)
-    use_anc = K > 1 and not (int4 or scores_int8)
-    for pos in range(total - 1):
-        if not bool(state.unsat.any()):
+    for lo, hi, self_len in segments.grid(total, segment):
+        state = beam_segment(params, cache, cfg, state, lo, hi, self_len, P,
+                             length_penalty=length_penalty, lora=lora,
+                             adapter_idx=idx_k, lora_scale=lora_scale,
+                             scores_int8=scores_int8, suppress=suppress,
+                             begin_suppress=begin_suppress, kernels=kernels)
+        if not segments.host_flag(state.unsat.any()):
             break
-        # This step writes each beam's row into its own slot: column `pos`
-        # of the ancestry is the identity.
-        state.anc[:, :, pos] = slots
-        logits, cache = whisper.decode_step(
-            params, state.run_seqs.reshape(B * K, total)[:, pos], pos, cache,
-            cfg, lora=lora, adapter_idx=idx_k, lora_scale=lora_scale,
-            scores_int8=scores_int8, beam_width=K,
-            ancestry=state.anc if use_anc else None, kernels=kernels)
-        state = beam_select(state, logits, pos, P,
-                            length_penalty=length_penalty, eos=eos,
-                            suppress=suppress, begin_suppress=begin_suppress)
-        if K > 1 and not use_anc and pos + 1 >= P:
-            # Physical reorder: after the selection, column `pos` of the
-            # ancestry holds each new beam's source slot (alive_src).
-            cache = reorder_self_cache(cache, state.anc[:, :, pos])
     # The finished slots stay sorted descending; slot 0 is the best (the
     # max-length finalization guarantees one exists).
     return state.fin_seqs[:, 0]

@@ -6,10 +6,19 @@ Greedy runs two phases per batch, as in the reference: `prep` (encoder +
 the int8 head-minor cross-KV cache, the int4 classic one, or with
 kv_int8=False the unquantized classic one in plain torch) and `dec`
 (the greedy loop over that cache). Beam search (`num_beams` > 1) runs the
-encoder alone and then `beam_decode`, which builds its own cache (one
-cross slab per sample, B*K self-cache rows). Both pass the cache flags
-(`kv_int8`, `kv_int4`) to the decode explicitly, as the JAX evaluator
-does: the decode functions' own default is the unquantized cache.
+encoder, a cache with one cross slab per sample and B*K self-cache rows,
+and the beam loop. Both pass the cache flags (`kv_int8`, `kv_int4`) to
+the decode explicitly, as the JAX evaluator does: the decode functions'
+own default is the unquantized cache.
+
+The evaluator holds its decode programs as the JAX evaluator holds its
+`jax.jit` programs: a `DecodeRunner` (decode/graphs.py) owns the static
+cache that `prep` writes (JAX donates it into `_decode`) and replays each
+segment of the greedy or beam loop as a CUDA graph captured at the first
+batch of its shape. `capture` chooses: None (the default) captures on a
+CUDA device and runs eagerly on the CPU, True on the CPU raises, False
+runs the loop eagerly (the yardstick); `kernels=False` runs eagerly. The
+prep stays eager.
 `flash` goes to `encode` as in the JAX evaluator: "hm" (kernel K1), "fq"
 (kernel K8, which `encode` turns into "hm" when an adapter holds q/k/v),
 False or True; "auto" is "hm" on the card. `evaluate` transcribes a
@@ -36,8 +45,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from sar_tpu_torch.decode.beam import beam_decode
-from sar_tpu_torch.decode.greedy import greedy_decode_from_cache, transcribe_tokens
+from sar_tpu_torch.decode.graphs import (CudaGraphCapture, DecodeRunner,
+                                         resolve_capture)
+from sar_tpu_torch.decode.greedy import transcribe_tokens
 from sar_tpu_torch.device import resolve_device, tree_to
 from sar_tpu_torch.models import whisper
 from sar_tpu_torch.models.config import WhisperConfig
@@ -70,7 +80,8 @@ class ASREvaluator:
 
     `lora` is a bank whose adapter 0 adapts every row (a single adapter, as
     the JAX evaluator takes it), with `lora_scale` = alpha / r; its cross_v
-    term rides kernel K4 in its broadcast form."""
+    term rides kernel K4 in its broadcast form. `capture` as in the module
+    docstring."""
 
     def __init__(self, cfg: WhisperConfig, params: dict, tokenizer=None,
                  language: str = "hindi", max_new_tokens: int = 256,
@@ -81,7 +92,7 @@ class ASREvaluator:
                  prompt_tokens=None, fallback: bool = False,
                  task: str = "transcribe", kv_int4: bool = False,
                  device: torch.device | str | None = None,
-                 kernels: bool = True):
+                 kernels: bool = True, capture: bool | None = None):
         lacking = {"mesh": mesh is not None, "fallback": fallback}
         missing = [name for name, asked in lacking.items() if asked]
         if missing:
@@ -118,6 +129,12 @@ class ASREvaluator:
                   else cfg.prompt_ids(language, task))
         self._prompt = torch.tensor(prompt, dtype=torch.int64, device=self.device)
         self.total = min(len(prompt) + max_new_tokens, cfg.max_target_positions)
+        self.capture = resolve_capture(capture, self.device, kernels)
+        self._flags = dict(cross_kv_int8=self.kv_int8, self_kv_int8=self.kv_int8,
+                           cross_kv_int4=self.kv_int4, self_kv_int4=self.kv_int4)
+        self.runner = DecodeRunner(self.params, cfg, lora=self.lora,
+                                   lora_scale=lora_scale, kernels=kernels,
+                                   capture=CudaGraphCapture if self.capture else None)
 
     @torch.no_grad()
     def encode(self, mel: torch.Tensor) -> torch.Tensor:
@@ -128,38 +145,27 @@ class ASREvaluator:
 
     @torch.no_grad()
     def prep(self, mel: torch.Tensor) -> whisper.DecodeCache:
-        """Encoder + cross-KV projection/quantization for one batch."""
-        return whisper.init_cache(self.params, self.encode(mel), self.cfg,
-                                  max_len=self.total, lora=self.lora,
-                                  lora_scale=self.lora_scale,
-                                  cross_kv_int8=self.kv_int8,
-                                  self_kv_int8=self.kv_int8,
-                                  cross_kv_int4=self.kv_int4,
-                                  self_kv_int4=self.kv_int4,
-                                  kernels=self.kernels)
+        """Encoder + cross-KV projection/quantization for one batch, into
+        the runner's static cache (the cache of the previous batch)."""
+        return self.runner.prep(self.encode(mel), self.total, **self._flags)
 
     def dec(self, cache: whisper.DecodeCache, prompts=None) -> torch.Tensor:
-        """The greedy loop over a prepared cache -> tokens [B, total].
-        `prompts` [B, P] gives each row its own prompt (default: the
-        evaluator's)."""
+        """The greedy loop over the cache `prep` returned -> tokens
+        [B, total]. `prompts` [B, P] gives each row its own prompt
+        (default: the evaluator's)."""
         prompts = self._prompt if prompts is None else prompts
-        return greedy_decode_from_cache(self.params, cache, self.cfg, prompts,
-                                        lora=self.lora,
-                                        lora_scale=self.lora_scale,
-                                        scores_int8=self.scores_int8,
-                                        kernels=self.kernels)
+        return self.runner.greedy(cache, prompts, scores_int8=self.scores_int8)
 
     def beam(self, mel: torch.Tensor, prompts=None) -> torch.Tensor:
-        """Encoder + beam search of `num_beams` -> the best beam's tokens
-        [B, total]."""
+        """Encoder + cache (one cross slab per sample) + beam search of
+        `num_beams` -> the best beam's tokens [B, total]."""
         prompts = self._prompt if prompts is None else prompts
-        return beam_decode(self.params, self.encode(mel), self.cfg, prompts,
-                           num_beams=self.num_beams,
-                           max_new_tokens=self.max_new_tokens, lora=self.lora,
-                           lora_scale=self.lora_scale,
-                           cross_kv_int8=self.kv_int8, self_kv_int8=self.kv_int8,
-                           cross_kv_int4=self.kv_int4, self_kv_int4=self.kv_int4,
-                           scores_int8=self.scores_int8, kernels=self.kernels)
+        enc = self.encode(mel)
+        cache = self.runner.prep(enc, self.total,
+                                 self_batch=enc.shape[0] * self.num_beams,
+                                 **self._flags)
+        return self.runner.beam(cache, prompts, num_beams=self.num_beams,
+                                scores_int8=self.scores_int8)
 
     def tokens(self, mel: torch.Tensor, prompts=None) -> torch.Tensor:
         """One batch's tokens [B, total]: beam search when num_beams > 1,

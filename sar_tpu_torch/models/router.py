@@ -10,7 +10,13 @@ cache (plain torch). `cache` / `decode` / `decode_from_cache` /
 `step`, the program the service runs, build and read the int8
 head-minor cache (its cross_v term through kernel K4, the bank slices
 gathered once per batch; K3 in every step), as the JAX service's routed
-program does; or, with `kv_int4`, the int4 classic one.
+program does; or, with `kv_int4`, the int4 classic one. They go through
+the router's `DecodeRunner` (decode/graphs.py): the cache is its static
+one, and each segment of the routed greedy loop is a CUDA graph captured
+once per shape and replayed per batch, with the batch's `adapter_idx`
+copied into the runner's static [B] buffer first. `capture` chooses as in
+ASREvaluator: None captures on a CUDA device with the kernels and runs
+eagerly otherwise, True on the CPU raises, False runs eagerly.
 
 The router runs on the CUDA card unless `device` says otherwise (see
 sar_tpu_torch/device.py); base, bank and classifier params are moved to
@@ -35,7 +41,8 @@ from pathlib import Path
 
 import torch
 
-from sar_tpu_torch.decode.greedy import greedy_decode, greedy_decode_from_cache
+from sar_tpu_torch.decode.graphs import (CudaGraphCapture, DecodeRunner,
+                                         resolve_capture)
 from sar_tpu_torch.device import resolve_device, tree_to
 from sar_tpu_torch.models import classifier as clf
 from sar_tpu_torch.models import lora as lora_lib
@@ -51,7 +58,7 @@ class AdapterRouter:
                  clf_cfg: clf.ClassifierConfig, strategy: str = "hard",
                  threshold: float = 0.7, flash: bool | str | None = None,
                  device: torch.device | str | None = None,
-                 kernels: bool = True):
+                 kernels: bool = True, capture: bool | None = None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.base_params = tree_to(base_params, self.device)
@@ -73,6 +80,10 @@ class AdapterRouter:
         self._prompts = torch.tensor(
             [cfg.prompt_ids(l) for l in self.languages], dtype=torch.int64,
             device=self.device)
+        self.capture = resolve_capture(capture, self.device, kernels)
+        self.runner = DecodeRunner(self.base_params, cfg, lora=self._bank,
+                                   lora_scale=lora_cfg.scale, kernels=kernels,
+                                   capture=CudaGraphCapture if self.capture else None)
 
     @property
     def prompt_len(self) -> int:
@@ -194,25 +205,21 @@ class AdapterRouter:
         """The int8 head-minor cache of the adapted encoder output, with
         each row's cross_v adapter (kernel K4); with `kv_int4`, the int4
         classic one, and with neither flag the unquantized classic one
-        (plain torch projections)."""
+        (plain torch projections). Written into the runner's static cache
+        (the previous batch's)."""
         total = min(self.prompt_len + max_new_tokens,
                     self.cfg.max_target_positions)
         int8 = kv_int8 and not kv_int4
-        return whisper.init_cache(self.base_params, enc, self.cfg, total,
-                                  lora=self._bank, adapter_idx=adapter_idx,
-                                  lora_scale=self.lora_cfg.scale,
-                                  cross_kv_int8=int8, self_kv_int8=int8,
-                                  cross_kv_int4=kv_int4, self_kv_int4=kv_int4,
-                                  kernels=self.kernels)
+        return self.runner.prep(enc, total, adapter_idx=adapter_idx,
+                                cross_kv_int8=int8, self_kv_int8=int8,
+                                cross_kv_int4=kv_int4, self_kv_int4=kv_int4)
 
     def decode_from_cache(self, cache: whisper.DecodeCache,
                           adapter_idx: torch.Tensor) -> torch.Tensor:
-        """The routed greedy loop over a prepared cache, each row with its
-        adapter and its language's prompt."""
-        return greedy_decode_from_cache(
-            self.base_params, cache, self.cfg, self._prompts[adapter_idx],
-            lora=self._bank, adapter_idx=adapter_idx,
-            lora_scale=self.lora_cfg.scale, kernels=self.kernels)
+        """The routed greedy loop over the cache `cache` returned, each row
+        with its adapter and its language's prompt."""
+        return self.runner.greedy(cache, self._prompts[adapter_idx],
+                                  adapter_idx=adapter_idx)
 
     def decode(self, enc: torch.Tensor, adapter_idx: torch.Tensor,
                max_new_tokens: int = 256, kv_int4: bool = False,
@@ -238,9 +245,9 @@ class AdapterRouter:
                  max_new_tokens: int = 256) -> torch.Tensor:
         """Batched routed transcription -> tokens [B, P + max_new_tokens],
         greedy over `greedy_decode`'s default (unquantized) cache, as the
-        JAX `generate`. `language` forces one adapter for every row;
-        `adapter_idx` gives each row's adapter (skipping LID); otherwise
-        LID picks them."""
+        JAX `generate`, through the runner. `language` forces one adapter
+        for every row; `adapter_idx` gives each row's adapter (skipping
+        LID); otherwise LID picks them."""
         B = input_features.shape[0]
         if language is not None:
             idx = torch.full((B,), self.lang_to_idx[language],
@@ -249,11 +256,8 @@ class AdapterRouter:
             idx = torch.as_tensor(adapter_idx, device=self.device).long()
         else:
             idx, _ = self.route(input_features)
-        return greedy_decode(self.base_params, self.encode(input_features, idx),
-                             self.cfg, self._prompts[idx],
-                             max_new_tokens=max_new_tokens, lora=self._bank,
-                             adapter_idx=idx, lora_scale=self.lora_cfg.scale,
-                             kernels=self.kernels)
+        return self.decode(self.encode(input_features, idx), idx,
+                           max_new_tokens, kv_int8=False)
 
     # -- Persistence ---------------------------------------------------------
     def save(self, path: str | Path) -> None:

@@ -687,6 +687,76 @@ def use_head_minor(*, cross_kv_int8: bool, self_kv_int8: bool,
             and not (cross_kv_int4 or self_kv_int4))
 
 
+CACHE_KINDS = ("plain", "int8_classic", "int8_head_minor", "int4")
+
+
+def cache_kind(*, cross_kv_int8: bool = False, self_kv_int8: bool = False,
+               cross_kv_int4: bool = False, self_kv_int4: bool = False,
+               head_minor: bool | None = None) -> str:
+    """The cache the flags ask for, one of CACHE_KINDS: "plain" (the
+    unquantized classic cache, no flag), "int8_head_minor" (both int8
+    flags; the layout K2-K5 and K7 use), "int8_classic" (both int8 flags
+    with head_minor=False) or "int4" (both int4 flags, which supersede the
+    int8 ones). `head_minor` defaults to `use_head_minor`'s choice; the
+    combinations the port has not got raise."""
+    int4 = cross_kv_int4 or self_kv_int4
+    if head_minor is None:
+        head_minor = use_head_minor(cross_kv_int8=cross_kv_int8,
+                                    self_kv_int8=self_kv_int8,
+                                    cross_kv_int4=cross_kv_int4,
+                                    self_kv_int4=self_kv_int4)
+    if head_minor and int4:
+        raise ValueError("head_minor (the s8-kernel layout) does not support "
+                         "int4 packing")
+    if int4 and not (cross_kv_int4 and self_kv_int4):
+        raise NotImplementedError("the port's int4 cache packs the cross and "
+                                  "the self K/V both")
+    int8 = cross_kv_int8 or self_kv_int8
+    if int8 and not int4 and not (cross_kv_int8 and self_kv_int8):
+        raise NotImplementedError("the port's int8 cache quantizes the cross "
+                                  "and the self K/V both")
+    if head_minor and not (cross_kv_int8 and self_kv_int8):
+        raise ValueError("head_minor requires an int8 KV cache "
+                         "(cross_kv_int8 and self_kv_int8)")
+    if head_minor:
+        return "int8_head_minor"
+    return "int4" if int4 else "int8_classic" if int8 else "plain"
+
+
+def empty_cache(cfg: WhisperConfig, batch: int, frames: int, max_len: int, *,
+                kind: str, self_batch: int | None = None,
+                dtype: torch.dtype = torch.float32,
+                device: torch.device | str = "cpu") -> DecodeCache:
+    """An uninitialised DecodeCache of `kind` (CACHE_KINDS) for `batch`
+    samples of `frames` encoder frames, `self_batch` (default `batch`)
+    self-cache rows of `max_len` positions; `dtype` is the compute dtype
+    (the plain cache's). `init_cache(out=)` fills it."""
+    if kind not in CACHE_KINDS:
+        raise ValueError(f"cache kind {kind!r} not in {CACHE_KINDS}")
+    L, H = cfg.decoder_layers, cfg.decoder_heads
+    hd = cfg.d_model // H
+    SB = batch if self_batch is None else self_batch
+    S = cross_pad_len(frames) if kind == "int8_head_minor" else frames
+    width = hd // 2 if kind == "int4" else hd
+    vdt = dtype if kind == "plain" else torch.int8
+
+    def new(shape, dt):
+        return torch.empty(shape, dtype=dt, device=device)
+
+    if kind == "int8_head_minor":
+        cross = (L, batch, S, cfg.d_model)
+    else:
+        cross = (L, batch, H, S, width)
+    scales = (lambda shape: None) if kind == "plain" else (
+        lambda shape: new(shape, torch.float32))
+    self_shape = (L, SB, H, max_len, width)
+    return DecodeCache(
+        self_k=new(self_shape, vdt), self_v=new(self_shape, vdt),
+        cross_k=new(cross, vdt), cross_v=new(cross, vdt),
+        cross_k_scale=scales((L, batch, H, S)), cross_v_scale=scales((L, batch, H, S)),
+        self_k_scale=scales(self_shape[:4]), self_v_scale=scales(self_shape[:4]))
+
+
 def init_cache(params: Params, enc_out: torch.Tensor, cfg: WhisperConfig,
                max_len: int, *, lora: Params | None = None,
                adapter_idx=None, lora_scale: float = 1.0,
@@ -694,7 +764,8 @@ def init_cache(params: Params, enc_out: torch.Tensor, cfg: WhisperConfig,
                self_kv_int8: bool = False, head_minor: bool | None = None,
                self_batch: int | None = None,
                kernels: bool = True, cross_kv_int4: bool = False,
-               self_kv_int4: bool = False) -> DecodeCache:
+               self_kv_int4: bool = False,
+               out: DecodeCache | None = None) -> DecodeCache:
     """The decode cache of `enc_out`: cross K/V projected once per batch
     and a zeroed self cache of `max_len` positions. By default, as in the
     JAX package, the unquantized classic cache (`_init_cache_classic`, plain
@@ -721,135 +792,107 @@ def init_cache(params: Params, enc_out: torch.Tensor, cfg: WhisperConfig,
     `kernels=False` runs the plain PyTorch version on any device (the
     reference path the card's results are compared with).
 
+    `out` (an `empty_cache` of the same kind and shapes) is written in
+    place and returned: the static cache a decode runner owns
+    (decode/graphs.py), the counterpart of the JAX package donating the
+    cache into its decode program, so that no second cache is alive beside
+    it. Its self cache and scales are zeroed, as a new one's are.
+
     `head_minor` defaults to `use_head_minor`'s choice; one int8 flag
     without the other raises."""
-    int4 = cross_kv_int4 or self_kv_int4
-    if head_minor is None:
-        head_minor = use_head_minor(cross_kv_int8=cross_kv_int8,
-                                    self_kv_int8=self_kv_int8,
-                                    cross_kv_int4=cross_kv_int4,
-                                    self_kv_int4=self_kv_int4)
-    if head_minor and int4:
-        raise ValueError("head_minor (the s8-kernel layout) does not support "
-                         "int4 packing")
-    if int4 and not (cross_kv_int4 and self_kv_int4):
-        raise NotImplementedError("the port's int4 cache packs the cross and "
-                                  "the self K/V both")
-    int8 = cross_kv_int8 or self_kv_int8
-    if int8 and not int4 and not (cross_kv_int8 and self_kv_int8):
-        raise NotImplementedError("the port's int8 cache quantizes the cross "
-                                  "and the self K/V both")
-    if head_minor and not (cross_kv_int8 and self_kv_int8):
-        raise ValueError("head_minor requires an int8 KV cache "
-                         "(cross_kv_int8 and self_kv_int8)")
-    if not head_minor:
-        return _init_cache_classic(params, enc_out, cfg, max_len, lora=lora,
-                                   adapter_idx=adapter_idx,
-                                   lora_scale=lora_scale,
-                                   self_batch=self_batch,
-                                   quant="int4" if int4 else
-                                   "int8" if int8 else None)
-    dec = params["decoder"]
+    kind = cache_kind(cross_kv_int8=cross_kv_int8, self_kv_int8=self_kv_int8,
+                      cross_kv_int4=cross_kv_int4, self_kv_int4=self_kv_int4,
+                      head_minor=head_minor)
     B, S, _ = enc_out.shape
-    H, hd = cfg.decoder_heads, cfg.d_model // cfg.decoder_heads
+    want = empty_cache(cfg, B, S, max_len, kind=kind, self_batch=self_batch,
+                       dtype=enc_out.dtype, device="meta")
+    if out is None:
+        out = empty_cache(cfg, B, S, max_len, kind=kind, self_batch=self_batch,
+                          dtype=enc_out.dtype, device=enc_out.device)
+    for name, w in want._asdict().items():
+        o = getattr(out, name)
+        if (o is None) != (w is None) or (o is not None and (
+                o.shape != w.shape or o.dtype != w.dtype
+                or o.device != enc_out.device or not o.is_contiguous())):
+            raise ValueError(f"init_cache: out.{name} is not a contiguous "
+                             f"{kind} cache field of {tuple(w.shape) if w is not None else None} "
+                             f"on {enc_out.device}")
+    for t in (out.self_k, out.self_v, out.self_k_scale, out.self_v_scale):
+        if t is not None:
+            t.zero_()
+    if kind != "int8_head_minor":
+        _init_cache_classic(params, enc_out, cfg, out, lora=lora,
+                            adapter_idx=adapter_idx, lora_scale=lora_scale,
+                            quant={"int4": "int4", "int8_classic": "int8"}.get(kind))
+        return out
+    dec = params["decoder"]
+    H = cfg.decoder_heads
     pad = cross_pad_len(S) - S
     enc_pad = F.pad(enc_out, (0, 0, 0, pad)) if pad else enc_out.contiguous()
     lay = dec["layers"]
     dec_lora = lora.get("decoder") if lora else None
+    slabs = (out.cross_k, out.cross_k_scale, out.cross_v, out.cross_v_scale)
     if dec_lora is not None and "cross_k" in dec_lora:
-        ck, cks, cv, cvs = _cross_kv_torch(enc_pad, lay, dec_lora, H, S,
-                                           lora_ctx(dec_lora, adapter_idx,
-                                                    lora_scale, enc_pad.dtype))
-    else:
-        kw = {}
-        if dec_lora is not None and "cross_v" in dec_lora:
-            a, b = dec_lora["cross_v"]["a"], dec_lora["cross_v"]["b"]
-            if adapter_idx is None:
-                va, vb = a[:, :1], b[:, :1]               # one shared adapter
-            else:
-                idx = torch.as_tensor(adapter_idx, device=a.device).long()
-                va, vb = a[:, idx], b[:, idx]             # [L, B, d, r]
-            kw = dict(va=va.to(enc_pad.dtype).contiguous(),
-                      vb=vb.to(enc_pad.dtype).contiguous(),
-                      lora_scale=lora_scale)
-        fn = fused_kv_init if kernels else fused_kv_init_reference
-        ck, cks, cv, cvs = fn(enc_pad, lay["cross_k"]["w"], lay["cross_v"]["w"],
-                              lay["cross_v"]["b"], n_heads=H, t_valid=S, **kw)
-    L = ck.shape[0]
-    SB = B if self_batch is None else self_batch
-    dev = enc_out.device
-    return DecodeCache(
-        self_k=torch.zeros((L, SB, H, max_len, hd), dtype=torch.int8, device=dev),
-        self_v=torch.zeros((L, SB, H, max_len, hd), dtype=torch.int8, device=dev),
-        cross_k=ck, cross_v=cv, cross_k_scale=cks, cross_v_scale=cvs,
-        self_k_scale=torch.zeros((L, SB, H, max_len), device=dev),
-        self_v_scale=torch.zeros((L, SB, H, max_len), device=dev))
+        _cross_kv_torch(enc_pad, lay, dec_lora, H, S,
+                        lora_ctx(dec_lora, adapter_idx, lora_scale, enc_pad.dtype),
+                        slabs)
+        return out
+    kw = {}
+    if dec_lora is not None and "cross_v" in dec_lora:
+        a, b = dec_lora["cross_v"]["a"], dec_lora["cross_v"]["b"]
+        if adapter_idx is None:
+            va, vb = a[:, :1], b[:, :1]               # one shared adapter
+        else:
+            idx = torch.as_tensor(adapter_idx, device=a.device).long()
+            va, vb = a[:, idx], b[:, idx]             # [L, B, d, r]
+        kw = dict(va=va.to(enc_pad.dtype).contiguous(),
+                  vb=vb.to(enc_pad.dtype).contiguous(),
+                  lora_scale=lora_scale)
+    fn = fused_kv_init if kernels else fused_kv_init_reference
+    fn(enc_pad, lay["cross_k"]["w"], lay["cross_v"]["w"], lay["cross_v"]["b"],
+       n_heads=H, t_valid=S, out=slabs, **kw)
+    return out
 
 
 def _init_cache_classic(params: Params, enc_out: torch.Tensor,
-                        cfg: WhisperConfig, max_len: int, *,
+                        cfg: WhisperConfig, out: DecodeCache, *,
                         lora: Params | None = None, adapter_idx=None,
                         lora_scale: float = 1.0,
-                        self_batch: int | None = None,
-                        quant: str | None = None) -> DecodeCache:
-    """A classic-layout cache (plain torch, as the JAX package's jnp body):
-    each layer's (adapted) projection of `enc_out` split into heads, cross
-    K/V [L, B, H, S, hd] in the compute dtype and a zeroed self cache
-    [L, self_batch, H, max_len, hd] with no scales; with `quant` "int8",
-    both quantized per row by `quantize_kv` (s8, fp32 scales [.., S]); with
-    "int4", both nibble-packed by `quantize_kv4` ([.., hd/2] s8)."""
+                        quant: str | None = None) -> None:
+    """The cross fields of a classic-layout cache `out` (plain torch, as the
+    JAX package's jnp body): each layer's (adapted) projection of `enc_out`
+    split into heads, cross K/V [L, B, H, S, hd] in the compute dtype; with
+    `quant` "int8", quantized per row by `quantize_kv` (s8, fp32 scales
+    [.., S]); with "int4", nibble-packed by `quantize_kv4` ([.., hd/2] s8).
+    Written layer by layer into `out`, as the JAX package's scan body
+    quantizes per layer: the fp32 temporaries of one layer, not of the
+    whole stack."""
     lay = params["decoder"]["layers"]
-    B = enc_out.shape[0]
-    H, hd = cfg.decoder_heads, cfg.d_model // cfg.decoder_heads
+    H = cfg.decoder_heads
     dec_lora = lora.get("decoder") if lora else None
     ctx = lora_ctx(dec_lora, adapter_idx, lora_scale, enc_out.dtype)
-    L = lay["cross_k"]["w"].shape[0]
-    # Quantized per layer, as the JAX package's scan body does: the fp32
-    # temporaries of one layer, not of the whole stack.
     quantize = quantize_kv4 if quant == "int4" else quantize_kv
-    ks, vs, kss, vss = [], [], [], []
-    for l in range(L):
+    for l in range(lay["cross_k"]["w"].shape[0]):
         p, lo = _layer(lay, l), (_layer(dec_lora, l) if dec_lora else {})
         k = split_heads(_proj(enc_out, p["cross_k"], lo.get("cross_k"), ctx, 5), H)
         v = split_heads(_proj(enc_out, p["cross_v"], lo.get("cross_v"), ctx, 6), H)
         if quant is not None:
-            (k, k_s), (v, v_s) = quantize(k), quantize(v)
-            kss.append(k_s)
-            vss.append(v_s)
-        ks.append(k)
-        vs.append(v)
-    ck, cv = torch.stack(ks), torch.stack(vs)
-    cks, cvs = (torch.stack(kss), torch.stack(vss)) if quant is not None else (None, None)
-    SB = B if self_batch is None else self_batch
-    dev = enc_out.device
-    shape = (L, SB, H, max_len, hd // 2 if quant == "int4" else hd)
-    dtype = enc_out.dtype if quant is None else torch.int8
-    scales = (lambda: None) if quant is None else (
-        lambda: torch.zeros(shape[:4], device=dev))
-    return DecodeCache(
-        self_k=torch.zeros(shape, dtype=dtype, device=dev),
-        self_v=torch.zeros(shape, dtype=dtype, device=dev),
-        cross_k=ck, cross_v=cv, cross_k_scale=cks, cross_v_scale=cvs,
-        self_k_scale=scales(), self_v_scale=scales())
+            (k, out.cross_k_scale[l]), (v, out.cross_v_scale[l]) = quantize(k), quantize(v)
+        out.cross_k[l], out.cross_v[l] = k, v
 
 
-def _cross_kv_torch(enc_pad, lay, dec_lora, n_heads, t_valid, ctx):
+def _cross_kv_torch(enc_pad, lay, dec_lora, n_heads, t_valid, ctx, out):
     """Cross K/V of every layer through `_proj` (LoRA on cross_k and/or
-    cross_v) and `quantize_rows`: the cache build of banks that adapt
-    cross_k, which K4 does not take."""
-    L = lay["cross_k"]["w"].shape[0]
-    B, S, D = enc_pad.shape
-    kq = torch.empty((L, B, S, D), dtype=torch.int8, device=enc_pad.device)
-    vq = torch.empty_like(kq)
-    ks = torch.empty((L, B, n_heads, S), device=enc_pad.device)
-    vs = torch.empty_like(ks)
-    for l in range(L):
+    cross_v) and `quantize_rows`, into the head-minor slabs `out` (kq, ks,
+    vq, vs): the cache build of banks that adapt cross_k, which K4 does
+    not take."""
+    kq, ks, vq, vs = out
+    for l in range(lay["cross_k"]["w"].shape[0]):
         p, lo = _layer(lay, l), _layer(dec_lora, l)
         kq[l], ks[l] = quantize_rows(_proj(enc_pad, p["cross_k"], lo.get("cross_k"), ctx),
                                      n_heads, t_valid)
         vq[l], vs[l] = quantize_rows(_proj(enc_pad, p["cross_v"], lo.get("cross_v"), ctx),
                                      n_heads, t_valid)
-    return kq, ks, vq, vs
 
 
 def _attention_int8(q, kq, ks, vq, vs, mask=None):
@@ -974,10 +1017,21 @@ def decode_step(params: Params, tokens: torch.Tensor, pos: int,
                 lora: Params | None = None, adapter_idx=None,
                 lora_scale: float = 1.0, scores_int8: bool = False,
                 beam_width: int = 1, ancestry: torch.Tensor | None = None,
-                kernels: bool = True) -> tuple[torch.Tensor, DecodeCache]:
+                kernels: bool = True,
+                self_len: int | None = None) -> tuple[torch.Tensor, DecodeCache]:
     """One autoregressive step. tokens: [B] int64 at position `pos` (< the
     self cache's max_len). Returns (logits [B, V] fp32, cache), the self
     cache updated in place at column `pos`.
+
+    `self_len` (pos < self_len <= max_len; default max_len): the
+    self-attention reads only the first `self_len` rows of the self cache
+    and its scales (a view, the position mask cut to match), as the JAX
+    package's segment buffers of hi_s = min((s + 1) * segment, total) rows
+    do (decode/greedy.py). Every self-attention form takes it: the plain,
+    int8, s8 and int4 reads and the beams' ancestry read. Nothing in a step
+    copies from the host or waits for the device, so that a decode runner
+    can capture it (decode/graphs.py): `adapter_idx` and `ancestry` are
+    device tensors there.
 
     The cross path over the int8 head-minor cache goes through a decode
     kernel (ops/decode_cross.py): K3/K5, or K7 with `scores_int8`, which
@@ -1021,12 +1075,16 @@ def decode_step(params: Params, tokens: torch.Tensor, pos: int,
     if cache.cross_k.shape[1] * beam_width != B:
         raise ValueError(f"{B} rows do not fold into beams of {beam_width} "
                          f"over {cache.cross_k.shape[1]} cross slabs")
+    max_len = cache.self_k.shape[3]
+    n = max_len if self_len is None else self_len
+    if not pos < n <= max_len:
+        raise ValueError(f"self_len {n} must hold position {pos} and fit the "
+                         f"self cache's {max_len} rows")
     dec = params["decoder"]
     dtype = dec["token_embed"].dtype
-    max_len = cache.self_k.shape[3]
     x = dec["token_embed"][tokens][:, None, :].to(dtype)         # [B, 1, d]
     x = x + dec["pos_embed"][pos].to(dtype)
-    pos_mask = (torch.arange(max_len, device=x.device) <= pos)[None, None, None, :]
+    pos_mask = (torch.arange(n, device=x.device) <= pos)[None, None, None, :]
     scaling = (cfg.d_model // H) ** -0.5
     cross = cross_decode_attention_exact if kernels else cross_decode_reference_exact
     self_attn = (_attention_int4 if self_int4 else
@@ -1043,16 +1101,16 @@ def decode_step(params: Params, tokens: torch.Tensor, pos: int,
         q = _proj(h, p["self_q"], lo.get("self_q"), ctx) * scaling
         k = split_heads(_proj(h, p["self_k"], lo.get("self_k"), ctx), H)
         v = split_heads(_proj(h, p["self_v"], lo.get("self_v"), ctx), H)
+        # The first n rows of layer l's self cache (all of it by default).
+        sk, sv = cache.self_k[l, :, :, :n], cache.self_v[l, :, :, :n]
         if plain_cache:
             cache.self_k[l, :, :, pos] = k[:, :, 0]
             cache.self_v[l, :, :, pos] = v[:, :, 0]
             if ancestry is not None:
-                a = _self_attention_beam(split_heads(q, H), cache.self_k[l],
-                                         cache.self_v[l], None, None, ancestry,
-                                         pos, beam_width)
+                a = _self_attention_beam(split_heads(q, H), sk, sv, None, None,
+                                         ancestry, pos, beam_width)
             else:
-                a = attention(split_heads(q, H), cache.self_k[l],
-                              cache.self_v[l], mask=pos_mask)
+                a = attention(split_heads(q, H), sk, sv, mask=pos_mask)
         else:
             kq, ks = quant(k)
             vq, vs = quant(v)
@@ -1060,15 +1118,12 @@ def decode_step(params: Params, tokens: torch.Tensor, pos: int,
             cache.self_v[l, :, :, pos] = vq[:, :, 0]
             cache.self_k_scale[l, :, :, pos] = ks[:, :, 0]
             cache.self_v_scale[l, :, :, pos] = vs[:, :, 0]
+            sks, svs = cache.self_k_scale[l, :, :, :n], cache.self_v_scale[l, :, :, :n]
             if ancestry is not None:
-                a = _self_attention_beam(split_heads(q, H), cache.self_k[l],
-                                         cache.self_v[l], cache.self_k_scale[l],
-                                         cache.self_v_scale[l], ancestry, pos,
-                                         beam_width)
+                a = _self_attention_beam(split_heads(q, H), sk, sv, sks, svs,
+                                         ancestry, pos, beam_width)
             else:
-                a = self_attn(split_heads(q, H), cache.self_k[l],
-                              cache.self_k_scale[l], cache.self_v[l],
-                              cache.self_v_scale[l], mask=pos_mask)
+                a = self_attn(split_heads(q, H), sk, sks, sv, svs, mask=pos_mask)
         x = x + _proj(merge_heads(a), p["self_o"], lo.get("self_o"), ctx)
         # Cross-attention: exact over the classic cache, int4 or int8 over
         # the quantized classic slabs, or over the head-minor int8 slabs of layer

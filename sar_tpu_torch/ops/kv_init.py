@@ -20,7 +20,9 @@ and is rounded to the compute dtype once before the quantization.
 `fused_kv_init_reference`; CUDA tensors launch the hand-written kernel
 (csrc/kv_init.cu: K2, or K4 with `va`/`vb`: the same tensor-core kernel
 after a launch that sums u = x @ va into a scratch the wrapper allocates)
-or raise. The kernels take bf16, head_dim 64 and S_pad a multiple of 64 (in
+or raise. Both write into `out` (kq, ks, vq, vs) when it is given: the
+slabs of a decode cache that its owner keeps (whisper.init_cache(out=)),
+so that no second cross cache is allocated beside it. The kernels take bf16, head_dim 64 and S_pad a multiple of 64 (in
 the configuration `kv_config` picks); K4 takes ranks up to 64 (the
 wrapper zero-pads r to a multiple of 16, which leaves the delta
 unchanged).
@@ -93,20 +95,17 @@ def fused_kv_init_reference(enc_pad: torch.Tensor, wk: torch.Tensor,
                             n_heads: int, t_valid: int,
                             va: torch.Tensor | None = None,
                             vb: torch.Tensor | None = None,
-                            lora_scale: float = 1.0):
+                            lora_scale: float = 1.0, out=None):
     """Plain version: per layer, fp32 products (+ fp32 bias on V, + the
     fp32 LoRA term of the rounded u when `va`/`vb` are given) rounded to
     enc_pad's dtype, then `quantize_rows` — the TPU kernels' quantization
-    points."""
+    points. Writes into `out` (kq, ks, vq, vs) when given."""
     B, S, D = enc_pad.shape
     L = wk.shape[0]
     dtype = enc_pad.dtype
     x32 = enc_pad.float()
-    kq = torch.empty((L, B, S, D), dtype=torch.int8, device=enc_pad.device)
-    vq = torch.empty_like(kq)
-    ks = torch.empty((L, B, n_heads, S), dtype=torch.float32,
-                     device=enc_pad.device)
-    vs = torch.empty_like(ks)
+    kq, ks, vq, vs = output_slabs("fused_kv_init_reference", out, L, B, S, D,
+                                  n_heads, enc_pad.device)
     for l in range(L):
         k32 = x32 @ wk[l].float()
         v32 = x32 @ wv[l].float() + bv[l].float()
@@ -121,14 +120,15 @@ def fused_kv_init_reference(enc_pad: torch.Tensor, wk: torch.Tensor,
 def fused_kv_init(enc_pad: torch.Tensor, wk: torch.Tensor, wv: torch.Tensor,
                   bv: torch.Tensor, *, n_heads: int, t_valid: int,
                   va: torch.Tensor | None = None,
-                  vb: torch.Tensor | None = None, lora_scale: float = 1.0):
+                  vb: torch.Tensor | None = None, lora_scale: float = 1.0,
+                  out=None):
     """enc_pad [B, S_pad, D], wk/wv [L, D, D], bv [L, D] (+ optional va
     [L, B|1, D, r], vb [L, B|1, r, D]) -> (kq [L, B, S_pad, D] s8,
-    ks [L, B, H, S_pad] f32, vq, vs)."""
+    ks [L, B, H, S_pad] f32, vq, vs), written into `out` when given."""
     if enc_pad.device.type == "cpu":
         return fused_kv_init_reference(enc_pad, wk, wv, bv, n_heads=n_heads,
                                        t_valid=t_valid, va=va, vb=vb,
-                                       lora_scale=lora_scale)
+                                       lora_scale=lora_scale, out=out)
     if (va is None) != (vb is None):
         raise ValueError("fused_kv_init: va and vb come together")
     global LAUNCHES, LORA_LAUNCHES
@@ -156,10 +156,7 @@ def fused_kv_init(enc_pad: torch.Tensor, wk: torch.Tensor, wv: torch.Tensor,
                    f"{name}: no kernel configuration takes S_pad={S} with "
                    f"{n_heads} heads and rank {r}")
     dev = enc_pad.device
-    kq = torch.empty((L, B, S, D), dtype=torch.int8, device=dev)
-    vq = torch.empty_like(kq)
-    ks = torch.empty((L, B, n_heads, S), dtype=torch.float32, device=dev)
-    vs = torch.empty_like(ks)
+    kq, ks, vq, vs = output_slabs(name, out, L, B, S, D, n_heads, dev)
     lib = _build.load()
     if va is None:
         _build.check(lib.sar_fused_kv_init(
@@ -182,6 +179,22 @@ def fused_kv_init(enc_pad: torch.Tensor, wk: torch.Tensor, wv: torch.Tensor,
         _build.stream_of(enc_pad)), name)
     LORA_LAUNCHES += 1
     return kq, ks, vq, vs
+
+
+def output_slabs(name, out, L, B, S, D, n_heads, device):
+    """(kq, ks, vq, vs): `out` checked against the shapes, dtypes and
+    device the kernels write (contiguous), or new tensors when it is None."""
+    want = ((L, B, S, D), torch.int8), ((L, B, n_heads, S), torch.float32)
+    if out is None:
+        kq, ks = (torch.empty(shape, dtype=dt, device=device) for shape, dt in want)
+        return kq, ks, torch.empty_like(kq), torch.empty_like(ks)
+    _build.require(len(out) == 4, f"{name}: out is (kq, ks, vq, vs)")
+    for t, (shape, dt) in zip(out, want + want):
+        _build.require(tuple(t.shape) == shape and t.dtype == dt
+                       and t.device == device and t.is_contiguous(),
+                       f"{name}: out wants contiguous {shape} {dt} on {device}, "
+                       f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+    return tuple(out)
 
 
 def _lora_slices(name, va, vb, L, B, D):

@@ -26,6 +26,14 @@ values); no checkpoint is read. The rows:
 - `--serving`: `--serving_requests` clips pushed from as many client
   threads through a `TranscriptionService`.
 
+The config and routed rows time the decode programs users run: a
+`DecodeRunner` (decode/graphs.py, the evaluator's and the router's), whose
+greedy or beam loop replays one captured CUDA graph per segment, as the
+JAX CLI times `jax.jit` programs. `--capture` auto (the default) captures
+on the card and runs eagerly on the CPU; off times the eager loop, on
+requires the card. The capture happens in the warm-up call, so the timed
+iterations are replays; its cost is printed on a line of its own.
+
 Every timed region is fenced by a CUDA sync on both sides;
 `seconds_per_batch` (`s_per_step`, `routed_s_per_batch`, ...) is the mean
 over `--iters` iterations after one warm-up, and each row also carries its
@@ -118,6 +126,10 @@ def parse_args(argv=None):
                         "config rows (capacity probes)")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: the CUDA card)")
+    p.add_argument("--capture", type=str, default="auto",
+                   choices=["auto", "on", "off"],
+                   help="Decode loop as captured CUDA graphs (auto: on the "
+                        "card) or eager (off)")
     p.add_argument("--output", type=str, default=None)
     args = p.parse_args(argv)
     meshes = [f"--{k} {getattr(args, k)}" for k in ("dp", "tp", "dcn_dp")
@@ -184,7 +196,7 @@ def _agreement(a: torch.Tensor, b: torch.Tensor) -> float:
 # ---------------------------------------------------------------------------
 
 def run_serving(cfg, params, batch, max_new_tokens, n_requests, max_wait_ms,
-                device):
+                device, capture=None):
     """Saturation throughput and latency of the micro-batching service:
     n_requests client threads push one window-length clip each through a
     TranscriptionService; latency includes queueing. `compile_s` is the
@@ -198,7 +210,8 @@ def run_serving(cfg, params, batch, max_new_tokens, n_requests, max_wait_ms,
              for _ in range(8)]
     svc = TranscriptionService(cfg, params, CharTokenizer(cfg), language="hindi",
                                batch_size=batch, max_wait_ms=max_wait_ms,
-                               max_new_tokens=max_new_tokens, device=device)
+                               max_new_tokens=max_new_tokens, device=device,
+                               capture=capture)
     try:
         t0 = time.perf_counter()
         svc.transcribe(clips[0], timeout=1800)
@@ -231,17 +244,26 @@ def run_serving(cfg, params, batch, max_new_tokens, n_requests, max_wait_ms,
             "iter_s": [round(dt, 4)]}
 
 
+def _print_capture(label: str, runner) -> None:
+    st = runner.graph_stats()
+    if st["graphs"]:
+        print(f"capture {label}: {st['graphs']} graphs, {st['nodes']} nodes, "
+              f"{st['capture_s']:.3f} s to capture and instantiate (outside "
+              f"the timed iterations)")
+
+
 def run_routed(cfg, params, batch, max_new_tokens, iters, kv, n_languages,
-               lid_layer, lora_rank, device):
+               lid_layer, lora_rank, device, capture=None):
     """Phase-2 routed inference: mel -> LID features at `lid_layer` ->
     classifier -> adapter index -> the adapted encoder, cache (K4's cross_v
     term on the int8 cache) and greedy decode, against the ORACLE decode
     (the same banked decode, the indices given), so the routing overhead
     (the LID pass, the classifier and the gathers) is isolated per
-    utterance. The port runs each as a host loop; every timed region is
-    fenced on both sides, and the three are timed in interleaved rounds
-    (routed, oracle, LID), since the host loop's walls drift between runs. Weights, bank and head are random: throughput
-    does not depend on their values."""
+    utterance. Both decodes replay the router's captured programs (one
+    key: the same shapes); every timed region is fenced on both sides, and
+    the three are timed in interleaved rounds (routed, oracle, LID), since
+    the host's walls drift between runs. Weights, bank and head are random:
+    throughput does not depend on their values."""
     from sar_tpu_torch.models import classifier as clf
     from sar_tpu_torch.models import lora as lora_lib
     from sar_tpu_torch.models.router import AdapterRouter
@@ -255,7 +277,8 @@ def run_routed(cfg, params, batch, max_new_tokens, iters, kv, n_languages,
                                 num_classes=n_languages, languages=tuple(langs),
                                 encoder_layer=lid_layer)
     clf_params = clf.init_classifier(torch.Generator().manual_seed(42), ccfg)
-    router = AdapterRouter(cfg, params, bank, lcfg, clf_params, ccfg, device=device)
+    router = AdapterRouter(cfg, params, bank, lcfg, clf_params, ccfg, device=device,
+                           capture=capture)
     kv_int8, kv_int4 = kv == "int8", kv == "int4"
     audio = _audio(batch, device)
 
@@ -280,6 +303,7 @@ def run_routed(cfg, params, batch, max_new_tokens, iters, kv, n_languages,
     agreement = _agreement(toks_routed, oracle())
     (t_routed, w_routed, _), (t_oracle, w_oracle, _), (t_lid, w_lid, _) = timed_rounds(
         [routed, oracle, lid_only], iters)
+    _print_capture(f"routed batch={batch}", router.runner)
     return {"mode": "routed", "batch": batch, "kv": kv,
             "languages": len(langs), "lid_layer": lid_layer,
             "lora_rank": lora_rank,
@@ -321,33 +345,31 @@ def run_train(cfg, params, batch, accum, label_len, lora_rank, iters, device,
 
 
 def run_config(cfg, params, batch, max_new_tokens, kv, iters, device,
-               scores_int8=False, num_beams=1, agreement=True, layout="auto"):
+               scores_int8=False, num_beams=1, agreement=True, layout="auto",
+               capture=None):
     """One config row: mel -> encode -> cache -> greedy (or beam search),
-    timed per batch; with its agreement key where the JAX CLI has one."""
-    from sar_tpu_torch.decode.beam import beam_decode
+    timed per batch through a DecodeRunner (the evaluator's programs; the
+    cache its static one); with its agreement key where the JAX CLI has
+    one."""
+    from sar_tpu_torch.decode.graphs import (CudaGraphCapture, DecodeRunner,
+                                             resolve_capture)
     from sar_tpu_torch.decode.greedy import greedy_decode_from_cache
     from sar_tpu_torch.models import whisper
     from sar_tpu_torch.ops import mel as mel_ops
 
     kv_int8, kv_int4 = kv == "int8", kv == "int4"
+    flags = dict(cross_kv_int8=kv_int8, self_kv_int8=kv_int8,
+                 cross_kv_int4=kv_int4, self_kv_int4=kv_int4)
     prompt = cfg.prompt_ids("hindi")
     total = min(len(prompt) + max_new_tokens, cfg.max_target_positions)
     audio = _audio(batch, device)
     flash = "hm" if device.type == "cuda" else False
+    runner = DecodeRunner(params, cfg, capture=CudaGraphCapture
+                          if resolve_capture(capture, device) else None)
 
     @torch.no_grad()
     def encode():
         return whisper.encode(params, _mel(cfg, audio), cfg, flash=flash)
-
-    @torch.no_grad()
-    def prep(head_minor, int8=kv_int8, int4=kv_int4):
-        return whisper.init_cache(params, encode(), cfg, max_len=total,
-                                  cross_kv_int8=int8, self_kv_int8=int8,
-                                  cross_kv_int4=int4, self_kv_int4=int4,
-                                  head_minor=head_minor)
-
-    def dec(cache, s_int8):
-        return greedy_decode_from_cache(params, cache, cfg, prompt, scores_int8=s_int8)
 
     # classic forces the [L,B,H,S,hd] layout; None defers to the decoder's
     # own choice (use_head_minor).
@@ -355,20 +377,23 @@ def run_config(cfg, params, batch, max_new_tokens, kv, iters, device,
     hm = False
     if num_beams > 1:
         def run():
-            return beam_decode(params, encode(), cfg, prompt, num_beams=num_beams,
-                               max_new_tokens=max_new_tokens,
-                               cross_kv_int8=kv_int8, self_kv_int8=kv_int8,
-                               cross_kv_int4=kv_int4, self_kv_int4=kv_int4,
-                               scores_int8=scores_int8, head_minor=beam_hm)
+            enc = encode()
+            cache = runner.prep(enc, total, self_batch=batch * num_beams,
+                                head_minor=beam_hm, **flags)
+            return runner.beam(cache, prompt, num_beams=num_beams,
+                               scores_int8=scores_int8)
     else:
-        hm = layout != "classic" and whisper.use_head_minor(
-            cross_kv_int8=kv_int8, self_kv_int8=kv_int8,
-            cross_kv_int4=kv_int4, self_kv_int4=kv_int4)
+        hm = layout != "classic" and whisper.use_head_minor(**flags)
 
         def run():
-            return dec(prep(hm), scores_int8)
+            return runner.greedy(runner.prep(encode(), total, head_minor=hm, **flags),
+                                 prompt, scores_int8=scores_int8)
 
     dt, walls, out = timed(run, iters)
+    _print_capture(f"batch={batch} kv={kv} beams={num_beams}", runner)
+    # The comparison decode below builds a cache of its own: the runner's
+    # static cache and graphs go first, so that two caches never coexist.
+    del run, runner
     row = {"batch": batch, "kv": kv,
            "attn_scores": "int8" if scores_int8 else "bf16",
            "layout": ("head_minor" if num_beams == 1 and hm else
@@ -383,7 +408,10 @@ def run_config(cfg, params, batch, max_new_tokens, kv, iters, device,
         # the classic layout (plain torch), as the JAX CLI compares them:
         # s8 scores, the head-minor slabs (the same quantization points,
         # another reduction order) and the int4 cache.
-        classic = lambda: dec(prep(False, int8=True, int4=False), False)
+        classic = lambda: greedy_decode_from_cache(
+            params, whisper.init_cache(params, encode(), cfg, max_len=total,
+                                       cross_kv_int8=True, self_kv_int8=True,
+                                       head_minor=False), cfg, prompt)
         if scores_int8:
             row["token_agreement_vs_bf16"] = _agreement(out, classic())
         elif kv_int8 and hm:
@@ -420,6 +448,7 @@ def main(argv=None) -> dict:
     from sar_tpu_torch.models.config import get_config
 
     device = resolve_device(args.device)
+    capture = {"auto": None, "on": True, "off": False}[args.capture]
     logger.warning("no pretrained weights are read: random init (seed 0); "
                    "throughput numbers are unaffected")
     cfg = get_config(args.model)
@@ -458,7 +487,8 @@ def main(argv=None) -> dict:
                                             args.iters, args.kv_cache[0],
                                             args.routed_languages,
                                             args.routed_lid_layer,
-                                            args.routed_lora_rank, device),
+                                            args.routed_lora_rank, device,
+                                            capture=capture),
                          mode="routed", batch=b)
             if "error" not in r:
                 print(f"routed batch={b} ({r['languages']} langs, LID layer "
@@ -471,7 +501,8 @@ def main(argv=None) -> dict:
         for b in args.batch_sizes:
             r = measured(lambda: run_serving(cfg, params, b, args.max_new_tokens,
                                              args.serving_requests,
-                                             args.serving_wait_ms, device),
+                                             args.serving_wait_ms, device,
+                                             capture=capture),
                          mode="serving", batch=b)
             if "error" not in r:
                 print(f"serving batch={b}: {r['requests_per_s']} req/s "
@@ -493,7 +524,8 @@ def main(argv=None) -> dict:
                                                 scores_int8=args.attn_scores == "int8",
                                                 num_beams=nb,
                                                 agreement=not args.no_agreement,
-                                                layout=args.kv_layout),
+                                                layout=args.kv_layout,
+                                                capture=capture),
                              batch=b, kv=kv, attn_scores=args.attn_scores,
                              num_beams=nb)
                 if "error" in r:

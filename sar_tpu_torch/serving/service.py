@@ -25,6 +25,15 @@ unquantized cache when asked, and turns `scores_int8` off with a warning, as the
 service does. `flash` goes to the evaluator and on to `encode` ("fq" is
 kernel K8; a routed service takes the router's `flash`).
 
+Each program is held as the evaluator and the router hold it: a
+`DecodeRunner` (decode/graphs.py) replays each segment of the greedy,
+beam or routed loop as a CUDA graph captured once, at the first batch
+(batches are padded to `batch_size`, so each program has one shape and
+one key; per-row prompts all have length P and are written into the
+runner's static tokens). `capture` chooses as in ASREvaluator; a routed
+service takes the router's. The worker captures with
+capture_error_mode "thread_local", while request threads run.
+
 A batch that fails hands its error to every request in it, and
 `stats()["errors"]` counts such batches. The worker runs under
 `torch.inference_mode()` itself (grad mode is per thread). The greedy
@@ -89,7 +98,8 @@ class TranscriptionService:
                  kv_int8: bool = True, flash: str | bool = "auto",
                  max_queue: int = 512, task: str = "transcribe",
                  kv_int4: bool = False, scores_int8: bool = False,
-                 device: torch.device | str | None = None):
+                 device: torch.device | str | None = None,
+                 capture: bool | None = None):
         if router is None and (cfg is None or params is None):
             raise ValueError("need cfg+params, or a router")
         if router is not None and num_beams > 1:
@@ -113,9 +123,9 @@ class TranscriptionService:
         self.max_wait_ms = max_wait_ms
         self.max_new_tokens = max_new_tokens
         if router is not None:
-            if lora is not None or device is not None:
-                raise ValueError("a routed service takes its adapters and "
-                                 "its device from the router")
+            if lora is not None or device is not None or capture is not None:
+                raise ValueError("a routed service takes its adapters, its "
+                                 "device and its capture from the router")
             self.cfg = router.cfg
             self.device = router.device
             self._dtype = router.dtype
@@ -129,7 +139,7 @@ class TranscriptionService:
                 num_beams=num_beams, lora=lora, lora_scale=lora_scale,
                 kv_int8=kv_int8, flash=flash,
                 scores_int8=scores_int8, task=task, kv_int4=kv_int4,
-                device=device)
+                device=device, capture=capture)
             self.device = self._ev.device
             self._dtype = self._ev.dtype
             self._prompt_len = len(cfg.prompt_ids(language, task))

@@ -251,6 +251,11 @@ class ASRTrainer:
                                       lora_scale=scale)
         loss = whisper.cross_entropy_loss(logits, labels)
         prompt = prompt_table[idx] if idx is not None else prompt_table[0]
+        # Eager, not through a captured DecodeRunner: training moves the
+        # bank between evaluations, and an evaluation decodes a few batches
+        # of its own, so a graph captured per evaluation would cost more
+        # (one eager pass + capture + instantiation per segment) than its
+        # replays save.
         tokens = greedy_decode(self.base_params, enc_out, cfg, prompt,
                                max_new_tokens=self.args.max_new_tokens,
                                lora=self.lora, adapter_idx=idx,

@@ -85,3 +85,23 @@ def test_kv_library_yardstick_computes_the_kernels_function(lora):
             d = (got_q.int() - want[i][l].int()).abs()
             assert d.max().item() <= 1 and (d != 0).float().mean().item() <= 1e-3
             np.testing.assert_allclose(got_s.numpy(), want[i + 1][l].numpy(), rtol=1e-5, atol=0)
+
+
+def test_decode_steps_reports_the_steps_run():
+    """chip_smoke's reading of a greedy batch: the steps needed (up to the
+    one after which every row has emitted EOS), the steps run (to the end
+    of that step's segment) and the segments, one host sync each."""
+    import chip_smoke
+    from sar_tpu_torch.models.config import get_config
+    cfg = get_config("whisper-test")
+    P, total = 4, 64
+    tokens = torch.full((2, total), 7)
+    tokens[0, P + 3] = cfg.eos_token_id
+    tokens[1, P + 40] = cfg.eos_token_id
+    assert chip_smoke.decode_steps(tokens, cfg, P) == (44, 63)
+    assert chip_smoke.decode_steps(tokens, cfg, P, segment=8) == (44, 48)
+    assert chip_smoke.decode_steps(tokens, cfg, P, segment=0) == (44, 63)
+    tokens[1, P + 40] = 7                       # a row that never ends
+    assert chip_smoke.decode_steps(tokens, cfg, P) == (63, 63)
+    assert chip_smoke.segments_run(total, 63) == 2
+    assert chip_smoke.segments_run(total, 48, segment=8) == 6

@@ -102,7 +102,9 @@ def test_greedy_tokens_equal_jax(model, suppress):
 def test_greedy_stops_once_every_row_has_finished(monkeypatch):
     """EOS padding after finish and the early exit: with the final LN
     pinned to a constant row u and token_embed[eos] = 10u, every generated
-    position picks EOS, and the loop stops after the first one."""
+    position picks EOS, and the loop stops at the end of the segment that
+    emitted the first one: right after it with segments of one step, at
+    position 5 with segments of 5."""
     _, tp = jax_whisper(CFG, seed=1)
     dec = tp["decoder"]
     dec["ln"] = {"scale": torch.zeros(CFG.d_model), "bias": torch.ones(CFG.d_model)}
@@ -115,11 +117,14 @@ def test_greedy_stops_once_every_row_has_finished(monkeypatch):
         return real(*a, **k)
     monkeypatch.setattr(tw, "decode_step", counting)
     enc = torch.zeros((B, CFG.max_source_positions, CFG.d_model))
-    out = greedy_decode(tp, enc, CFG, CFG.prompt_ids("english"), max_new_tokens=10)
     P = len(CFG.prompt_ids("english"))
-    assert out.shape == (B, P + 10)
-    assert (out[:, P:] == CFG.eos_token_id).all()
-    assert calls == list(range(P))                  # stopped after the first EOS
+    for segment, steps in ((1, P), (5, 5)):
+        calls.clear()
+        out = greedy_decode(tp, enc, CFG, CFG.prompt_ids("english"), max_new_tokens=10,
+                            segment=segment)
+        assert out.shape == (B, P + 10)
+        assert (out[:, P:] == CFG.eos_token_id).all()
+        assert calls == list(range(steps))          # stopped after the first EOS's segment
 
 
 def test_evaluator_from_audio_matches_jax_prep_dec(model):
