@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--profile | --kernels-only]
 
 Phases, each printing its own line(s); any failure raises and exits non-zero.
-Every decode loop of phases 4-11 and 14 runs as the entry points run it: each
+Every decode loop of phases 4-11, 14 and 15 runs as the entry points run it: each
 segment of the greedy or beam loop a CUDA graph captured at the first
 batch of its shape and replayed after (decode/graphs.py); each such phase
 warms up (and so captures) before its counted run, counts the decode
@@ -153,7 +153,25 @@ eager evaluator's (capture=False) on one batch.
    tokens equal to the captured ones; then analyze_adapters over the 4
    adapter directories (a row per target and layer, 6 pairwise
    similarities).
-15. result: one JSON line with every kernel's numbers, then the last line
+15. transcribe: single-file transcription at whisper-small with phase 4's
+   weights, in process: a 75 s WAV at 44.1 kHz written here, through
+   load_audio (the native polyphase resampler) into three 30 s windows;
+   (a) plain long-form (batch_transcribe: exact encoder attention, the
+   unquantized classic cache, every counter 0); (b) the transcribe CLI's
+   `run` with --fallback --timestamps --word_timestamps --best_of 2 over
+   the full temperature ladder at 64 new tokens (K1 12 per group, K2 one
+   per decode pass, K3 12 per step run, one captured program for every
+   pass), its text, segments and words written in every output format
+   and parsed back, and two of its passes (T = 0 and T = 0.6 with one
+   seed) captured against an eager runner: tokens equal, summed
+   logprobs within 1e-3 and p(nospeech) within 1e-4; (c)
+   --condition_on_previous_text: windows one after another, one program
+   (graphs no more than its segments) replayed across them; (d) a 25 s
+   window with --num_beams 4 --timestamps --language auto (no kernel);
+   (e) (b)'s group again with a q/v adapter (K4 one per pass, K2 0). It
+   prints RTFx per mode, the capture seconds, the passes per window and
+   the escalation rate.
+16. result: one JSON line with every kernel's numbers, then the last line
    {"ok": true, "device": {...}}.
 
 With --kernels-only, it runs phases 1-3 and prints the kernel table
@@ -321,6 +339,17 @@ SWEEP_TRAIN, SWEEP_EVAL, SWEEP_BATCH, SWEEP_STEPS, SWEEP_ITERS = 16, 8, 16, 40, 
 # the reference's routing-overhead target, printed beside the reading.
 ROUTE_SAMPLES = 4
 ROUTING_TARGET_MS = 10.0
+
+
+# Transcribe cell: a 75 s WAV at 44.1 kHz (resampled to 16 kHz: three 30 s
+# windows, the last half empty) through the port's single-file
+# transcription at MAX_NEW_TOKENS; the single-window beam mode on a 25 s
+# WAV at 16 kHz; the fallback with best_of 2 over the full ladder.
+TRANSCRIBE_SECONDS, TRANSCRIBE_SR = 75, 44100
+SINGLE_WINDOW_SECONDS = 25
+TRANSCRIBE_BEST_OF = 2
+# Captured against eager fallback passes: summed logprobs and p(nospeech).
+CAPTURED_LOGPROB_TOL, CAPTURED_NO_SPEECH_TOL = 1e-3, 1e-4
 
 
 def fail(msg: str) -> None:
@@ -2825,6 +2854,288 @@ def phase_route(cfg, params, device, work):
     return c
 
 
+def write_wav(path, seconds: float, sr: int, seed: int) -> None:
+    """`seconds` of seeded 16-bit noise at `sr` Hz, mono."""
+    import wave
+
+    import numpy as np
+    samples = np.random.default_rng(seed).standard_normal(int(seconds * sr)) * 3000
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(sr)
+        w.writeframes(samples.astype(np.int16).tobytes())
+
+
+@contextlib.contextmanager
+def recording_transcribers():
+    """Every FallbackTranscriber made inside the block, in order, each
+    with the info rows of its calls (`infos`), so that the caller can read
+    its runner's graphs and the temperatures its windows reached."""
+    from sar_tpu_torch.evaluation import fallback
+    made, cls = [], fallback.FallbackTranscriber
+
+    class Recording(cls):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.infos = []
+            made.append(self)
+
+        def __call__(self, *a, **k):
+            out = super().__call__(*a, **k)
+            self.infos.append([r for r in out[1] if r is not None])
+            return out
+
+    fallback.FallbackTranscriber = Recording
+    try:
+        yield made
+    finally:
+        fallback.FallbackTranscriber = cls
+
+
+def fallback_passes(rows, temperatures, best_of: int) -> int:
+    """The decode passes of one FallbackTranscriber call whose accepted
+    rows are `rows`: one per temperature up to the highest one a row
+    reached, `best_of` at T > 0."""
+    reached = max(temperatures.index(r["temperature"]) for r in rows)
+    return sum(1 if t == 0.0 else best_of for t in temperatures[:reached + 1])
+
+
+def check_output_formats(out_dir, stem: str, text: str, segments, words) -> dict:
+    """Write every --output_format file of one transcript with the port's
+    writers and parse each back: txt is the text, json holds the text,
+    segments and words, srt/vtt/tsv hold one cue per segment with
+    well-formed times. Returns {format: bytes written}."""
+    import re
+
+    from sar_tpu_torch.evaluation import writers
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    sizes = {}
+    for fmt in writers.WRITERS:
+        path = out_dir / f"{stem}.{fmt}"
+        path.write_text(writers.render(fmt, text, segments=segments, words=words))
+        body = path.read_bytes().decode()
+        sizes[fmt] = len(body.encode())
+        n = len(segments)
+        if fmt == "txt":
+            ok = body == text.strip() + "\n"
+        elif fmt == "json":
+            obj = json.loads(body)
+            ok = (obj["text"] == text.strip() and len(obj["segments"]) == n
+                  and len(obj["words"]) == len(words))
+        elif fmt == "srt":
+            ok = len(re.findall(r"^\d+\n\d\d:\d\d:\d\d,\d{3} --> \d\d:\d\d:\d\d,\d{3}$",
+                                body, re.M)) == n
+        elif fmt == "vtt":
+            ok = body.startswith("WEBVTT") and len(re.findall(
+                r"^(\d\d:)?\d\d:\d\d\.\d{3} --> (\d\d:)?\d\d:\d\d\.\d{3}$", body, re.M)) == n
+        else:
+            # (a cue's text may hold line breaks: count the cue starts)
+            ok = body.startswith("start\tend\ttext\n") and len(re.findall(
+                r"^\d+\t\d+\t", body, re.M)) >= n
+        if not ok:
+            fail(f"transcribe: the {fmt} output does not parse:\n{body[:500]}")
+    return sizes
+
+
+def phase_transcribe(cfg, params, device, work):
+    """Single-file transcription at whisper-small with phase 4's weights, in
+    process: a 75 s WAV at 44.1 kHz through load_audio (the native
+    resampler) into three 30 s windows, then (a) plain long-form
+    (batch_transcribe: exact encoder, unquantized classic cache, no
+    kernel); (b) the CLI's --fallback --timestamps --word_timestamps
+    --best_of 2 over the full ladder (K1 per group, K2 per pass, K3 12 per
+    step, one captured program), its output in every format, and its
+    captured passes against an eager runner's at T = 0 and T > 0 with one
+    seed; (c) --condition_on_previous_text, one window after another (one
+    program, replayed across windows); (d) one 25 s window with
+    --num_beams 4 --timestamps --language auto (no kernel); (e) (b)'s group
+    again with a q/v adapter (K4 per pass, no K2). Prints RTFx per mode,
+    capture seconds, passes per window and the escalation rate; returns
+    the summed launch counts of (a)-(e)."""
+    import torch
+    from sar_tpu_torch.data import CharTokenizer
+    from sar_tpu_torch.data.preprocessing import load_audio
+    from sar_tpu_torch.decode.graphs import DecodeRunner
+    from sar_tpu_torch.decode.segments import grid
+    from sar_tpu_torch.evaluation import fallback, longform
+    from sar_tpu_torch.models import lora as lora_lib
+    from sar_tpu_torch.scripts import transcribe
+    from sar_tpu_torch.utils import native
+
+    work = Path(work)
+    tok = CharTokenizer(cfg)
+    L = cfg.decoder_layers
+    long_wav, short_wav = work / "long.wav", work / "short.wav"
+    write_wav(long_wav, TRANSCRIBE_SECONDS, TRANSCRIBE_SR, SEED + 11)
+    write_wav(short_wav, SINGLE_WINDOW_SECONDS, 16000, SEED + 12)
+    if not native.native_available():
+        fail("transcribe: the native host components (g++) did not build: the 44.1 kHz "
+             "resample needs the polyphase kernel")
+    t0 = time.perf_counter()
+    audio = load_audio(long_wav)
+    t_load = time.perf_counter() - t0
+    windows = len(longform.chunk_audio(audio))
+    print(f"transcribe setup: {TRANSCRIBE_SECONDS} s at {TRANSCRIBE_SR} Hz -> "
+          f"{len(audio)} samples at 16 kHz in {t_load:.2f} s (resample path "
+          f"{native.ACTIVE_PATH}) -> {windows} windows of 30 s")
+    if windows != 3 or len(audio) != TRANSCRIBE_SECONDS * 16000:
+        fail(f"transcribe: {len(audio)} samples, {windows} windows")
+    total = dict.fromkeys(KERNEL_NAMES, 0)
+    temps = fallback.DEFAULT_TEMPERATURES
+
+    def counted(fn):
+        """fn() with the counters zeroed before and read after, fenced."""
+        torch.cuda.synchronize()
+        reset_counts()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        c, steps = read_counts(), read_steps()
+        for k in total:
+            total[k] += c[k]
+        return out, wall, c, steps
+
+    def cli(wav, *flags):
+        return transcribe.parse_args([str(wav), "--model", cfg.name, "--language", "hindi",
+                                      "--max_new_tokens", str(MAX_NEW_TOKENS),
+                                      "--device", str(device), *flags])
+
+    # (a) plain long-form.
+    text_a, wall_a, c, _ = counted(lambda: longform.transcribe_long(
+        audio, cfg, params, tok, language="hindi", max_new_tokens=MAX_NEW_TOKENS,
+        device=device))
+    check_counts("transcribe (a) plain long-form", c, want_zero=KERNEL_NAMES)
+    print(f"transcribe (a) plain long-form (batch_transcribe, unquantized cache): "
+          f"{wall_a:.2f} s, the first batch's capture included -> RTFx "
+          f"{TRANSCRIBE_SECONDS / wall_a:.1f} | {len(text_a)} characters | no kernel")
+
+    # (b) fallback + timestamps + words, best_of 2, the full ladder.
+    out_b = work / "out_b"
+    args_b = cli(long_wav, "--fallback", "--timestamps", "--word_timestamps", "--best_of",
+                 str(TRANSCRIBE_BEST_OF), "--output_format", "json", "--output_dir",
+                 str(out_b))
+    with recording_transcribers() as made:
+        _, wall_b, c, steps_b = counted(lambda: transcribe.run(
+            args_b, cfg, params, tok, device=device))
+    tr = made[0]
+    if len(made) != 1 or len(tr.infos) != 1:
+        fail(f"transcribe (b): {len(made)} transcribers, {[len(i) for i in tr.infos]} calls")
+    rows = tr.infos[0]
+    passes = fallback_passes(rows, temps, TRANSCRIBE_BEST_OF)
+    escalated = sum(r["temperature"] > 0 for r in rows)
+    stats_b = tr.runner.graph_stats()
+    print(f"transcribe (b) --fallback --timestamps --word_timestamps --best_of "
+          f"{TRANSCRIBE_BEST_OF}: {wall_b:.2f} s -> RTFx {TRANSCRIBE_SECONDS / wall_b:.1f} | "
+          f"{passes} passes per window ({len(rows)} windows in one group), escalation rate "
+          f"{escalated / len(rows):.2f}, accepted at T = "
+          f"{[r['temperature'] for r in rows]} | graphs {json.dumps(stats_b)} | steps "
+          f"{json.dumps({k: v for k, v in steps_b.items() if v})} | launches "
+          f"{json.dumps({k: v for k, v in c.items() if v})}")
+    want = {"encoder_attention_hm": cfg.encoder_layers, "fused_kv_init": passes,
+            "cross_decode_attention_exact": L * steps_b["greedy"]}
+    if {k: c[k] for k in want} != want or steps_b["greedy"] == 0:
+        fail(f"transcribe (b): launches {c}, the design says {want}")
+    check_counts("transcribe (b)", c, want_zero=tuple(k for k in KERNEL_NAMES if k not in want))
+    if stats_b["programs"] != 1:
+        fail(f"transcribe (b): {stats_b['programs']} programs for one key")
+    written = json.loads((out_b / "long.json").read_text())
+    segs = [tuple(sg.values()) for sg in written["segments"]]
+    sizes = check_output_formats(out_b, "long", written["text"], segs, written["words"])
+    print(f"transcribe (b) outputs: {len(segs)} segments, {len(written['words'])} words; "
+          f"every format written and parsed ({json.dumps(sizes)} bytes)")
+
+    # (b)'s passes captured against an eager runner, at T = 0 and T > 0.
+    feats = longform.window_features(longform.chunk_audio(audio), cfg, device, BATCH)
+    enc = tr.encode(feats)
+    eager = DecodeRunner(tr.params, cfg)
+    opts = dict(with_logprobs=True, with_no_speech=True, timestamps=True,
+                max_gen_tokens=MAX_NEW_TOKENS)
+    def timed_pass(runner, temp, seed):
+        """One fallback pass (prep + loop), fenced: (outputs, ms per step run)."""
+        torch.cuda.synchronize()
+        steps0, t = read_steps()["greedy"], time.perf_counter()
+        out = runner.greedy(runner.prep(enc, tr.total, **tr._flags), tr._prompt,
+                            temperature=temp, seed=seed, **opts)
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t) / (read_steps()["greedy"] - steps0)
+
+    for temp, seed in ((0.0, SEED + 5), (0.6, SEED + 6)):
+        got, ms_cap = timed_pass(tr.runner, temp, seed)
+        ref, ms_eager = timed_pass(eager, temp, seed)
+        d_lp = (got[1] - ref[1]).abs().max().item()
+        d_ns = (got[3] - ref[3]).abs().max().item()
+        same = bool(torch.equal(got[0], ref[0]) and torch.equal(got[2], ref[2]))
+        print(f"transcribe (b) pass at T = {temp}: captured tokens "
+              f"{'equal' if same else 'DIFFER FROM'} the eager runner's | max |d sum_logprobs| "
+              f"{d_lp:.3e} (<= {CAPTURED_LOGPROB_TOL:g}) | max |d no_speech_prob| {d_ns:.3e} "
+              f"(<= {CAPTURED_NO_SPEECH_TOL:g}) | scored {got[2].tolist()} | "
+              f"{ms_cap:.3f} ms per step run captured, {ms_eager:.3f} eager (prep included)")
+        if not same or d_lp > CAPTURED_LOGPROB_TOL or d_ns > CAPTURED_NO_SPEECH_TOL:
+            fail(f"transcribe (b): the captured pass at T = {temp} differs from eager")
+    if tr.runner.graph_stats()["programs"] != 1:
+        fail("transcribe (b): the comparison passes made a second program")
+    del eager, enc
+
+    # (c) the conditioned loop: windows one after another, one program.
+    with recording_transcribers() as made:
+        _, wall_c, c, steps_c = counted(lambda: transcribe.run(
+            cli(long_wav, "--condition_on_previous_text"), cfg, params, tok, device=device))
+    tr_c = made[0]
+    n_win = len(tr_c.infos)
+    stats_c = tr_c.runner.graph_stats()
+    n_seg = len(grid(tr_c.total, 32))
+    print(f"transcribe (c) --condition_on_previous_text: {n_win} windows in {wall_c:.2f} s -> "
+          f"RTFx {TRANSCRIBE_SECONDS / wall_c:.1f} | graphs {json.dumps(stats_c)} (one "
+          f"program of up to {n_seg} segments, prompt buffer {tr_c.total - MAX_NEW_TOKENS}) | "
+          f"steps {json.dumps({k: v for k, v in steps_c.items() if v})} | launches "
+          f"{json.dumps({k: v for k, v in c.items() if v})}")
+    want = {"encoder_attention_hm": cfg.encoder_layers * n_win, "fused_kv_init": n_win,
+            "cross_decode_attention_exact": L * steps_c["greedy"]}
+    if {k: c[k] for k in want} != want or n_win < 2:
+        fail(f"transcribe (c): launches {c} over {n_win} windows, the design says {want}")
+    check_counts("transcribe (c)", c, want_zero=tuple(k for k in KERNEL_NAMES if k not in want))
+    if stats_c["programs"] != 1 or not 1 <= stats_c["graphs"] <= n_seg:
+        fail(f"transcribe (c): {json.dumps(stats_c)} for one key over {n_win} windows")
+
+    # (d) one window: beams with timestamps, the language detected.
+    _, wall_d, c, _ = counted(lambda: transcribe.run(
+        cli(short_wav, "--num_beams", str(BEAM_WIDTH), "--timestamps", "--language", "auto"),
+        cfg, params, tok, device=device))
+    check_counts("transcribe (d) beams", c, want_zero=KERNEL_NAMES)
+    print(f"transcribe (d) --num_beams {BEAM_WIDTH} --timestamps --language auto: "
+          f"{SINGLE_WINDOW_SECONDS} s in {wall_d:.2f} s -> RTFx "
+          f"{SINGLE_WINDOW_SECONDS / wall_d:.1f} (its capture included) | no kernel")
+
+    # (e) (b)'s group again with a q/v adapter: K4 in place of K2.
+    g = torch.Generator(device=device).manual_seed(SEED + 13)
+    lcfg = lora_lib.LoraConfig(r=LORA_RANK, alpha=LORA_ALPHA, dropout=0.0,
+                               target_modules=("q_proj", "v_proj"))
+    bank = lora_lib.map_with_path(
+        lambda path, x: (torch.randn(x.shape, generator=g, device=device) * LORA_B_STD
+                         if path[-1] == "b" else x),
+        lora_lib.init_lora(g, cfg, lcfg, num_adapters=1))
+    tr_e = fallback.FallbackTranscriber(
+        cfg, params, tok, language="hindi", max_new_tokens=MAX_NEW_TOKENS, lora=bank,
+        lora_scale=lcfg.scale, timestamps=True, best_of=TRANSCRIBE_BEST_OF, device=device)
+    (_, info_e), wall_e, c, steps_e = counted(lambda: tr_e(feats, n_valid=windows))
+    passes_e = fallback_passes(info_e[:windows], temps, TRANSCRIBE_BEST_OF)
+    print(f"transcribe (e) a q/v adapter (r={LORA_RANK}): {wall_e:.2f} s, {passes_e} passes | "
+          f"graphs {json.dumps(tr_e.runner.graph_stats())} | launches "
+          f"{json.dumps({k: v for k, v in c.items() if v})}")
+    want = {"encoder_attention_hm": cfg.encoder_layers, "fused_kv_init_lora": passes_e,
+            "cross_decode_attention_exact": L * steps_e["greedy"]}
+    if {k: c[k] for k in want} != want:
+        fail(f"transcribe (e): launches {c}, the design says {want}")
+    check_counts("transcribe (e)", c, want_zero=tuple(k for k in KERNEL_NAMES if k not in want))
+    capture_s = sum(t.runner.graph_stats()["capture_s"] for t in (tr, tr_c, tr_e))
+    print(f"transcribe: capture {capture_s:.2f} s over the fallback runners of (b), (c), (e)")
+    return total
+
+
 def path_phases(cfg, params, n_params, device, work, profile=False) -> list:
     """The phases that drive a path, in order, as (name, run) pairs; `work`
     is a scratch directory (the lid phase's head, which the route phase
@@ -2843,7 +3154,8 @@ def path_phases(cfg, params, n_params, device, work, profile=False) -> list:
             ("graphs", lambda: phase_graphs(cfg, params, device, BATCH, profile=profile)),
             ("lid", lambda: phase_lid(cfg, params, device, Path(work) / "lid")),
             ("sweep", lambda: phase_sweep(cfg, device, work)),
-            ("route", lambda: phase_route(cfg, params, device, work))]
+            ("route", lambda: phase_route(cfg, params, device, work)),
+            ("transcribe", lambda: phase_transcribe(cfg, params, device, work))]
 
 
 def main() -> int:

@@ -44,8 +44,9 @@ cache and `scores_int8` (kernel K7) keep the JAX package's physical
 reorder instead: after each step the self cache and its scales are
 gathered by the surviving beams' sources, within each sample (the cross
 slabs stay one per sample), in place and only over the segment's rows, as
-JAX gathers its segment-sized buffers. `timestamps=True` is not ported and
-raises.
+JAX gathers its segment-sized buffers. `timestamps=True` runs the
+timestamp grammar (decode/timestamps.py) on the log-probs, as JAX's beam
+search does.
 """
 
 from __future__ import annotations
@@ -55,6 +56,7 @@ from typing import NamedTuple
 import torch
 
 from sar_tpu_torch.decode import segments
+from sar_tpu_torch.decode.timestamps import apply_timestamp_rules
 from sar_tpu_torch.models import whisper
 from sar_tpu_torch.models.config import WhisperConfig
 
@@ -105,9 +107,15 @@ def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def beam_select(state: BeamState, logits: torch.Tensor, pos: int,
                 prompt_len: int, *, length_penalty: float = 1.0, eos: int,
                 suppress: torch.Tensor | None = None,
-                begin_suppress: torch.Tensor | None = None) -> BeamState:
+                begin_suppress: torch.Tensor | None = None,
+                timestamps_cfg: WhisperConfig | None = None,
+                max_initial_timestamp_index: int | None = 1) -> BeamState:
     """Everything of one step after the logits: logits [B*K, V] at
-    position `pos` -> the state after writing position pos + 1."""
+    position `pos` -> the state after writing position pos + 1.
+    `timestamps_cfg` (the model's config) turns on the timestamp grammar:
+    as in HF's beam mode, the masks then act on the log-probs [B*K, V]
+    (the grammar's probability rule re-normalizes them) and the top 2K
+    come from one stage over the K*V candidates of each sample."""
     B, K, total = state.run_seqs.shape
     K2 = 2 * K
     P = prompt_len
@@ -116,20 +124,35 @@ def beam_select(state: BeamState, logits: torch.Tensor, pos: int,
         # (init_state); beams, scores and the finished set stay as they are.
         return state
     logits32 = logits.float()
-    lse = torch.logsumexp(logits32, dim=-1)                        # [B*K]
-    sel = logits32
-    if suppress is not None or (begin_suppress is not None and pos == P - 1):
-        sel = sel.clone()
+    if timestamps_cfg is not None:
+        V = logits32.shape[-1]
+        logp = torch.log_softmax(logits32, dim=-1)
         if suppress is not None:
-            sel[:, suppress] = NEG_INF
+            logp[:, suppress] = NEG_INF
         if begin_suppress is not None and pos == P - 1:
-            sel[:, begin_suppress] = NEG_INF
-    vals, toks = torch.topk(sel, K2, dim=-1)                       # [B*K, 2K]
-    logp2k = vals - lse[:, None]
-    acc = (state.run_scores.reshape(B * K)[:, None] + logp2k).reshape(B, K * K2)
-    scores2k, col2k = _top(acc, K2)                                # [B, 2K]
-    beam_src = torch.div(col2k, K2, rounding_mode="floor")
-    tok2k = torch.gather(toks.reshape(B, K * K2), 1, col2k)
+            logp[:, begin_suppress] = NEG_INF
+        logp = apply_timestamp_rules(
+            logp, state.run_seqs.reshape(B * K, total), pos, P, timestamps_cfg,
+            max_initial_timestamp_index=max_initial_timestamp_index)
+        acc = (state.run_scores[..., None] + logp.reshape(B, K, V)).reshape(B, K * V)
+        scores2k, idx2k = _top(acc, K2)                            # [B, 2K]
+        beam_src = torch.div(idx2k, V, rounding_mode="floor")
+        tok2k = idx2k % V
+    else:
+        lse = torch.logsumexp(logits32, dim=-1)                    # [B*K]
+        sel = logits32
+        if suppress is not None or (begin_suppress is not None and pos == P - 1):
+            sel = sel.clone()
+            if suppress is not None:
+                sel[:, suppress] = NEG_INF
+            if begin_suppress is not None and pos == P - 1:
+                sel[:, begin_suppress] = NEG_INF
+        vals, toks = torch.topk(sel, K2, dim=-1)                   # [B*K, 2K]
+        logp2k = vals - lse[:, None]
+        acc = (state.run_scores.reshape(B * K)[:, None] + logp2k).reshape(B, K * K2)
+        scores2k, col2k = _top(acc, K2)                            # [B, 2K]
+        beam_src = torch.div(col2k, K2, rounding_mode="floor")
+        tok2k = torch.gather(toks.reshape(B, K * K2), 1, col2k)
     cand_seqs = _gather_rows(state.run_seqs, beam_src)
     cand_seqs[:, :, pos + 1] = tok2k
 
@@ -196,10 +219,13 @@ def beam_segment(params: dict, cache: whisper.DecodeCache, cfg: WhisperConfig,
                  lora_scale: float = 1.0, scores_int8: bool = False,
                  suppress: torch.Tensor | None = None,
                  begin_suppress: torch.Tensor | None = None,
+                 timestamps: bool = False,
+                 max_initial_timestamp_index: int | None = 1,
                  kernels: bool = True) -> BeamState:
     """Positions [lo, hi) of the beam loop over the first `self_len` rows
     of the self cache -> the state after them (new tensors; the cache is
-    written in place). `adapter_idx` is per row of the B*K (beam-major).
+    written in place). `adapter_idx` is per row of the B*K (beam-major);
+    `timestamps` as beam_select's `timestamps_cfg`.
     Nothing here reads the device from the host: the body of one segment's
     CUDA graph (decode/graphs.py)."""
     B, K, total = state.run_seqs.shape
@@ -218,7 +244,9 @@ def beam_segment(params: dict, cache: whisper.DecodeCache, cfg: WhisperConfig,
             self_len=self_len)
         state = beam_select(state, logits, pos, prompt_len,
                             length_penalty=length_penalty, eos=cfg.eos_token_id,
-                            suppress=suppress, begin_suppress=begin_suppress)
+                            suppress=suppress, begin_suppress=begin_suppress,
+                            timestamps_cfg=cfg if timestamps else None,
+                            max_initial_timestamp_index=max_initial_timestamp_index)
         if K > 1 and not use_anc and pos + 1 >= prompt_len:
             # Physical reorder: after the selection, column `pos` of the
             # ancestry holds each new beam's source slot (alive_src).
@@ -248,6 +276,7 @@ def beam_decode(params: dict, enc_out: torch.Tensor, cfg: WhisperConfig,
                 suppress_ids: tuple[int, ...] = (),
                 begin_suppress_ids: tuple[int, ...] = (),
                 segment: int = 32, timestamps: bool = False,
+                max_initial_timestamp_index: int | None = 1,
                 head_minor: bool | None = None,
                 kernels: bool = True) -> torch.Tensor:
     """Beam search over a cache built from `enc_out` [B, S, D]: the
@@ -265,9 +294,10 @@ def beam_decode(params: dict, enc_out: torch.Tensor, cfg: WhisperConfig,
     for the batch or `adapter_idx` [B] per sample (repeated K times for the
     steps). `scores_int8` decodes with s8 scores (kernel K7). `kernels=False`
     runs the plain versions of the kernels on any device. `segment` as in
-    the module docstring."""
-    if timestamps:
-        raise NotImplementedError("beam_decode(timestamps=True) is not ported")
+    the module docstring. `timestamps` decodes under the timestamp grammar
+    (beam_select), its first timestamp capped at
+    `max_initial_timestamp_index`; the prompt then lacks
+    <|notimestamps|>."""
     B = enc_out.shape[0]
     K = num_beams
     dev = enc_out.device
@@ -296,7 +326,9 @@ def beam_decode(params: dict, enc_out: torch.Tensor, cfg: WhisperConfig,
                              length_penalty=length_penalty, lora=lora,
                              adapter_idx=idx_k, lora_scale=lora_scale,
                              scores_int8=scores_int8, suppress=suppress,
-                             begin_suppress=begin_suppress, kernels=kernels)
+                             begin_suppress=begin_suppress, timestamps=timestamps,
+                             max_initial_timestamp_index=max_initial_timestamp_index,
+                             kernels=kernels)
         if not segments.host_flag(state.unsat.any()):
             break
     # The finished slots stay sorted descending; slot 0 is the best (the

@@ -17,17 +17,25 @@ segments of the greedy or beam loop (`greedy_segment`, `beam_segment`)
 over static buffers, each captured once as a CUDA graph and replayed for
 every batch of that key. A key holds everything a graph bakes in: the
 kind of program, the cache (its kind and shapes: batch, beam width, total
-length), the prompt length, `scores_int8`, the suppress ids, `segment`,
-the LoRA bank (none, one adapter, or routed `adapter_idx`) and its scale,
-the length penalty, and the identity of the parameters and the bank: the
-runner never swaps its weights under a graph. A cache of another shape
+length), the prompt buffer's width, `scores_int8`, the suppress and
+begin-suppress ids, `segment`, the LoRA bank (none, one adapter, or
+routed `adapter_idx`) and its scale, the length penalty, the greedy
+options that are on (sampling, logprobs, no-speech, timestamps and the
+initial-timestamp index, a generation cap), and the identity of the
+parameters and the bank: the runner never swaps its weights under a
+graph. The values JAX traces stay out of the key: the forced-prefix
+length, the temperature, the seed, the no-speech position and the cap
+are device tensors that the runner refills per call, so one program
+serves every window of a conditioned long-form run and every temperature
+of a fallback ladder, as one JAX program does. A cache of another shape
 drops the old cache and every program on it, so that no second full cache
 stays alive.
 
 Per batch the runner refills its static buffers in place (the tokens
 [B, total] with the prompts, the finished flags or the beam state, the
-routed `adapter_idx` [B]), then runs the segments in order with one host
-sync after each (decode/segments.py). The first batch to reach a segment
+routed `adapter_idx` [B], the greedy options' values and accumulators),
+then runs the segments in order with one host sync after each
+(decode/segments.py). The first batch to reach a segment
 runs it eagerly, which leaves the one-time set-up (the kernels' build,
 their `cudaFuncSetAttribute`, cuBLAS's handles and workspaces) outside the
 capture and gives that batch its tokens, then captures it; later batches
@@ -57,7 +65,8 @@ import torch
 
 from sar_tpu_torch.decode import segments
 from sar_tpu_torch.decode.beam import beam_row_adapters, beam_segment, init_state
-from sar_tpu_torch.decode.greedy import greedy_segment
+from sar_tpu_torch.decode.greedy import (extras_outputs, fill_extras,
+                                         greedy_segment, make_extras)
 from sar_tpu_torch.models import whisper
 from sar_tpu_torch.models.config import WhisperConfig
 
@@ -262,23 +271,40 @@ class DecodeRunner:
 
     # -- programs -----------------------------------------------------------
     @torch.no_grad()
-    def greedy(self, cache: whisper.DecodeCache, prompts, *,
+    def greedy(self, cache: whisper.DecodeCache, prompts, *, prompt_len=None,
                adapter_idx=None, scores_int8: bool = False,
                suppress_ids: tuple[int, ...] = (),
-               segment: int = 32) -> torch.Tensor:
+               begin_suppress_ids: tuple[int, ...] = (),
+               segment: int = 32, timestamps: bool = False,
+               max_initial_timestamp_index: int | None = 1,
+               temperature: float = 0.0, seed: int | None = None,
+               with_logprobs: bool = False, with_no_speech: bool = False,
+               no_speech_pos: int = 0, max_gen_tokens: int | None = None):
         """The greedy loop over `cache` (the runner's static cache):
-        greedy_decode_from_cache's tokens [B, total] (a copy), with
-        `prompts` [P] or [B, P] and, for a routed bank, each row's
-        `adapter_idx` [B]."""
+        greedy_decode_from_cache's outputs (copies), with `prompts` [P] or
+        [B, P] and, for a routed bank, each row's `adapter_idx` [B]. The
+        options are greedy_decode_from_cache's: which are on is part of
+        the key; their values (prompt_len, temperature, seed,
+        no_speech_pos, max_gen_tokens) are refilled per call, so one
+        program serves every prefix length and temperature."""
         self._check_cache(cache)
+        if seed is None and temperature != 0.0:
+            raise ValueError("temperature > 0 requires a seed")
         B, total = cache.cross_k.shape[1], cache.self_k.shape[3]
         dev = cache.cross_k.device
         prompts = torch.as_tensor(prompts, dtype=torch.int64, device=dev)
         P = prompts.shape[-1]
         routed = adapter_idx is not None
+        flags = dict(sample=seed is not None, with_logprobs=with_logprobs,
+                     with_no_speech=with_no_speech, cap=max_gen_tokens is not None)
         key = self._key("greedy", cache, P=P, routed=routed,
                         scores_int8=scores_int8,
-                        suppress_ids=tuple(suppress_ids), segment=segment)
+                        suppress_ids=tuple(suppress_ids),
+                        begin_suppress_ids=tuple(begin_suppress_ids),
+                        segment=segment, timestamps=timestamps,
+                        max_initial_timestamp_index=(
+                            max_initial_timestamp_index if timestamps else None),
+                        **flags)
 
         params, cfg, lora, scale, kernels = (self.params, self.cfg, self.lora,
                                              self.lora_scale, self.kernels)
@@ -289,34 +315,44 @@ class DecodeRunner:
             tokens = torch.empty((B, total), dtype=torch.int64, device=dev)
             finished = torch.empty(B, dtype=torch.bool, device=dev)
             idx = torch.empty(B, dtype=torch.int64, device=dev) if routed else None
-            suppress = (torch.tensor(suppress_ids, dtype=torch.int64, device=dev)
-                        if suppress_ids else None)
+            ex = make_extras(B, dev, **flags)
+            suppress, begin = (
+                torch.tensor(ids, dtype=torch.int64, device=dev) if ids else None
+                for ids in (suppress_ids, begin_suppress_ids))
 
             def body(lo, hi, n):
                 return lambda: greedy_segment(
-                    params, cache, cfg, tokens, finished, lo, hi, n, P, lora=lora,
+                    params, cache, cfg, tokens, finished, lo, hi, n, ex, lora=lora,
                     adapter_idx=idx, lora_scale=scale, scores_int8=scores_int8,
-                    suppress=suppress, kernels=kernels)
+                    suppress=suppress, begin_suppress=begin, timestamps=timestamps,
+                    max_initial_timestamp_index=max_initial_timestamp_index,
+                    prompt_width=P, kernels=kernels)
 
             return _Program([body(*g) for g in segments.grid(total, segment)],
-                            finished.all, seam, (tokens, finished, idx))
+                            finished.all, seam, (tokens, finished, idx, ex))
 
         prog = self._program(key, build)
-        tokens, finished, idx = prog.static
+        tokens, finished, idx, ex = prog.static
         tokens.fill_(self.cfg.eos_token_id)
         tokens[:, :P] = prompts
         finished.zero_()
+        fill_extras(ex, plen=P if prompt_len is None else prompt_len,
+                    temperature=temperature, seed=seed or 0,
+                    no_speech_pos=no_speech_pos, max_gen_tokens=max_gen_tokens)
         if routed:
             idx.copy_(torch.as_tensor(adapter_idx, device=dev))
         self._run(key, prog)
-        return tokens.clone()
+        out = extras_outputs(tokens, ex)
+        return (tuple(x.clone() for x in out) if isinstance(out, tuple)
+                else out.clone())
 
     @torch.no_grad()
     def beam(self, cache: whisper.DecodeCache, prompts, *, num_beams: int,
              length_penalty: float = 1.0, adapter_idx=None,
              scores_int8: bool = False, suppress_ids: tuple[int, ...] = (),
              begin_suppress_ids: tuple[int, ...] = (),
-             segment: int = 32) -> torch.Tensor:
+             segment: int = 32, timestamps: bool = False,
+             max_initial_timestamp_index: int | None = 1) -> torch.Tensor:
         """Beam search over `cache` (one cross slab per sample, B*K self
         rows): beam_decode's best beam per sample [B, total] (a copy)."""
         self._check_cache(cache)
@@ -336,7 +372,9 @@ class DecodeRunner:
                         scores_int8=scores_int8, length_penalty=length_penalty,
                         suppress_ids=tuple(suppress_ids),
                         begin_suppress_ids=tuple(begin_suppress_ids),
-                        segment=segment)
+                        segment=segment, timestamps=timestamps,
+                        max_initial_timestamp_index=(
+                            max_initial_timestamp_index if timestamps else None))
 
         params, cfg, lora, scale, kernels = (self.params, self.cfg, self.lora,
                                              self.lora_scale, self.kernels)
@@ -355,7 +393,10 @@ class DecodeRunner:
                         length_penalty=length_penalty, lora=lora,
                         adapter_idx=beam_row_adapters(idx, B, K, dev),
                         lora_scale=scale, scores_int8=scores_int8,
-                        suppress=suppress, begin_suppress=begin, kernels=kernels)
+                        suppress=suppress, begin_suppress=begin,
+                        timestamps=timestamps,
+                        max_initial_timestamp_index=max_initial_timestamp_index,
+                        kernels=kernels)
                     for dst, src in zip(state, new):
                         if src is not dst:
                             dst.copy_(src)

@@ -27,8 +27,16 @@ dataloader's split and returns corpus WER/CER; `evaluate_per_sample`,
 quantized decode is the JAX evaluator's too: `scores_int8` (s8 scores
 over the int8 cache, kernel K7) and `kv_int4` (the nibble-packed int4
 cache, which supersedes kv_int8), with its checks
-(`quantized_decode_options`). Meshes and temperature fallback are not
-ported and raise NotImplementedError.
+(`quantized_decode_options`). `fallback=True` transcribes each batch
+through a FallbackTranscriber (evaluation/fallback.py: openai's
+temperature ladder with `best_of` candidates per sampled pass), greedy
+only, as the JAX evaluator: with beams it is turned off with a warning.
+Meshes are not ported and raise NotImplementedError.
+
+`transcribe_audio` and `batch_transcribe` compute what the JAX package's
+do: exact encoder attention (flash=False) and greedy over the unquantized
+classic cache, through an ASREvaluator(kv_int8=False, flash=False) whose
+runner replays its captured loop on the card.
 
 The evaluator runs on the CUDA card unless `device` says otherwise (see
 sar_tpu_torch/device.py); params and the adapter on another device are
@@ -49,6 +57,7 @@ from sar_tpu_torch.decode.graphs import (CudaGraphCapture, DecodeRunner,
                                          resolve_capture)
 from sar_tpu_torch.decode.greedy import transcribe_tokens
 from sar_tpu_torch.device import resolve_device, tree_to
+from sar_tpu_torch.evaluation.fallback import FallbackTranscriber
 from sar_tpu_torch.models import whisper
 from sar_tpu_torch.models.config import WhisperConfig
 from sar_tpu_torch.ops import mel as mel_ops
@@ -90,15 +99,13 @@ class ASREvaluator:
                  kv_int8: bool = True, mesh=None,
                  flash: str | bool = "auto", scores_int8: bool = False,
                  prompt_tokens=None, fallback: bool = False,
+                 best_of: int = 1,
                  task: str = "transcribe", kv_int4: bool = False,
                  device: torch.device | str | None = None,
                  kernels: bool = True, capture: bool | None = None):
-        lacking = {"mesh": mesh is not None, "fallback": fallback}
-        missing = [name for name, asked in lacking.items() if asked]
-        if missing:
+        if mesh is not None:
             raise NotImplementedError(
-                f"sar_tpu_torch ASREvaluator: not yet ported: "
-                f"{', '.join(missing)}")
+                "sar_tpu_torch ASREvaluator: not yet ported: mesh")
         if num_beams < 1:
             raise ValueError(f"num_beams must be >= 1, got {num_beams}")
         self.kv_int8, self.kv_int4 = quantized_decode_options(
@@ -135,6 +142,22 @@ class ASREvaluator:
         self.runner = DecodeRunner(self.params, cfg, lora=self.lora,
                                    lora_scale=lora_scale, kernels=kernels,
                                    capture=CudaGraphCapture if self.capture else None)
+        # openai-style temperature fallback: greedy only, as in the JAX
+        # evaluator (the escalation re-decode has no beam path).
+        if fallback and num_beams > 1:
+            logger.warning("fallback applies to greedy evaluation; disabled here")
+            fallback = False
+        self.fallback, self.best_of = fallback, best_of
+        self._fallback = None
+        if fallback:
+            if tokenizer is None:
+                raise ValueError("fallback judges text: give the evaluator a tokenizer")
+            self._fallback = FallbackTranscriber(
+                cfg, self.params, tokenizer, language=language,
+                max_new_tokens=max_new_tokens, lora=self.lora,
+                lora_scale=lora_scale, kv_int8=self.kv_int8, flash=self.flash,
+                best_of=best_of, prompt_tokens=prompt, device=self.device,
+                kernels=kernels, capture=self.capture)
 
     @torch.no_grad()
     def encode(self, mel: torch.Tensor) -> torch.Tensor:
@@ -175,6 +198,8 @@ class ASREvaluator:
         return self.dec(self.prep(mel), prompts)
 
     def _transcribe_batch(self, mel: torch.Tensor) -> list:
+        if self._fallback is not None:
+            return self._fallback(mel)[0]
         ids = transcribe_tokens(self.tokens(mel), self.cfg,
                                 prompt_len=int(self._prompt.shape[0]))
         if self.tokenizer is None:
@@ -264,11 +289,15 @@ def batch_transcribe(audios: list[np.ndarray], cfg: WhisperConfig,
                      ) -> list[str] | list[list[int]]:
     """Raw-audio transcription in batches of `batch_size` (the last one
     padded with silent clips, so every batch has one shape): pad/trim to
-    the 30 s window, mel on the device, greedy int8-KV decode. `return_ids`
-    gives the per-clip token id lists instead of text."""
+    the 30 s window, mel on the device in the weights' dtype, the encoder
+    with exact attention and greedy over the unquantized classic cache (the
+    JAX package's batch_transcribe: its encode and greedy_decode
+    defaults). `return_ids` gives the per-clip token id lists instead of
+    text."""
     ev = ASREvaluator(cfg, params, None if return_ids else tokenizer,
                       language=language, max_new_tokens=max_new_tokens,
-                      lora=lora, lora_scale=lora_scale, task=task, device=device)
+                      lora=lora, lora_scale=lora_scale, task=task, device=device,
+                      kv_int8=False, flash=False)
     out: list = []
     for s in range(0, len(audios), batch_size):
         chunk = list(audios[s:s + batch_size])

@@ -573,6 +573,93 @@ def decode_train(params: Params, enc_out: torch.Tensor, tokens: torch.Tensor,
     return torch.matmul(x.float(), logits_weight(dec).T)
 
 
+def detect_language(params: Params, enc_out: torch.Tensor,
+                    cfg: WhisperConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """Zero-shot language ID from the model itself (openai-whisper's
+    `detect_language`): the decoder sees only `<|sot|>` and its next-token
+    distribution is renormalized over the language tokens. Returns
+    (lang_index [B] int64 into WHISPER_LANGUAGES, probs [B, n_langs] fp32).
+    Meaningful with real multilingual weights only."""
+    from sar_tpu_torch.models.config import WHISPER_LANGUAGES
+    B = enc_out.shape[0]
+    sot = torch.full((B, 1), cfg.sot_token_id, dtype=torch.int64,
+                     device=enc_out.device)
+    logits = decode_train(params, enc_out, sot, cfg)[:, 0]
+    n = min(len(WHISPER_LANGUAGES), cfg.vocab_size - cfg.lang_token_offset)
+    lang_logits = logits[:, cfg.lang_token_offset:cfg.lang_token_offset + n].float()
+    probs = torch.softmax(lang_logits, dim=-1)
+    return torch.argmax(probs, dim=-1), probs
+
+
+def decode_cross_attn(params: Params, enc_out: torch.Tensor,
+                      tokens: torch.Tensor, cfg: WhisperConfig, *,
+                      heads: tuple[tuple[int, int], ...],
+                      lora: Params | None = None, adapter_idx=None,
+                      lora_scale: float = 1.0,
+                      with_token_probs: bool = False):
+    """Teacher-forced decoder forward returning the cross-attention
+    probabilities of the selected (layer, head) pairs: [B, len(heads), T, S]
+    fp32, ordered like `heads` (the word aligner's capture, openai's
+    find_alignment). Exact attention, as `_dec_layer_apply` without kernels:
+    the blockwise kernels never hold the probabilities. Each layer keeps
+    only its selected heads' maps (a copy), so the full [B, H, T, S]
+    probabilities of a layer die with it.
+
+    `with_token_probs=True` also returns [B, T] fp32: the probability of
+    tokens[:, t + 1] given the prefix (0 at T - 1), gathered then
+    normalized by the row's logsumexp (one logit read per position, no
+    second [B, T, V] softmax)."""
+    dec = params["decoder"]
+    dtype = enc_out.dtype
+    T = tokens.shape[1]
+    x = dec["token_embed"][tokens].to(dtype) + dec["pos_embed"][:T].to(dtype)
+    causal = torch.ones((T, T), dtype=torch.bool, device=x.device).tril()[None, None]
+    dec_lora = lora.get("decoder") if lora else None
+    ctx = lora_ctx(dec_lora, adapter_idx, lora_scale, dtype)
+    H = cfg.decoder_heads
+    scaling = (cfg.d_model // H) ** -0.5
+    by_layer: dict[int, list[tuple[int, int]]] = {}
+    for idx, (l, h) in enumerate(heads):
+        by_layer.setdefault(l, []).append((idx, h))
+    captured: list[torch.Tensor | None] = [None] * len(heads)
+    for l in range(cfg.decoder_layers):
+        p = _layer(dec["layers"], l)
+        lo = _layer(dec_lora, l) if dec_lora else {}
+        # Self-attention (causal), as _dec_layer_apply.
+        h_ = layer_norm(x, p["self_ln"]["scale"], p["self_ln"]["bias"])
+        q = _proj(h_, p["self_q"], lo.get("self_q"), ctx, 0) * scaling
+        k = _proj(h_, p["self_k"], lo.get("self_k"), ctx, 1)
+        v = _proj(h_, p["self_v"], lo.get("self_v"), ctx, 2)
+        a = attention(split_heads(q, H), split_heads(k, H), split_heads(v, H), causal)
+        x = x + _proj(merge_heads(a), p["self_o"], lo.get("self_o"), ctx, 3)
+        # Cross-attention, the selected heads' probabilities kept.
+        h_ = layer_norm(x, p["cross_ln"]["scale"], p["cross_ln"]["bias"])
+        q = _proj(h_, p["cross_q"], lo.get("cross_q"), ctx, 4) * scaling
+        k = _proj(enc_out, p["cross_k"], lo.get("cross_k"), ctx, 5)
+        v = _proj(enc_out, p["cross_v"], lo.get("cross_v"), ctx, 6)
+        qh, kh, vh = (split_heads(t, H) for t in (q, k, v))
+        probs = torch.softmax(torch.matmul(qh.float(), kh.float().transpose(-1, -2)),
+                              dim=-1)
+        for idx, hh in by_layer.get(l, ()):
+            captured[idx] = probs[:, hh].clone()
+        a = torch.matmul(probs.to(qh.dtype), vh)
+        del probs
+        x = x + _proj(merge_heads(a), p["cross_o"], lo.get("cross_o"), ctx, 7)
+        # MLP.
+        h_ = layer_norm(x, p["mlp_ln"]["scale"], p["mlp_ln"]["bias"])
+        x = x + linear(F.gelu(linear(h_, p["fc1"])), p["fc2"])
+    maps = torch.stack(captured, dim=1)
+    if not with_token_probs:
+        return maps
+    xf = layer_norm(x, dec["ln"]["scale"], dec["ln"]["bias"])
+    logits = torch.matmul(xf.float(), logits_weight(dec).T)
+    nxt = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+    chosen = torch.gather(logits, -1, nxt[..., None])[..., 0]
+    tp = torch.exp(chosen - torch.logsumexp(logits, dim=-1))
+    tp[:, -1] = 0.0
+    return maps, tp
+
+
 def forward(params: Params, mel: torch.Tensor, tokens: torch.Tensor,
             cfg: WhisperConfig, *, dropout_seed: int | None = None,
             **kw) -> torch.Tensor:

@@ -13,9 +13,10 @@ wait for files in the repository, so `--model` whisper-test with the
 `synthetic` source is what runs today. `--attn_scores int8` (s8 scores,
 kernel K7) and `--kv_cache int4` (the nibble-packed cache) are the opt-in
 quantized decode, refused together as the evaluator refuses them;
-`--kv_cache bf16` decodes over the unquantized cache. Flags of the JAX
-script that the port has not got (meshes, fallback, ...) fail with a
-message.
+`--kv_cache bf16` decodes over the unquantized cache. `--fallback` (with
+`--best_of`) transcribes through openai's temperature ladder. Flags of
+the JAX script that the port has not got (meshes, --platform,
+--cache_dir) fail with a message.
 """
 
 from __future__ import annotations
@@ -30,8 +31,7 @@ import torch
 logger = logging.getLogger("evaluate_model")
 
 # Flags of the JAX script the port does not have yet.
-NOT_PORTED = ("--platform", "--dp", "--tp", "--dcn_dp", "--best_of",
-              "--fallback", "--cache_dir")
+NOT_PORTED = ("--platform", "--dp", "--tp", "--dcn_dp", "--cache_dir")
 
 
 def parse_args(argv=None):
@@ -63,6 +63,13 @@ def parse_args(argv=None):
                    help="int8: s8 query and probabilities in the decode's "
                         "attention (kernel K7 on the card; approximate, opt-in, "
                         "needs --kv_cache int8)")
+    p.add_argument("--best_of", type=int, default=1,
+                   help="Sampled candidates per --fallback escalation pass "
+                        "at T > 0 (openai best_of)")
+    p.add_argument("--fallback", action="store_true",
+                   help="openai-style temperature fallback: greedy first, "
+                        "resampled at rising temperatures while the text is "
+                        "degenerate (evaluation/fallback.py)")
     p.add_argument("--output_dir", type=str, default=None)
     p.add_argument("--save_predictions", action="store_true")
     p.add_argument("--per_sample", action="store_true",
@@ -135,6 +142,7 @@ def main(argv=None) -> dict:
                              kv_int8=args.kv_cache == "int8",
                              kv_int4=args.kv_cache == "int4",
                              scores_int8=args.attn_scores == "int8",
+                             fallback=args.fallback, best_of=args.best_of,
                              device=device)
     need_preds = args.save_predictions or args.per_sample
     results = evaluator.evaluate(loader, return_predictions=need_preds)

@@ -149,8 +149,11 @@ def test_beam_select_alone_advances_the_state(model):
 
 def test_options_not_ported_raise(model):
     _, tp, enc = model
-    with pytest.raises(NotImplementedError):
-        beam_decode(tp, t(enc), CFG, PROMPT, num_beams=2, max_new_tokens=2, timestamps=True)
+    # Beam timestamps are ported (tests/test_torch_decode_extras.py holds
+    # their tokens to JAX's): they run.
+    out = beam_decode(tp, t(enc), CFG, CFG.prompt_ids("english", no_timestamps=False),
+                      num_beams=2, max_new_tokens=2, timestamps=True)
+    assert out.shape == (B, len(PROMPT) + 1)
     # The classic int8 layout is ported (tests/test_torch_cache_layouts.py
     # holds its tokens to JAX's): it runs.
     out = beam_decode(tp, t(enc), CFG, PROMPT, num_beams=2, max_new_tokens=2,

@@ -109,8 +109,9 @@ def test_decode_steps_reports_the_steps_run():
 
 def test_phase_list_ends_with_the_phase2_clis_and_imports_no_jax():
     """chip_smoke.py drives the LID sweep and routed inference CLIs after
-    the lid phase (whose head the route phase reads), and neither importing
-    it nor building its phase list pulls in jax or sar_tpu."""
+    the lid phase (whose head the route phase reads), then single-file
+    transcription last, and neither importing it nor building its phase
+    list pulls in jax or sar_tpu."""
     code = ("import sys, chip_smoke\n"
             "names = [n for n, _ in chip_smoke.path_phases(None, None, 0, None, 'w')]\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'sar_tpu')]\n"
@@ -120,5 +121,49 @@ def test_phase_list_ends_with_the_phase2_clis_and_imports_no_jax():
     assert out.returncode == 0, out.stderr
     names, bad = out.stdout.strip().splitlines()
     assert names == str(["greedy", "routed", "beam", "train", "s8", "fq", "bench", "graphs",
-                         "lid", "sweep", "route"])
+                         "lid", "sweep", "route", "transcribe"])
     assert bad == "[]"
+
+
+def test_fallback_passes_count_the_ladder():
+    """The transcribe phase's design count of K2 (K4) launches: one pass
+    per temperature up to the highest a row reached, best_of at T > 0."""
+    import chip_smoke
+    temps = (0.0, 0.2, 0.4, 0.6, 0.8, 1.0)
+    rows = [{"temperature": 0.0}, {"temperature": 0.4}, {"temperature": 0.2}]
+    assert chip_smoke.fallback_passes(rows, temps, 2) == 1 + 2 + 2
+    assert chip_smoke.fallback_passes(rows[:1], temps, 5) == 1
+    assert chip_smoke.fallback_passes([{"temperature": 1.0}], temps, 2) == 11
+
+
+def test_output_format_check_parses_every_writer(tmp_path, monkeypatch):
+    """The transcribe phase's check of the written files passes on the
+    writers' own output, with cue texts that hold line breaks, and fails a
+    file that lost a cue."""
+    import chip_smoke
+    from sar_tpu_torch.evaluation import writers
+    segments = [(0.0, 1.5, "one\ntwo"), (None, 3.25, "a\rb\tc"), (3.25, None, "x"),
+                (3700.0, 3701.0, "late")]
+    words = [{"word": "one", "start": 0.0, "end": 0.4, "probability": 0.5}]
+    sizes = chip_smoke.check_output_formats(tmp_path, "clip", "one two x", segments, words)
+    assert set(sizes) == set(writers.WRITERS) and all(sizes.values())
+    assert chip_smoke.check_output_formats(tmp_path, "empty", "", [], [])["srt"] == 0
+    real = writers.render
+    monkeypatch.setattr(writers, "render", lambda fmt, text, segments=None, words=None:
+                        real(fmt, text, segments=(segments or [])[:-1], words=words))
+    with pytest.raises(RuntimeError, match="does not parse"):
+        chip_smoke.check_output_formats(tmp_path, "lost", "t", segments, words)
+
+
+def test_recording_transcribers_records_and_restores(monkeypatch):
+    import chip_smoke
+    from sar_tpu_torch.evaluation import fallback
+    cls = fallback.FallbackTranscriber
+    monkeypatch.setattr(cls, "__init__", lambda self, *a, **k: None)
+    monkeypatch.setattr(cls, "__call__", lambda self, *a, **k: (["t", None],
+                                                                [{"temperature": 0.0}, None]))
+    with chip_smoke.recording_transcribers() as made:
+        tr = fallback.FallbackTranscriber()
+        tr("mel")
+    assert fallback.FallbackTranscriber is cls and made == [tr]
+    assert tr.infos == [[{"temperature": 0.0}]]

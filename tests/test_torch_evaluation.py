@@ -175,7 +175,10 @@ def test_batch_transcribe_matches_the_evaluator(model):
     _, tp = model
     rng = np.random.default_rng(6)
     clips = [rng.standard_normal(n).astype(np.float32) * 0.2 for n in (6000, 9000, 4000)]
-    ev = ASREvaluator(CFG, tp, language="english", max_new_tokens=NEW, device="cpu")
+    # batch_transcribe decodes as the JAX package's: exact encoder attention
+    # and the unquantized classic cache.
+    ev = ASREvaluator(CFG, tp, language="english", max_new_tokens=NEW, device="cpu",
+                      kv_int8=False, flash=False)
     want = ev.from_audio(clips[:2]) + ev.from_audio(clips[2:])
     got = batch_transcribe(clips, CFG, tp, None, language="english", batch_size=2,
                            max_new_tokens=NEW, return_ids=True, device="cpu")
@@ -183,6 +186,22 @@ def test_batch_transcribe_matches_the_evaluator(model):
     tok = IdTokenizer()
     assert transcribe_audio(clips[2], CFG, tp, tok, language="english",
                             max_new_tokens=NEW, device="cpu") == tok.decode(want[2])
+
+
+@pytest.mark.parametrize("task", ["transcribe", "translate"])
+def test_batch_transcribe_ids_equal_jax(model, task):
+    """Three clips of different lengths in batches of 2 (the second padded
+    with a silent clip): the port's ids equal JAX's batch_transcribe."""
+    from sar_tpu.evaluation.evaluator import batch_transcribe as jax_batch_transcribe
+    jp, tp = model
+    rng = np.random.default_rng(12)
+    clips = [rng.standard_normal(n).astype(np.float32) * 0.2 for n in (7000, 3000, 10000)]
+    kw = dict(language="german", batch_size=2, max_new_tokens=NEW, task=task,
+              return_ids=True)
+    got = batch_transcribe(clips, CFG, tp, None, device="cpu", **kw)
+    want = jax_batch_transcribe(clips, CFG, jp, None, **kw)
+    assert got == want and len({tuple(r) for r in got}) > 1
+    jax.clear_caches()
 
 
 def test_service_beam_program_matches_the_evaluator(model):
@@ -236,7 +255,7 @@ def test_evaluate_cli_in_process(model, tmp_path, capsys):
                              "synthetic", "--device", "cpu"])
 
 
-@pytest.mark.parametrize("extra", [["--fallback"], ["--attn_scores", "int8", "--kv_cache", "int4"],
+@pytest.mark.parametrize("extra", [["--cache_dir", "x"], ["--attn_scores", "int8", "--kv_cache", "int4"],
                                    ["--tp", "2"], ["--dcn_dp", "2"]])
 def test_evaluate_cli_refuses_flags_not_ported(extra, capsys):
     from sar_tpu_torch.scripts import evaluate_model
@@ -273,6 +292,11 @@ def test_new_port_modules_import_neither_jax_nor_sar_tpu():
             "import sar_tpu_torch.scripts.lid_sweep, sar_tpu_torch.scripts.route_infer\n"
             "import sar_tpu_torch.scripts.analyze_adapters, sar_tpu_torch.models.router\n"
             "import sar_tpu_torch.training.lid_trainer\n"
+            "import sar_tpu_torch.data.preprocessing, sar_tpu_torch.decode.timestamps\n"
+            "import sar_tpu_torch.decode.align, sar_tpu_torch.evaluation.fallback\n"
+            "import sar_tpu_torch.evaluation.longform, sar_tpu_torch.evaluation.writers\n"
+            "import sar_tpu_torch.evaluation.hallucination, sar_tpu_torch.scripts.transcribe\n"
+            "import sar_tpu_torch.decode.graphs\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
             "       or m == 'sar_tpu' or m.startswith('sar_tpu.')]\n"
             "print(bad)\n")

@@ -14,6 +14,9 @@ At d_model 128 (2 heads of 64, the kernels' head_dim), bf16:
   reorder; each batch through the runner gives that batch's tokens (the
   first batch runs eagerly and captures, the later ones replay);
 - the launch and step counters after replays equal the eager run's;
+- greedy with the fallback's options (sampling, logprobs, no-speech, the
+  cap, a per-call prompt length, timestamps) captured against eager, one
+  program for every prompt length, temperature and seed;
 - a capture-unsafe operation in the step raises and nothing runs on
   eagerly."""
 
@@ -199,6 +202,40 @@ def test_captured_beam_equals_eager(dev, model, cache, scores_int8):
         return lambda e: runner.beam(runner.prep(e, total, self_batch=3 * K, **CACHES[cache]),
                                      prompt, num_beams=K, scores_int8=scores_int8, segment=8)
     _run_both(beam(cap), beam(eager), encs)
+
+
+@pytest.mark.parametrize("timestamps", [False, True], ids=["sampled", "timestamped"])
+def test_captured_greedy_options_equal_eager(dev, model, timestamps):
+    """The fallback decode's options inside the captured loop: sampling at
+    T = 0 and T > 0 with a seed, logprobs, no-speech and the cap, under a
+    conditioned prompt buffer whose forced length changes per call. The
+    tokens equal the eager runner's bit for bit, the sums and
+    probabilities to 1e-3 / 1e-4, and one captured program serves every
+    call."""
+    cfg, params, encs = model
+    cap, eager = _runners(cfg, params)
+    std = cfg.prompt_ids("english", no_timestamps=not timestamps)
+    width, total = len(std) + 3, len(std) + 3 + 16
+    calls = [(len(std), 0.0, 1), (len(std) + 2, 0.0, 2), (len(std), 0.7, 3),
+             (len(std) + 3, 1.0, 4)]
+    got, want = [], []
+    for runner, out in ((cap, got), (eager, want)):
+        for plen, temp, seed in calls:
+            for e in encs:
+                buf = [cfg.prev_sot_token_id, 140, 141][:plen - len(std)] + std
+                buf += [cfg.eos_token_id] * (width - len(buf))
+                out.append(runner.greedy(
+                    runner.prep(e, total, **INT8), buf, prompt_len=plen, temperature=temp,
+                    seed=seed, with_logprobs=True, with_no_speech=True,
+                    no_speech_pos=plen - len(std), max_gen_tokens=12,
+                    timestamps=timestamps, segment=8))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g[0], w[0]) and torch.equal(g[2], w[2])
+        torch.testing.assert_close(g[1], w[1], atol=1e-3, rtol=0)
+        torch.testing.assert_close(g[3], w[3], atol=1e-4, rtol=0)
+    assert not torch.equal(got[0][0], got[4][0])            # T > 0 samples
+    assert cap.graph_stats()["programs"] == 1
 
 
 def test_a_capture_unsafe_step_raises(dev, model, monkeypatch):

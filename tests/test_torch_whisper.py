@@ -151,9 +151,11 @@ def test_evaluator_from_audio_matches_jax_prep_dec(model):
 
 def test_evaluator_refuses_options_not_yet_ported(model):
     _, tp, _, _ = model
-    for kw in (dict(mesh=object()), dict(fallback=True)):
-        with pytest.raises(NotImplementedError):
-            ASREvaluator(CFG, tp, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        ASREvaluator(CFG, tp, device="cpu", mesh=object())
+    # Temperature fallback is ported; it judges text, so it needs a tokenizer.
+    with pytest.raises(ValueError, match="tokenizer"):
+        ASREvaluator(CFG, tp, device="cpu", fallback=True)
     # The unquantized cache and the classic int8 layout are ported.
     assert ASREvaluator(CFG, tp, device="cpu", kv_int8=False).kv_int8 is False
     cache = tw.init_cache(tp, torch.zeros((1, 32, CFG.d_model)), CFG, 8, head_minor=False,
