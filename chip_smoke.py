@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--profile | --kernels-only]
 
 Phases, each printing its own line(s); any failure raises and exits non-zero.
-Every decode loop of phases 4-11, 14 and 15 runs as the entry points run it: each
+Every decode loop of phases 4-11 and 14-17 runs as the entry points run it: each
 segment of the greedy or beam loop a CUDA graph captured at the first
 batch of its shape and replayed after (decode/graphs.py); each such phase
 warms up (and so captures) before its counted run, counts the decode
@@ -171,7 +171,27 @@ eager evaluator's (capture=False) on one batch.
    (e) (b)'s group again with a q/v adapter (K4 one per pass, K2 0). It
    prints RTFx per mode, the capture seconds, the passes per window and
    the escalation rate.
-16. result: one JSON line with every kernel's numbers, then the last line
+   (f) two files through the CLI's default path (batch_transcribe), which
+   replays the program that (a) captured: no capture over the two.
+16. stream: the streaming transcriber at whisper-small with phase 4's
+   weights: a seeded random 40 s stream fed in 2 s chunks (20 updates, one
+   rollover) at 64 new tokens, over the default unquantized cache (K1 12
+   per decoded window, no other kernel) and over the int8 cache (K1 12, K2
+   1 per window, K3 12 per step run): committed ids that never retract,
+   one program captured at the first update and replayed after, and an
+   eager transcriber (capture=False) with the same ids after every
+   update, whose first update's K1/K2/K3 calls, at batch 1, are each held
+   against their plain versions; ms per update (mean, p90), streaming
+   RTF, capture seconds.
+17. serve: the HTTP server (sar_tpu_torch.scripts.serve: build_service,
+   make_server on 127.0.0.1:0) over phase 4's model with --kv_cache int8
+   --batch_size 8: 8 concurrent POSTs of 30 s 16 kHz WAVs, one stereo 44.1
+   kHz WAV, /healthz, /stats, a 400 and a 404, every text equal to the
+   service's own transcription of the decoded audio (K1, K2, K3); then a
+   routed server from the route phase's adapters and the lid phase's head
+   (responses carry the detected language; K1, K4, K3). Round-trip p50/p95
+   and batches per request.
+18. result: one JSON line with every kernel's numbers, then the last line
    {"ok": true, "device": {...}}.
 
 With --kernels-only, it runs phases 1-3 and prints the kernel table
@@ -350,6 +370,15 @@ SINGLE_WINDOW_SECONDS = 25
 TRANSCRIBE_BEST_OF = 2
 # Captured against eager fallback passes: summed logprobs and p(nospeech).
 CAPTURED_LOGPROB_TOL, CAPTURED_NO_SPEECH_TOL = 1e-3, 1e-4
+# Stream cell: a STREAM_SECONDS seeded random stream fed to a
+# StreamingTranscriber in STREAM_CHUNK_SECONDS chunks (20 updates, one
+# rollover) at MAX_NEW_TOKENS, over the default and the int8 cache.
+STREAM_SECONDS, STREAM_CHUNK_SECONDS = 40, 2
+# Serve cell: SERVE_CLIENTS concurrent POSTs of SERVE_SECONDS s WAVs (one
+# device batch of BATCH), a SERVE_RESAMPLE_SECONDS s stereo 44.1 kHz WAV,
+# the service's batching window SERVE_WAIT_MS.
+SERVE_CLIENTS, SERVE_SECONDS, SERVE_RESAMPLE_SECONDS = BATCH, 30, 10
+SERVE_WAIT_MS = 100.0
 
 
 def fail(msg: str) -> None:
@@ -2951,9 +2980,10 @@ def phase_transcribe(cfg, params, device, work):
     seed; (c) --condition_on_previous_text, one window after another (one
     program, replayed across windows); (d) one 25 s window with
     --num_beams 4 --timestamps --language auto (no kernel); (e) (b)'s group
-    again with a q/v adapter (K4 per pass, no K2). Prints RTFx per mode,
-    capture seconds, passes per window and the escalation rate; returns
-    the summed launch counts of (a)-(e)."""
+    again with a q/v adapter (K4 per pass, no K2); (f) two files through
+    the CLI's default path, replaying (a)'s kept program (no capture).
+    Prints RTFx per mode, capture seconds, passes per window and the
+    escalation rate; returns the summed launch counts of (a)-(e)."""
     import torch
     from sar_tpu_torch.data import CharTokenizer
     from sar_tpu_torch.data.preprocessing import load_audio
@@ -3133,6 +3163,367 @@ def phase_transcribe(cfg, params, device, work):
     check_counts("transcribe (e)", c, want_zero=tuple(k for k in KERNEL_NAMES if k not in want))
     capture_s = sum(t.runner.graph_stats()["capture_s"] for t in (tr, tr_c, tr_e))
     print(f"transcribe: capture {capture_s:.2f} s over the fallback runners of (b), (c), (e)")
+
+    # (f) two files through the CLI's default path: batch_transcribe's kept
+    # program, which (a) captured, replayed for both.
+    from sar_tpu_torch.evaluation import evaluator
+    second_wav = work / "short2.wav"
+    write_wav(second_wav, SINGLE_WINDOW_SECONDS, 16000, SEED + 15)
+    plain = evaluator.plain_evaluator(cfg, params, cfg.prompt_ids("hindi"), MAX_NEW_TOKENS,
+                                      device=device)
+    before = plain.runner.graph_stats()
+    args_f = transcribe.parse_args([str(short_wav), str(second_wav), "--model", cfg.name,
+                                    "--language", "hindi", "--max_new_tokens",
+                                    str(MAX_NEW_TOKENS), "--device", str(device)])
+    texts_f, wall_f, c, _ = counted(lambda: transcribe.run(args_f, cfg, params, tok,
+                                                           device=device))
+    after = evaluator.plain_evaluator(cfg, params, cfg.prompt_ids("hindi"), MAX_NEW_TOKENS,
+                                      device=device).runner.graph_stats()
+    check_counts("transcribe (f) the default path", c, want_zero=KERNEL_NAMES)
+    if len(texts_f) != 2 or after != before or before["graphs"] == 0:
+        fail(f"transcribe (f): graphs {json.dumps(before)} before two files, "
+             f"{json.dumps(after)} after")
+    print(f"transcribe (f) the default path, two files of {SINGLE_WINDOW_SECONDS} s: "
+          f"{wall_f:.2f} s ({wall_f / 2:.2f} s per file), no capture (the kept program of (a): "
+          f"{json.dumps(after)}) | no kernel")
+    return total
+
+
+def stream_updates(audio_len: int, chunk_len: int, window: int) -> int:
+    """The windows a StreamingTranscriber decodes when it is fed
+    `audio_len` samples in chunks of `chunk_len`: one per feed, plus one
+    per rollover (a window filled past `window` samples)."""
+    held, windows = 0, 0
+    for s in range(0, audio_len, chunk_len):
+        held += min(chunk_len, audio_len - s)
+        while held > window:
+            held -= window
+            windows += 1
+        windows += 1
+    return windows
+
+
+# The wrappers of K1-K3 by the names the models module calls them by.
+STREAM_KERNELS = ("encoder_attention_hm", "fused_kv_init", "cross_decode_attention_exact")
+
+
+@contextlib.contextmanager
+def recording_kernel_inputs(n_calls: int):
+    """Copies of the inputs of the first `n_calls` calls of each of K1, K2
+    and K3 that the models module makes inside the block, per wrapper name
+    as (args, kwargs); every call goes on to the wrapper."""
+    import torch
+    from sar_tpu_torch.models import whisper
+    calls = {name: [] for name in STREAM_KERNELS}
+    wrappers = {name: getattr(whisper, name) for name in STREAM_KERNELS}
+
+    def recorder(name):
+        def call(*args, **kwargs):
+            if len(calls[name]) < n_calls:
+                copy = lambda x: x.clone() if isinstance(x, torch.Tensor) else x
+                calls[name].append((tuple(copy(x) for x in args),
+                                    {k: copy(v) for k, v in kwargs.items() if k != "out"}))
+            return wrappers[name](*args, **kwargs)
+        return call
+
+    for name in STREAM_KERNELS:
+        setattr(whisper, name, recorder(name))
+    try:
+        yield calls
+    finally:
+        for name, fn in wrappers.items():
+            setattr(whisper, name, fn)
+
+
+def check_recorded_kernels(label: str, calls: dict) -> dict:
+    """Each recorded K1/K2/K3 call run again through its wrapper and its
+    plain version, at phase_kernels' tolerances: K1 and K3 by max abs/rel
+    error (K1 over the valid rows), K2 by `_kv_errors`. Returns the worst
+    errors per kernel, with the batch the calls had."""
+    from sar_tpu_torch.ops import decode_cross, flash_enc, kv_init
+    plain = {"encoder_attention_hm": flash_enc.encoder_attention_hm_reference,
+             "fused_kv_init": kv_init.fused_kv_init_reference,
+             "cross_decode_attention_exact": decode_cross.cross_decode_reference_exact}
+    kernel = {"encoder_attention_hm": flash_enc.encoder_attention_hm,
+              "fused_kv_init": kv_init.fused_kv_init,
+              "cross_decode_attention_exact": decode_cross.cross_decode_attention_exact}
+    out = {}
+    for name, recorded in calls.items():
+        if not recorded:
+            continue
+        worst = [0.0, 0.0]
+        for args, kwargs in recorded:
+            got, want = kernel[name](*args, **kwargs), plain[name](*args, **kwargs)
+            if name == "fused_kv_init":
+                flip, scale_err, deq_err = _kv_errors(f"{label} {name}", got, want,
+                                                      kwargs["t_valid"])
+                errs = (deq_err, flip)
+            else:
+                if name == "encoder_attention_hm":
+                    got, want = got[:, :kwargs["t_valid"]], want[:, :kwargs["t_valid"]]
+                errs = _attn_errors(got, want)
+                if errs[0] > ATTN_ABS_TOL or errs[1] > ATTN_REL_TOL:
+                    fail(f"{label}: {name} at batch {args[0].shape[0]} disagrees with its "
+                         f"plain version: {errs}")
+            worst = [max(w, e) for w, e in zip(worst, errs)]
+        out[name] = {"calls": len(recorded), "batch": recorded[0][0][0].shape[0],
+                     "max_abs_err": worst[0],
+                     ("flip_frac" if name == "fused_kv_init" else "max_rel_err"): worst[1]}
+    return out
+
+
+def phase_stream(cfg, params, device):
+    """Streaming at whisper-small with phase 4's weights: a seeded random
+    STREAM_SECONDS stream fed in STREAM_CHUNK_SECONDS chunks to a
+    StreamingTranscriber at MAX_NEW_TOKENS, over the default unquantized
+    cache (K1 only) and over the int8 cache (K1, K2, K3), each with the
+    counters zeroed before the feeds and read after: K1 12 per decoded
+    window (rollovers included), K2 one per window, K3 12 per step run;
+    committed ids that never retract within a window; one program whose
+    graphs are captured at the first update and replayed after; then the
+    same chunks through an eager transcriber (capture=False), whose ids
+    after every update equal the captured one's, and whose first update's
+    K1/K2/K3 calls (batch 1) are each held against their plain versions
+    (`check_recorded_kernels`). Prints ms per update
+    (mean, p90; the replays), the streaming RTF and the capture seconds;
+    returns the summed launch counts of the two captured runs."""
+    import numpy as np
+    import torch
+    from sar_tpu_torch.data import CharTokenizer
+    from sar_tpu_torch.decode.segments import grid
+    from sar_tpu_torch.evaluation.streaming import StreamingTranscriber
+
+    tok = CharTokenizer(cfg)
+    sr = 16000
+    audio = (np.random.default_rng(SEED + 14).standard_normal(STREAM_SECONDS * sr)
+             * 0.1).astype(np.float32)
+    step = STREAM_CHUNK_SECONDS * sr
+    chunks = [audio[s:s + step] for s in range(0, len(audio), step)]
+    total = dict.fromkeys(KERNEL_NAMES, 0)
+    E, L = cfg.encoder_layers, cfg.decoder_layers
+    for kv_int8 in (False, True):
+        label = f"stream ({'int8' if kv_int8 else 'default'} cache)"
+        make = lambda **kw: StreamingTranscriber(cfg, params, tok, language="hindi",
+                                                 max_new_tokens=MAX_NEW_TOKENS,
+                                                 kv_int8=kv_int8, device=device, **kw)
+        st = make()
+        if not st.capture or st.flash != "hm":
+            fail(f"{label}: capture {st.capture}, flash {st.flash!r} on the card")
+        windows = stream_updates(len(audio), step, st.window_samples)
+        n_seg = len(grid(st._total, 32))
+        snapshots, walls, graphs = [], [], []
+        torch.cuda.synchronize()
+        reset_counts()
+        for chunk in chunks:
+            held = len(st._audio)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            st.feed(chunk)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+            snap = (list(st._committed), list(st._last_hyp), list(st._segments))
+            if snapshots and held + len(chunk) <= st.window_samples:
+                prev = snapshots[-1][0]
+                if snap[0][:len(prev)] != prev:
+                    fail(f"{label}: committed ids retracted at update {len(snapshots)}")
+            snapshots.append(snap)
+            graphs.append(st.runner.graph_stats())
+        c, steps = read_counts(), read_steps()
+        for k in total:
+            total[k] += c[k]
+        kind = "greedy" if kv_int8 else "classic"
+        stats = graphs[-1]
+        replays = sorted(walls[1:])
+        mean = sum(replays) / len(replays)
+        p90 = replays[int(0.9 * (len(replays) - 1))]
+        text = st.finalize()
+        print(f"{label}: {len(chunks)} updates of {STREAM_CHUNK_SECONDS} s, {windows} windows "
+              f"decoded ({windows - len(chunks)} rolled over), {MAX_NEW_TOKENS} new tokens | ms per "
+              f"update {1e3 * mean:.1f} mean, {1e3 * p90:.1f} p90 (the {len(replays)} replays) | "
+              f"streaming RTF {STREAM_CHUNK_SECONDS / mean:.2f} | the first update "
+              f"{1e3 * walls[0]:.1f} ms, capture {stats['capture_s']:.2f} s | graphs after the "
+              f"first update {graphs[0]['graphs']}, at the end {stats['graphs']} (of {n_seg} "
+              f"segments) | steps {json.dumps({k: v for k, v in steps.items() if v})} | "
+              f"launches {json.dumps({k: v for k, v in c.items() if v})} | {len(text)} "
+              f"characters")
+        want = {"encoder_attention_hm": E * windows}
+        if kv_int8:
+            want.update(fused_kv_init=windows, cross_decode_attention_exact=L * steps[kind])
+        if {k: c[k] for k in want} != want or steps[kind] == 0:
+            fail(f"{label}: launches {c}, steps {steps}; the design says {want}")
+        check_counts(label, c, want_zero=tuple(k for k in KERNEL_NAMES if k not in want))
+        if steps[kind] > windows * (st._total - 1) or steps["host_syncs"] > windows * n_seg:
+            fail(f"{label}: {steps} over {windows} windows of {st._total} positions")
+        if stats["programs"] != 1 or not 1 <= stats["graphs"] <= n_seg or any(
+                g["programs"] != 1 for g in graphs):
+            fail(f"{label}: graphs {json.dumps(stats)} for one key ({n_seg} segments)")
+        if graphs[0]["graphs"] == n_seg and stats["capture_s"] != graphs[0]["capture_s"]:
+            fail(f"{label}: captured again after the first update")
+        # The same chunks through an eager transcriber, not counted; the
+        # kernels' inputs of its first update are recorded, and each call
+        # is held against its plain version at the stream's batch of 1.
+        eager = make(capture=False)
+        with recording_kernel_inputs(max(E, L)) as calls:
+            eager.feed(chunks[0])
+        if {k for k, v in calls.items() if v} != set(want):
+            fail(f"{label}: the first update called "
+                 f"{ {k: len(v) for k, v in calls.items()} }, the design says {want}")
+        errors = check_recorded_kernels(label, calls)
+        del calls
+        for i, chunk in enumerate(chunks):
+            if i:
+                eager.feed(chunk)
+            if (eager._committed, eager._last_hyp, eager._segments) != snapshots[i]:
+                fail(f"{label}: the eager transcriber's ids differ at update {i}")
+        print(f"{label}: the eager transcriber's committed ids, hypothesis and segments "
+              f"equal the captured one's after each of the {len(chunks)} updates | the first "
+              f"update's kernel calls against their plain versions (tol {ATTN_ABS_TOL} abs, "
+              f"{ATTN_REL_TOL} rel; K2 by int8 flips <= {KV_FLIP_FRAC_TOL}, scales "
+              f"{KV_SCALE_REL_TOL}): {json.dumps(errors)}")
+        del st, eager
+    return total
+
+
+def _wav_bytes(seconds: float, sr: int, channels: int, seed: int) -> bytes:
+    """`seconds` of seeded 16-bit noise at `sr` Hz."""
+    import wave
+
+    import numpy as np
+    samples = np.random.default_rng(seed).standard_normal(int(seconds * sr) * channels) * 3000
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(channels)
+        w.setsampwidth(2)
+        w.setframerate(sr)
+        w.writeframes(samples.astype(np.int16).tobytes())
+    return buf.getvalue()
+
+
+def _http(base: str, path: str, data: bytes | None = None) -> tuple[int, dict, float]:
+    """(status, JSON body, round-trip ms) of one request."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(base + path, data=data,
+                                 method="GET" if data is None else "POST")
+    t = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            code, body = r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        code, body = e.code, json.loads(e.read())
+    return code, body, 1e3 * (time.perf_counter() - t)
+
+
+def phase_serve(cfg, params, device, work):
+    """The HTTP server (sar_tpu_torch.scripts.serve) at whisper-small with
+    phase 4's weights: `build_service` + `make_server` on 127.0.0.1:0 with
+    --kv_cache int8 --batch_size 8, then a routed server from the route
+    phase's saved adapters and the lid phase's head. Per server: one
+    warm-up POST (the capture), then with the counters zeroed SERVE_CLIENTS
+    concurrent POSTs of SERVE_SECONDS s WAVs at 16 kHz, one
+    SERVE_RESAMPLE_SECONDS s stereo WAV at 44.1 kHz (the resample path),
+    /healthz, /stats, a bad WAV (400) and an unknown path (404); every
+    response's text equal to the service's own transcription of the audio
+    wav_bytes_to_audio decodes from the same bytes; the plain server's
+    launches K1 12 and K2 1 per batch, K3 12 per step, the routed one's K1
+    (LID_LAYER + 1 + 12) and K4 1 per batch, K3 12 per step; the routed
+    responses carry a detected language. Prints the round-trip p50/p95 and
+    the batches per request; returns the summed launch counts."""
+    import threading
+
+    import torch
+    from sar_tpu_torch.data import CharTokenizer
+    from sar_tpu_torch.models.config import TARGET_LANGUAGES
+    from sar_tpu_torch.scripts import serve
+
+    work = Path(work)
+    tok = CharTokenizer(cfg)
+    total = dict.fromkeys(KERNEL_NAMES, 0)
+    E, L = cfg.encoder_layers, cfg.decoder_layers
+    langs = list(TARGET_LANGUAGES)
+    bodies = [_wav_bytes(SERVE_SECONDS, 16000, 1, SEED + 20 + i) for i in range(SERVE_CLIENTS)]
+    resampled = _wav_bytes(SERVE_RESAMPLE_SECONDS, 44100, 2, SEED + 30)
+    common = ["--model", cfg.name, "--language", "hindi", "--kv_cache", "int8", "--batch_size",
+              str(BATCH), "--max_wait_ms", str(SERVE_WAIT_MS), "--max_new_tokens",
+              str(MAX_NEW_TOKENS), "--device", str(device)]
+    routed_flags = ["--classifier", str(work / "lid"), "--adapters",
+                    *(f"{l}={work / 'adapters' / l}" for l in langs)]
+    for label, flags in (("serve", []), ("serve routed", routed_flags)):
+        routed = bool(flags)
+        svc = serve.build_service(serve.parse_args(common + flags), cfg, params, tok)
+        server = serve.make_server(svc, "127.0.0.1", 0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        base = "http://%s:%d" % server.server_address
+        try:
+            code, _, warm_ms = _http(base, "/v1/transcribe", bodies[0])
+            if code != 200:
+                fail(f"{label}: the warm-up POST returned {code}")
+            warm = svc.stats()
+            graphs = (svc.router if routed else svc._ev).runner.graph_stats()
+            torch.cuda.synchronize()
+            reset_counts()
+            out = [None] * SERVE_CLIENTS
+
+            def client(i):
+                out[i] = _http(base, "/v1/transcribe?language=hindi", bodies[i])
+
+            threads = [threading.Thread(target=client, args=(i,)) for i in range(SERVE_CLIENTS)]
+            t = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+            burst_s = time.perf_counter() - t
+            burst = svc.stats()
+            out.append(_http(base, "/v1/transcribe", resampled))
+            checks = {"/healthz": _http(base, "/healthz"), "/stats": _http(base, "/stats"),
+                      "bad wav": _http(base, "/v1/transcribe", b"RIFF nonsense"),
+                      "/nope": _http(base, "/nope")}
+            torch.cuda.synchronize()
+            c, steps = read_counts(), read_steps()
+            final = svc.stats()
+            # The service's own transcription of the same decoded audio (not
+            # counted: the counts above are the HTTP requests').
+            for i, (code, body, _) in enumerate(out):
+                data = resampled if i == SERVE_CLIENTS else bodies[i]
+                want = svc.transcribe(serve.wav_bytes_to_audio(data), timeout=600)
+                if code != 200 or set(body) != {"text", "language", "seconds", "latency_ms"}:
+                    fail(f"{label}: request {i} returned {code} {body}")
+                if body["text"] != want:
+                    fail(f"{label}: request {i}'s text differs from the service's own")
+                if routed and body["language"] not in langs:
+                    fail(f"{label}: request {i} detected {body['language']!r}")
+        finally:
+            server.shutdown()
+            server.server_close()
+            svc.close()
+        want_codes = {"/healthz": 200, "/stats": 200, "bad wav": 400, "/nope": 404}
+        if {k: v[0] for k, v in checks.items()} != want_codes or checks["/healthz"][1] != {"ok": True}:
+            fail(f"{label}: {json.dumps({k: v[:2] for k, v in checks.items()})}")
+        if checks["/stats"][1]["requests"] != warm["requests"] + SERVE_CLIENTS + 1:
+            fail(f"{label}: /stats says {checks['/stats'][1]}")
+        for k in total:
+            total[k] += c[k]
+        batches = final["batches"] - warm["batches"]
+        trips = sorted(o[2] for o in out[:SERVE_CLIENTS])
+        p50, p95 = trips[len(trips) // 2], trips[min(len(trips) - 1, int(0.95 * len(trips)))]
+        print(f"{label}: warm-up POST {warm_ms:.0f} ms (capture {graphs['capture_s']:.2f} s, "
+              f"{graphs['graphs']} graphs); {SERVE_CLIENTS} concurrent "
+              f"POSTs of {SERVE_SECONDS} s in {burst_s:.2f} s, round trip p50 {p50:.1f} ms, "
+              f"p95 {p95:.1f} ms, {burst['batches'] - warm['batches']} batches for "
+              f"{SERVE_CLIENTS} requests ({(burst['batches'] - warm['batches']) / SERVE_CLIENTS:.3f} "
+              f"per request) | a {SERVE_RESAMPLE_SECONDS} s stereo 44.1 kHz POST {out[-1][2]:.1f} ms "
+              f"| languages {sorted({str(o[1]['language']) for o in out})} | steps "
+              f"{json.dumps({k: v for k, v in steps.items() if v})} | launches "
+              f"{json.dumps({k: v for k, v in c.items() if v})} | texts equal the service's own")
+        lid = LID_LAYER + 1 if routed else 0
+        want = {"encoder_attention_hm": (E + lid) * batches,
+                "fused_kv_init_lora" if routed else "fused_kv_init": batches,
+                "cross_decode_attention_exact": L * steps["greedy"]}
+        if {k: c[k] for k in want} != want or steps["greedy"] == 0:
+            fail(f"{label}: launches {c} over {batches} batches, the design says {want}")
+        check_counts(label, c, want_zero=tuple(k for k in KERNEL_NAMES if k not in want))
     return total
 
 
@@ -3155,7 +3546,9 @@ def path_phases(cfg, params, n_params, device, work, profile=False) -> list:
             ("lid", lambda: phase_lid(cfg, params, device, Path(work) / "lid")),
             ("sweep", lambda: phase_sweep(cfg, device, work)),
             ("route", lambda: phase_route(cfg, params, device, work)),
-            ("transcribe", lambda: phase_transcribe(cfg, params, device, work))]
+            ("transcribe", lambda: phase_transcribe(cfg, params, device, work)),
+            ("stream", lambda: phase_stream(cfg, params, device)),
+            ("serve", lambda: phase_serve(cfg, params, device, work))]
 
 
 def main() -> int:

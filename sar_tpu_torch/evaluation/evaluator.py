@@ -36,7 +36,13 @@ Meshes are not ported and raise NotImplementedError.
 `transcribe_audio` and `batch_transcribe` compute what the JAX package's
 do: exact encoder attention (flash=False) and greedy over the unquantized
 classic cache, through an ASREvaluator(kv_int8=False, flash=False) whose
-runner replays its captured loop on the card.
+runner replays its captured loop on the card. As JAX's module-level
+`_transcribe_step` compiles once for every call of one shape, that
+evaluator is kept at module level (`plain_evaluator`): calls with the same
+weights (the same tensors), adapter, scale, prompt width and token budget
+replay the program the first one captured, whatever their language or
+task (the prompt is refilled per call). At most one is kept: other
+weights or settings drop it, its cache and its graphs first.
 
 The evaluator runs on the CUDA card unless `device` says otherwise (see
 sar_tpu_torch/device.py); params and the adapter on another device are
@@ -48,6 +54,7 @@ from __future__ import annotations
 
 import json
 import logging
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -197,20 +204,21 @@ class ASREvaluator:
             return self.beam(mel, prompts)
         return self.dec(self.prep(mel), prompts)
 
-    def _transcribe_batch(self, mel: torch.Tensor) -> list:
+    def _transcribe_batch(self, mel: torch.Tensor, prompts=None) -> list:
         if self._fallback is not None:
             return self._fallback(mel)[0]
-        ids = transcribe_tokens(self.tokens(mel), self.cfg,
+        ids = transcribe_tokens(self.tokens(mel, prompts), self.cfg,
                                 prompt_len=int(self._prompt.shape[0]))
         if self.tokenizer is None:
             return ids
         return [self.tokenizer.decode(row) for row in ids]
 
-    def from_audio(self, audio) -> list:
+    def from_audio(self, audio, prompts=None) -> list:
         """Raw 16 kHz audio ([B, N] array/tensor, or a list of 1-D
         waveforms) -> per-clip token ids (or text): pad/trim to the 30 s
         window, log-mel on the device in the params' dtype, keep the
-        encoder's `num_audio_frames` frames, then decode."""
+        encoder's `num_audio_frames` frames, then decode (with `prompts`
+        [P] or [B, P] of the evaluator's prompt width, when given)."""
         if isinstance(audio, (list, tuple)):
             audio = mel_ops.stack_pad_audio(audio)
         if not isinstance(audio, torch.Tensor):
@@ -218,7 +226,7 @@ class ASREvaluator:
         audio = audio.to(self.device, torch.float32)
         feats = mel_ops.log_mel_spectrogram(
             mel_ops.pad_or_trim(audio), self.cfg.num_mel_bins, dtype=self.dtype)
-        return self._transcribe_batch(feats[:, :, :self.cfg.num_audio_frames])
+        return self._transcribe_batch(feats[:, :, :self.cfg.num_audio_frames], prompts)
 
     def evaluate(self, dataloader, return_predictions: bool = False) -> dict:
         """Corpus WER/CER (and the sample count) over one epoch of a
@@ -269,6 +277,53 @@ class ASREvaluator:
                 "\n".join(results["references"]) + "\n")
 
 
+# The plain evaluator of batch_transcribe: at most one (settings, weight
+# tensors, their version counters, evaluator). The lock serialises the
+# calls that share it: its runner's static buffers serve one decode at a
+# time.
+_PLAIN: list = []
+_PLAIN_LOCK = threading.RLock()
+
+
+def _version(t) -> int | None:
+    """A tensor's in-place version counter; None for an inference tensor,
+    which keeps none, and for a leaf that is not a tensor."""
+    return (t._version if isinstance(t, torch.Tensor) and not t.is_inference()
+            else None)
+
+
+def plain_evaluator(cfg: WhisperConfig, params: dict, prompt: list[int],
+                    max_new_tokens: int = 256, lora: dict | None = None,
+                    lora_scale: float = 1.0,
+                    device: torch.device | str | None = None) -> ASREvaluator:
+    """The ASREvaluator(kv_int8=False, flash=False) that batch_transcribe
+    decodes with: the one kept from an earlier call when the weights are
+    the same tensors (params and adapter, leaf by leaf, so a dict rebuilt
+    around them still matches), each either decoded as it is or unchanged
+    in place since (its version counter: the kept evaluator's device or
+    dtype copy would be stale), and the settings are equal (the config,
+    the prompt's width, `max_new_tokens`, `lora_scale`, the device); else a
+    new one, built after the old one is dropped. Its tokenizer is None
+    (token ids); `prompt` sets the prompt width its program is keyed on."""
+    device = resolve_device(device)
+    settings = (cfg, len(prompt), max_new_tokens, float(lora_scale), device)
+    weights = whisper.tree_leaves({"params": params, "lora": lora})
+    with _PLAIN_LOCK:
+        if _PLAIN:
+            kept_settings, kept, versions, ev = _PLAIN[0]
+            used = whisper.tree_leaves({"params": ev.params, "lora": ev.lora})
+            if kept_settings == settings and len(kept) == len(weights) and all(
+                    w is k and (u is w or (v is not None and v == _version(w)))
+                    for w, k, u, v in zip(weights, kept, used, versions)):
+                return ev
+        _PLAIN.clear()
+        ev = ASREvaluator(cfg, params, None, max_new_tokens=max_new_tokens, lora=lora,
+                          lora_scale=lora_scale, prompt_tokens=prompt, device=device,
+                          kv_int8=False, flash=False)
+        _PLAIN.append((settings, weights, [_version(w) for w in weights], ev))
+        return ev
+
+
 def transcribe_audio(audio: np.ndarray, cfg: WhisperConfig, params: dict,
                      tokenizer, language: str = "hindi",
                      max_new_tokens: int = 256, lora: dict | None = None,
@@ -292,16 +347,20 @@ def batch_transcribe(audios: list[np.ndarray], cfg: WhisperConfig,
     the 30 s window, mel on the device in the weights' dtype, the encoder
     with exact attention and greedy over the unquantized classic cache (the
     JAX package's batch_transcribe: its encode and greedy_decode
-    defaults). `return_ids` gives the per-clip token id lists instead of
-    text."""
-    ev = ASREvaluator(cfg, params, None if return_ids else tokenizer,
-                      language=language, max_new_tokens=max_new_tokens,
-                      lora=lora, lora_scale=lora_scale, task=task, device=device,
-                      kv_int8=False, flash=False)
+    defaults), through `plain_evaluator`: a later call of the same key
+    replays the captured program. `return_ids` gives the per-clip token id
+    lists instead of text."""
+    prompt = cfg.prompt_ids(language, task)
     out: list = []
-    for s in range(0, len(audios), batch_size):
-        chunk = list(audios[s:s + batch_size])
-        n = len(chunk)
-        out.extend(ev.from_audio(chunk + [np.zeros(1, np.float32)]
-                                 * (batch_size - n))[:n])
-    return out
+    with _PLAIN_LOCK:
+        ev = plain_evaluator(cfg, params, prompt, max_new_tokens=max_new_tokens,
+                             lora=lora, lora_scale=lora_scale, device=device)
+        prompts = torch.tensor(prompt, dtype=torch.int64, device=ev.device)
+        for s in range(0, len(audios), batch_size):
+            chunk = list(audios[s:s + batch_size])
+            n = len(chunk)
+            out.extend(ev.from_audio(chunk + [np.zeros(1, np.float32)]
+                                     * (batch_size - n), prompts)[:n])
+    if return_ids:
+        return out
+    return [tokenizer.decode(row) for row in out]

@@ -24,7 +24,11 @@ values); no checkpoint is read. The rows:
   oracle decode given the same adapter indices; routing overhead and LID
   ms per utterance, and the token agreement with the oracle;
 - `--serving`: `--serving_requests` clips pushed from as many client
-  threads through a `TranscriptionService`.
+  threads through a `TranscriptionService`;
+- `--streaming`: per-update latency of a `StreamingTranscriber` (batch 1)
+  fed `--streaming_chunk_seconds` of audio per update, one row per
+  `--kv_cache` (int8: the int8 head-minor cache; else the unquantized
+  one, labelled bf16 as in the JAX CLI).
 
 The config and routed rows time the decode programs users run: a
 `DecodeRunner` (decode/graphs.py, the evaluator's and the router's), whose
@@ -39,8 +43,9 @@ Every timed region is fenced by a CUDA sync on both sides;
 over `--iters` iterations after one warm-up, and each row also carries its
 per-iteration walls (`iter_s`). A config row that runs out of device
 memory is recorded as {"batch": b, ..., "error": "oom"} (capacity probes);
-any other error propagates. Device meshes (`--dp/--tp/--dcn_dp`),
-`--platform` and `--streaming` are refused. `--output` writes the report.
+any other error propagates. Each streaming update is fenced the same
+way. Device meshes (`--dp/--tp/--dcn_dp`) and `--platform` are refused.
+`--output` writes the report.
 """
 
 from __future__ import annotations
@@ -90,7 +95,8 @@ def parse_args(argv=None):
     p.add_argument("--tp", type=int, default=1, help="not ported: must be 1")
     p.add_argument("--dcn_dp", type=int, default=1, help="not ported: must be 1")
     p.add_argument("--streaming", action="store_true",
-                   help="not ported yet (waits for evaluation/streaming.py)")
+                   help="Per-update latency of the streaming transcriber "
+                        "(batch 1; one row per --kv_cache)")
     p.add_argument("--streaming_chunk_seconds", type=float, default=1.0,
                    help="Audio fed per streaming update (with --streaming)")
     p.add_argument("--train", action="store_true",
@@ -141,9 +147,6 @@ def parse_args(argv=None):
     if args.platform != "auto":
         p.error(f"--platform {args.platform}: not ported to sar_tpu_torch "
                 f"(use --device)")
-    if args.streaming:
-        p.error("--streaming: not ported to sar_tpu_torch yet (the streaming "
-                "transcriber, evaluation/streaming.py, is a later slice)")
     return args
 
 
@@ -242,6 +245,48 @@ def run_serving(cfg, params, batch, max_new_tokens, n_requests, max_wait_ms,
             "latency_ms_p95": st.get("latency_ms_p95"),
             "compile_s": round(compile_s, 1),
             "iter_s": [round(dt, 4)]}
+
+
+def run_streaming(cfg, params, chunk_seconds, iters, kv_int8, max_new_tokens,
+                  device, capture=None):
+    """Per-update latency of a StreamingTranscriber (batch 1): real time
+    while an update takes less than `chunk_seconds` (rtf > 1). Every update
+    re-encodes the window and replays the committed transcript through one
+    captured decode program (the forced prefix length refilled per call).
+    One warm-up update (the capture), then `iters` windows of
+    updates_per_window updates, each fenced."""
+    from sar_tpu_torch.data import CharTokenizer
+    from sar_tpu_torch.evaluation.streaming import StreamingTranscriber
+    from sar_tpu_torch.ops import mel as mel_ops
+
+    st = StreamingTranscriber(cfg, params, CharTokenizer(cfg), language="hindi",
+                              max_new_tokens=max_new_tokens, kv_int8=kv_int8,
+                              device=device, capture=capture)
+    rng = np.random.default_rng(0)
+    chunk_n = int(chunk_seconds * mel_ops.SAMPLE_RATE)
+    updates = max(1, st.window_samples // chunk_n)
+
+    def chunk():
+        return (rng.standard_normal(chunk_n) * 0.1).astype(np.float32)
+
+    st.feed(chunk())                        # the capture, and a warm-up
+    lats = []
+    for _ in range(iters):
+        st.reset()
+        for _ in range(updates):
+            with Timer() as t:
+                st.feed(chunk())
+            lats.append(t.elapsed)
+    _print_capture(f"streaming kv={'int8' if kv_int8 else 'bf16'}", st.runner)
+    lats = sorted(lats)
+    mean = sum(lats) / len(lats)
+    p90 = lats[int(0.9 * (len(lats) - 1))]
+    return {"mode": "streaming", "chunk_seconds": chunk_seconds,
+            "updates_per_window": updates,
+            "ms_per_update_mean": round(mean * 1000, 2),
+            "ms_per_update_p90": round(p90 * 1000, 2),
+            "streaming_rtf": round(chunk_seconds / mean, 2),
+            "kv": "int8" if kv_int8 else "bf16"}
 
 
 def _print_capture(label: str, runner) -> None:
@@ -509,6 +554,18 @@ def main(argv=None) -> dict:
                       f"({r['audio_sec_per_s']} audio-sec/s), p50 "
                       f"{r['latency_ms_p50']} ms, p95 {r['latency_ms_p95']} ms "
                       f"({r['batches']} batches)")
+        return _report(args, rows, peaks)
+    if args.streaming:
+        for kv in args.kv_cache:
+            r = measured(lambda: run_streaming(cfg, params, args.streaming_chunk_seconds,
+                                               args.iters, kv == "int8",
+                                               args.max_new_tokens, device,
+                                               capture=capture),
+                         mode="streaming", kv=kv)
+            if "error" not in r:
+                print(f"streaming kv={r['kv']}: {r['ms_per_update_mean']} ms/update "
+                      f"(p90 {r['ms_per_update_p90']}), rtf {r['streaming_rtf']}x "
+                      f"({r['updates_per_window']} updates/window)")
         return _report(args, rows, peaks)
     print(f"{'batch':>6} {'kv':>5} {'scores':>7} {'beams':>6} {'s/batch':>9} "
           f"{'RTFx':>8} {'ms/tok':>8} {'agree':>7}")

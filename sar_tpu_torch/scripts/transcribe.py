@@ -4,8 +4,7 @@
         --language english --max_new_tokens 8 --device cpu
 
 The port of scripts/transcribe.py, with its flags and modes; `--device`
-takes the place of `--platform` (default: the CUDA card), and
-`--streaming` is refused until the streaming transcriber is ported.
+takes the place of `--platform` (default: the CUDA card).
 
 - default: one 30 s window, greedy over the unquantized classic cache
   (evaluator.transcribe_audio);
@@ -19,6 +18,9 @@ takes the place of `--platform` (default: the CUDA card), and
 - `--condition_on_previous_text`, `--initial_prompt`,
   `--carry_initial_prompt`, `--hallucination_silence_threshold`: the
   sequential conditioned long-form loop;
+- `--streaming` (`--stream_chunk_seconds`): the file fed to a
+  StreamingTranscriber chunk by chunk, the committed transcript printed as
+  it grows (it takes precedence over long-form and the single window);
 - `--language auto`: zero-shot language detection by the base model;
 - `--task translate`, `--checkpoint` (a LoRA adapter directory),
   `--output` ({file: text} JSON), `--output_format`/`--output_dir`
@@ -27,8 +29,10 @@ takes the place of `--platform` (default: the CUDA card), and
 The single-window beam, timestamp and word paths run, as the JAX
 script's, the exact encoder and the unquantized classic cache (no decode
 kernel); the fallback path and the long-form extras run the
-FallbackTranscriber (kernels K1, K2 and K3 on the card). Every decode
-loop replays captured CUDA graphs on the card.
+FallbackTranscriber (kernels K1, K2 and K3 on the card); streaming runs
+K1 and the unquantized cache. Every decode loop replays captured CUDA
+graphs on the card; the default path keeps one program for every file
+(evaluator.plain_evaluator).
 
 `run` is the part after the base model, the tokenizer and the adapter are
 loaded, for in-process callers that bring their own (`main` loads them
@@ -56,6 +60,7 @@ from sar_tpu_torch.evaluation import writers
 from sar_tpu_torch.evaluation.evaluator import transcribe_audio
 from sar_tpu_torch.evaluation.fallback import transcribe_batch_with_fallback
 from sar_tpu_torch.evaluation.longform import transcribe_long, window_features
+from sar_tpu_torch.evaluation.streaming import StreamingTranscriber
 from sar_tpu_torch.models import lora as lora_lib
 from sar_tpu_torch.models import whisper
 from sar_tpu_torch.models.base import load_base_model
@@ -64,10 +69,8 @@ from sar_tpu_torch.ops import mel as mel_ops
 
 logger = logging.getLogger("transcribe")
 
-# Flags of the JAX script the port replaces or has not got yet.
-NOT_PORTED = {"--platform": "use --device",
-              "--streaming": ("the streaming transcriber is not ported yet "
-                              "(ROADMAP Queue A 5)")}
+# Flags of the JAX script the port replaces.
+NOT_PORTED = {"--platform": "use --device"}
 
 
 def parse_args(argv=None):
@@ -113,6 +116,9 @@ def parse_args(argv=None):
     p.add_argument("--condition_on_previous_text", action="store_true")
     p.add_argument("--initial_prompt", type=str, default=None)
     p.add_argument("--carry_initial_prompt", action="store_true")
+    p.add_argument("--streaming", action="store_true",
+                   help="Simulate a live stream from the file; print the "
+                        "committed transcript as it grows")
     p.add_argument("--stream_chunk_seconds", type=float, default=1.0)
     p.add_argument("--output", type=str, default=None,
                    help="Write {file: transcript} JSON here")
@@ -252,6 +258,34 @@ def _single_window(audio, runner, cfg, params, tokenizer, language, lora,
     return text, segments, words
 
 
+def _stream(st: StreamingTranscriber, audio, args) -> str:
+    """Feed the file to `st` in --stream_chunk_seconds chunks, printing
+    the committed transcript as it grows; returns the final text."""
+    st.reset()
+    step = int(args.stream_chunk_seconds * mel_ops.SAMPLE_RATE)
+    shown = ""
+
+    def show(text):
+        # Committed ids never retract, but their decoded string can be
+        # revised at a boundary (a partial UTF-8 sequence completing):
+        # reprint the line when it is not an append.
+        nonlocal shown
+        if text == shown:
+            return
+        if text.startswith(shown):
+            print(text[len(shown):], end="", flush=True)
+        else:
+            print("\r" + text, end="", flush=True)
+        shown = text
+
+    for s in range(0, len(audio), step):
+        show(st.feed(audio[s:s + step]))
+    text = st.finalize()
+    show(text)
+    print()
+    return text
+
+
 def _detect_language(audio, cfg, params, device) -> str:
     """--language auto: the base model's <|lang|> distribution (the
     decoder pass has no adapter, so the encoder runs without one too)."""
@@ -279,6 +313,9 @@ def run(args, cfg, params, tokenizer, lora=None, lora_scale: float = 1.0,
     runner = DecodeRunner(params, cfg, lora=lora, lora_scale=lora_scale,
                           capture=(CudaGraphCapture
                                    if resolve_capture(None, device) else None))
+    # One streaming transcriber, built again when the language changes: a
+    # later file in the same language replays its captured program.
+    stream, stream_language = None, None
     results = {}
     for path in args.audio:
         audio = load_audio(path)
@@ -304,7 +341,8 @@ def run(args, cfg, params, tokenizer, lora=None, lora_scale: float = 1.0,
             clips = list(zip(vals[::2], vals[1::2]))
             if any(e <= s0 for s0, e in clips):
                 raise SystemExit("--clip_timestamps ranges must be start < end")
-        if args.output_format in writers.SEGMENT_FORMATS and not args.timestamps:
+        if (args.output_format in writers.SEGMENT_FORMATS and not args.timestamps
+                and not args.streaming):
             logger.info("--output_format %s needs segments; enabling "
                         "--timestamps", args.output_format)
             args.timestamps = True
@@ -314,10 +352,25 @@ def run(args, cfg, params, tokenizer, lora=None, lora_scale: float = 1.0,
             logger.warning("--best_of applies to sampled passes; ignored "
                            "without --fallback or --temperature > 0")
         # Conditioning and clip ranges ride the long-form engine (a short
-        # clip is one window there).
+        # clip is one window there); streaming goes first.
         long = (args.longform or seconds > mel_ops.CHUNK_SECONDS
-                or conditioned or clips is not None)
-        if long:
+                or ((conditioned or clips is not None) and not args.streaming))
+        if clips is not None and args.streaming:
+            logger.warning("--clip_timestamps does not apply to streaming; ignored")
+        if conditioned and args.streaming:
+            logger.warning("--condition_on_previous_text/--initial_prompt "
+                           "do not apply to streaming; ignored")
+        # The conflict warnings follow the dispatch below: each names the
+        # flag that this path drops.
+        if args.streaming:
+            for flag, on in [("--num_beams", args.num_beams > 1),
+                             ("--timestamps", args.timestamps),
+                             ("--word_timestamps", args.word_timestamps),
+                             ("--fallback", args.fallback),
+                             ("--temperature", args.temperature > 0)]:
+                if on:
+                    logger.warning("%s does not apply to streaming; ignored", flag)
+        elif long:
             if args.num_beams > 1:
                 logger.warning("--num_beams only applies to single-window "
                                "decoding; long-form uses greedy")
@@ -334,7 +387,16 @@ def run(args, cfg, params, tokenizer, lora=None, lora_scale: float = 1.0,
         temps = _temperatures(args)
         segments = words = None
         t0 = time.perf_counter()
-        if long:
+        if args.streaming:
+            if stream_language != language:
+                stream = None                   # its cache and graphs go first
+                stream = StreamingTranscriber(
+                    cfg, params, tokenizer, language=language,
+                    max_new_tokens=args.max_new_tokens, lora=lora,
+                    lora_scale=lora_scale, task=args.task, device=device)
+                stream_language = language
+            text = _stream(stream, audio, args)
+        elif long:
             text, segments, words = _long(audio, seconds, clips, cfg, params,
                                           tokenizer, language, lora, lora_scale,
                                           args, temps, device)

@@ -112,6 +112,7 @@ class TranscriptionService:
                            "programs; decoding with bf16 scores")
             scores_int8 = False
         self.kv_int8, self.kv_int4 = kv_int8, kv_int4
+        self.scores_int8 = scores_int8
         if router is not None and task != "transcribe":
             raise ValueError("routed serving is transcription-only (the "
                              "router's adapters are transcription-trained)")

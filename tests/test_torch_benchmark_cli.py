@@ -2,8 +2,9 @@
 CPU at whisper-test: tests/test_benchmark_cli.py's eight cases run with
 --device cpu (the numbers mean nothing off the card; these guard the
 rows and their plumbing), the port's rows holding JAX's row keys (JAX's
-benchmark.main on the same arguments: a greedy row, a beam row and the
-routed row; the port adds only its per-iteration walls, `iter_s`), the
+benchmark.main on the same arguments: a greedy row, a beam row, the
+routed row and two streaming rows; the port adds only its per-iteration
+walls, `iter_s`, to the first three), the
 bf16 and classic-layout rows, and the flags it refuses."""
 
 import sys
@@ -113,6 +114,8 @@ def test_benchmark_bf16_and_classic_rows(tmp_path):
      "--kv_layout", "classic"],
     ["--batch_sizes", "2", "--max_new_tokens", "4", "--routed", "--routed_languages", "2",
      "--routed_lora_rank", "4", "--routed_lid_layer", "0"],
+    ["--max_new_tokens", "4", "--streaming", "--streaming_chunk_seconds", "0.2",
+     "--kv_cache", "int8", "bf16"],
 ])
 def test_rows_carry_jax_keys(extra):
     """JAX's benchmark.main and the port's on the same arguments give rows
@@ -132,7 +135,7 @@ def test_rows_carry_jax_keys(extra):
     jax.clear_caches()
 
 
-@pytest.mark.parametrize("extra", [["--streaming"], ["--dp", "2"], ["--platform", "tpu"]])
+@pytest.mark.parametrize("extra", [["--dp", "2"], ["--platform", "tpu"]])
 def test_refused_flags(extra, capsys):
     with pytest.raises(SystemExit):
         benchmark.parse_args([*CPU, *extra])

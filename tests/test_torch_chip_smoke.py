@@ -110,8 +110,9 @@ def test_decode_steps_reports_the_steps_run():
 def test_phase_list_ends_with_the_phase2_clis_and_imports_no_jax():
     """chip_smoke.py drives the LID sweep and routed inference CLIs after
     the lid phase (whose head the route phase reads), then single-file
-    transcription last, and neither importing it nor building its phase
-    list pulls in jax or sar_tpu."""
+    transcription, streaming and the HTTP server (whose routed server reads
+    the route phase's adapters), and neither importing it nor building its
+    phase list pulls in jax or sar_tpu."""
     code = ("import sys, chip_smoke\n"
             "names = [n for n, _ in chip_smoke.path_phases(None, None, 0, None, 'w')]\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'sar_tpu')]\n"
@@ -121,7 +122,7 @@ def test_phase_list_ends_with_the_phase2_clis_and_imports_no_jax():
     assert out.returncode == 0, out.stderr
     names, bad = out.stdout.strip().splitlines()
     assert names == str(["greedy", "routed", "beam", "train", "s8", "fq", "bench", "graphs",
-                         "lid", "sweep", "route", "transcribe"])
+                         "lid", "sweep", "route", "transcribe", "stream", "serve"])
     assert bad == "[]"
 
 
@@ -167,3 +168,47 @@ def test_recording_transcribers_records_and_restores(monkeypatch):
         tr("mel")
     assert fallback.FallbackTranscriber is cls and made == [tr]
     assert tr.infos == [[{"temperature": 0.0}]]
+
+
+def test_stream_updates_count_the_decoded_windows():
+    """The stream phase's design count of K1 (K2) launches: one window per
+    feed plus one per rollover."""
+    import chip_smoke
+    assert chip_smoke.stream_updates(40 * 16000, 2 * 16000, 30 * 16000) == 21
+    assert chip_smoke.stream_updates(30 * 16000, 2 * 16000, 30 * 16000) == 15
+    assert chip_smoke.stream_updates(10, 4, 3) == 3 + 3        # each feed passes the window once
+    assert chip_smoke.stream_updates(61, 61, 30) == 3
+
+
+def test_the_stream_phase_holds_its_batch_of_one_against_the_plain_versions(monkeypatch):
+    """The stream phase records the first update's K1/K2/K3 inputs (batch 1)
+    and runs each call again through the wrapper and its plain version. On
+    the CPU the wrapper is the plain version (errors 0); a wrapper that is
+    off by 10 % fails the check."""
+    import chip_smoke
+    from sar_tpu_torch.data import CharTokenizer
+    from sar_tpu_torch.evaluation.streaming import StreamingTranscriber
+    from sar_tpu_torch.models import whisper
+    from sar_tpu_torch.models.config import get_config
+    from sar_tpu_torch.ops import decode_cross
+    cfg = get_config("whisper-test")
+    params = whisper.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    st = StreamingTranscriber(cfg, params, CharTokenizer(cfg), language="english",
+                              max_new_tokens=4, kv_int8=True, flash="hm", device="cpu")
+    audio = (np.random.default_rng(0).standard_normal(st.window_samples // 2) * 0.1
+             ).astype(np.float32)
+    n = max(cfg.encoder_layers, cfg.decoder_layers)
+    with chip_smoke.recording_kernel_inputs(n) as calls:
+        st.feed(audio)
+    assert all(getattr(whisper, k) is not None and getattr(whisper, k).__name__ == k
+               for k in chip_smoke.STREAM_KERNELS)
+    assert [len(calls[k]) for k in chip_smoke.STREAM_KERNELS] == [
+        cfg.encoder_layers, 1, n]
+    errors = chip_smoke.check_recorded_kernels("stream", calls)
+    assert {e["batch"] for e in errors.values()} == {1}
+    assert all(e["max_abs_err"] == 0.0 for e in errors.values())
+    plain = decode_cross.cross_decode_attention_exact
+    monkeypatch.setattr(decode_cross, "cross_decode_attention_exact",
+                        lambda *a, **k: plain(*a, **k) * 1.1)
+    with pytest.raises(RuntimeError, match="cross_decode_attention_exact at batch 1"):
+        chip_smoke.check_recorded_kernels("stream", calls)

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 from _torch_port import jax_whisper, random_bank
+from test_torch_decode_graphs import StandInSeam
 
 from sar_tpu.data.collate import LIDCollator as JaxLIDCollator
 from sar_tpu.data.collate import create_collator as jax_collator
@@ -31,6 +32,7 @@ from sar_tpu_torch.data import (CharTokenizer, DataLoader, LIDCollator,
                                 create_dataset, get_tokenizer)
 from sar_tpu_torch.evaluation import ASREvaluator
 from sar_tpu_torch.evaluation.evaluator import batch_transcribe, transcribe_audio
+from sar_tpu_torch.models import whisper
 from sar_tpu_torch.models.base import load_base_model
 from sar_tpu_torch.serving import TranscriptionService
 from sar_tpu_torch.training import metrics as tmetrics
@@ -204,6 +206,126 @@ def test_batch_transcribe_ids_equal_jax(model, task):
     jax.clear_caches()
 
 
+def test_the_plain_path_captures_once_across_calls(model, monkeypatch, tmp_path):
+    """batch_transcribe keeps one program across calls, as JAX's
+    module-level jit: two calls (another language: the prompt is refilled),
+    two files through transcribe_long's plain path and two files through
+    the transcribe CLI's default path capture each segment once, through
+    one evaluator, with the ids of a fresh evaluator."""
+    import wave
+
+    from sar_tpu_torch.evaluation import evaluator, longform
+    from sar_tpu_torch.scripts import transcribe as port_cli
+    _, tp = model
+    seams = []
+    monkeypatch.setattr(evaluator, "_PLAIN", [])
+    monkeypatch.setattr(evaluator, "resolve_capture", lambda capture, *a: capture is not False)
+    monkeypatch.setattr(evaluator, "CudaGraphCapture",
+                        lambda: seams.append(StandInSeam()) or seams[-1])
+    rng = np.random.default_rng(13)
+    clips = [rng.standard_normal(n).astype(np.float32) * 0.2 for n in (6000, 9000, 4000)]
+    kw = dict(batch_size=2, max_new_tokens=NEW, return_ids=True, device="cpu")
+    batch_transcribe(clips, CFG, tp, None, language="english", **kw)
+    got = batch_transcribe(clips[::-1], CFG, dict(tp), None, language="german", **kw)
+    fresh = ASREvaluator(CFG, tp, language="german", max_new_tokens=NEW, device="cpu",
+                         kv_int8=False, flash=False, capture=False)
+    assert got == fresh.from_audio(clips[:0:-1]) + fresh.from_audio(clips[:1])
+    assert len(seams) == 1 and seams[0].captured == 1     # NEW = 10: one segment
+    ev = evaluator._PLAIN[0][-1]
+    tok = IdTokenizer()
+    for n in (24000, 16000):
+        audio = rng.standard_normal(n).astype(np.float32) * 0.2
+        longform.transcribe_long(audio, CFG, tp, tok, language="english",
+                                 max_new_tokens=NEW, chunk_seconds=0.6, batch_size=2,
+                                 device="cpu")
+    assert evaluator._PLAIN[0][-1] is ev and len(seams) == 1 and seams[0].captured == 1
+    files = []
+    for i in range(2):
+        files.append(str(tmp_path / f"clip{i}.wav"))
+        with wave.open(files[-1], "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(16000)
+            w.writeframes((rng.standard_normal(8000) * 3000).astype(np.int16).tobytes())
+    args = port_cli.parse_args([*files, "--model", "whisper-test", "--language", "english",
+                                "--max_new_tokens", str(NEW), "--device", "cpu"])
+    assert set(port_cli.run(args, CFG, tp, tok, device="cpu")) == set(files)
+    # The CLI's default path decodes one file per batch of 8: a new shape,
+    # one more program on the same evaluator (the old shape's dropped).
+    assert evaluator._PLAIN[0][-1] is ev and len(seams) == 2
+    assert [s.captured for s in seams] == [1, 1]
+
+
+def test_weights_changed_in_place_are_not_decoded_stale(model, monkeypatch):
+    """JAX's jit takes the weights on every call, so it always decodes
+    their current values. The kept evaluator decodes with its own cast of
+    a float64 adapter bank: after the caller updates the bank in place, the
+    next call builds a fresh evaluator. It decodes the fp32 params as they
+    are: after an update of those in place it is kept, and gives a fresh
+    evaluator's ids."""
+    from sar_tpu_torch.evaluation import evaluator
+    _, tp = model
+    monkeypatch.setattr(evaluator, "_PLAIN", [])
+    params = whisper.tree_map(torch.clone, tp)
+    bank = whisper.tree_map(lambda t: t.double(), random_bank(CFG, 1, 4, seed=3)[1])
+    rng = np.random.default_rng(15)
+    clips = [rng.standard_normal(6000).astype(np.float32) * 0.2 for _ in range(2)]
+    kw = dict(language="english", batch_size=2, max_new_tokens=NEW, return_ids=True,
+              device="cpu", lora=bank, lora_scale=4.0)
+
+    def fresh():
+        return ASREvaluator(CFG, params, language="english", max_new_tokens=NEW,
+                            lora=bank, lora_scale=4.0, device="cpu", kv_int8=False,
+                            flash=False).from_audio(clips)
+
+    first = batch_transcribe(clips, CFG, params, None, **kw)
+    ev = evaluator._PLAIN[0][-1]
+    assert batch_transcribe(clips, CFG, params, None, **kw) == first
+    assert evaluator._PLAIN[0][-1] is ev
+    for t in whisper.tree_leaves(bank):
+        t.mul_(-40.0)
+    got = batch_transcribe(clips, CFG, params, None, **kw)
+    assert evaluator._PLAIN[0][-1] is not ev and got == fresh() and got != first
+    ev = evaluator._PLAIN[0][-1]
+    with torch.no_grad():
+        params["decoder"]["token_embed"].mul_(-1.0)
+    got = batch_transcribe(clips, CFG, params, None, **kw)
+    assert evaluator._PLAIN[0][-1] is ev and got == fresh()
+
+
+def test_the_kept_evaluator_serves_threads_one_call_at_a_time(model, monkeypatch):
+    """Threads that call batch_transcribe at once, in two languages, share
+    the kept evaluator one call at a time: each gets a fresh evaluator's
+    ids for its language, and one evaluator is kept."""
+    import threading
+
+    from sar_tpu_torch.evaluation import evaluator
+    _, tp = model
+    monkeypatch.setattr(evaluator, "_PLAIN", [])
+    rng = np.random.default_rng(14)
+    clips = [rng.standard_normal(5000).astype(np.float32) * 0.2 for _ in range(2)]
+    langs = ("english", "german")
+    want = {lang: ASREvaluator(CFG, tp, language=lang, max_new_tokens=NEW, device="cpu",
+                               kv_int8=False, flash=False).from_audio(clips)
+            for lang in langs}
+    got = [None] * 12
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=lambda i=i: got.__setitem__(i, batch_transcribe(
+            clips, CFG, tp, None, language=langs[i % 2], batch_size=2, max_new_tokens=NEW,
+            return_ids=True, device="cpu"))) for i in range(len(got))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(th.is_alive() for th in threads)
+    assert got == [want[langs[i % 2]] for i in range(len(got))]
+    assert len(evaluator._PLAIN) == 1
+
+
 def test_service_beam_program_matches_the_evaluator(model):
     _, tp = model
     rng = np.random.default_rng(8)
@@ -296,7 +418,8 @@ def test_new_port_modules_import_neither_jax_nor_sar_tpu():
             "import sar_tpu_torch.decode.align, sar_tpu_torch.evaluation.fallback\n"
             "import sar_tpu_torch.evaluation.longform, sar_tpu_torch.evaluation.writers\n"
             "import sar_tpu_torch.evaluation.hallucination, sar_tpu_torch.scripts.transcribe\n"
-            "import sar_tpu_torch.decode.graphs\n"
+            "import sar_tpu_torch.decode.graphs, sar_tpu_torch.evaluation.streaming\n"
+            "import sar_tpu_torch.scripts.serve, sar_tpu_torch.data.datasets\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
             "       or m == 'sar_tpu' or m.startswith('sar_tpu.')]\n"
             "print(bad)\n")
