@@ -191,7 +191,17 @@ eager evaluator's (capture=False) on one batch.
    routed server from the route phase's adapters and the lid phase's head
    (responses carry the detected language; K1, K4, K3). Round-trip p50/p95
    and batches per request.
-18. result: one JSON line with every kernel's numbers, then the last line
+18. mesh: the device-mesh path (sar_tpu_torch/parallel) on a NCCL group of
+   one rank (a localhost rendezvous; two ranks cannot share the one card,
+   so world > 1 runs in the CPU tests over gloo) and make_mesh(1, 1):
+   ASRTrainer(mesh=) for MESH_TRAIN_STEPS steps of the train cell's shape
+   (K6 36 of each kernel per microbatch), ASREvaluator(mesh=) over the
+   greedy cell's clips (the classic int8 cache, captured: K1 12 per
+   batch, no K2/K3) and a partial batch of MESH_PARTIAL, LIDTrainer(mesh=)
+   for MESH_LID_STEPS streaming steps (exact attention: no kernel), each
+   against the same run without a mesh: losses and bank, ids, losses
+   equal; ms per step and per batch, mesh and meshless.
+19. result: one JSON line with every kernel's numbers, then the last line
    {"ok": true, "device": {...}}.
 
 With --kernels-only, it runs phases 1-3 and prints the kernel table
@@ -274,6 +284,11 @@ BEAM_ITEMS = 16
 TRAIN_LABEL_LEN = 448
 TRAIN_ACCUM, TRAIN_STEPS = 2, 3
 TRAIN_EVAL_ITEMS, TRAIN_EVAL_TOKENS = 8, 32
+# The mesh phase: train steps, the partial evaluator batch, LID steps, and
+# how far a world-1 mesh run may sit from the meshless one (the same ops
+# on the same data: equal but for any nondeterministic reduction).
+MESH_TRAIN_STEPS, MESH_PARTIAL, MESH_LID_STEPS = 3, 6, 3
+MESH_REL_TOL, MESH_ABS_TOL = 1e-6, 1e-7
 # K6 against its plain version on the same bf16 inputs (one bf16 ulp of
 # the largest entry is 3.9e-3 to 7.8e-3 of it):
 # - the forward kernel, max |kernel - plain| over max |plain|: it rounds the
@@ -3527,6 +3542,198 @@ def phase_serve(cfg, params, device, work):
     return total
 
 
+def phase_mesh(cfg, params, device):
+    """The device-mesh path (sar_tpu_torch/parallel) at whisper-small on a
+    NCCL group of one rank (a localhost rendezvous) and make_mesh(1, 1):
+    ASRTrainer, ASREvaluator and LIDTrainer each with mesh= against the
+    same run without one; returns the launch counts of the mesh runs."""
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from sar_tpu_torch.data import (DataLoader, LIDCollator, SyntheticASRDataset,
+                                    create_collator)
+    from sar_tpu_torch.decode.graphs import CudaGraphCapture, DecodeRunner
+    from sar_tpu_torch.decode.greedy import transcribe_tokens
+    from sar_tpu_torch.evaluation import ASREvaluator
+    from sar_tpu_torch.models import classifier as clf
+    from sar_tpu_torch.models import lora as lora_lib
+    from sar_tpu_torch.models import whisper
+    from sar_tpu_torch.models.config import TARGET_LANGUAGES
+    from sar_tpu_torch.ops import mel as mel_ops
+    from sar_tpu_torch.parallel import distributed as pdist
+    from sar_tpu_torch.parallel import sharding
+    from sar_tpu_torch.training import ASRTrainer, TrainingArgs
+    from sar_tpu_torch.training.lid_trainer import LIDDataset, LIDTrainer, LIDTrainingArgs
+
+    t_phase = time.perf_counter()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    if not pdist.maybe_initialize_distributed(f"127.0.0.1:{port}", 1, 0):
+        fail("mesh: the process group did not start")
+    try:
+        if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+            fail(f"mesh: backend {dist.get_backend()}, world {dist.get_world_size()}")
+        mesh = sharding.make_mesh(1, 1)
+        if sharding.model_group(mesh) is not None or pdist.n_batch_shards(mesh) != 1:
+            fail("mesh: a 1 x 1 mesh has collectives")
+        print(f"mesh: NCCL world of {dist.get_world_size()} on "
+              f"{sharding.mesh_device(mesh)}, axes {pdist.axis_sizes(mesh)} (two ranks "
+              f"cannot share the one card under NCCL: world > 1 runs in the CPU tests "
+              f"over gloo, tests/test_torch_parallel.py)")
+        total = dict.fromkeys(KERNEL_NAMES, 0)
+
+        def add(c):
+            for k in total:
+                total[k] += c[k]
+
+        # (a) ASRTrainer: the train cell's shape, without evaluation.
+        coll = create_collator(cfg.sot_token_id, pad_to_length=TRAIN_LABEL_LEN,
+                               num_mels=cfg.num_mel_bins, num_frames=cfg.num_audio_frames,
+                               device=device)
+        lcfg = lora_lib.LoraConfig(r=LORA_RANK, alpha=LORA_ALPHA, dropout=0.1,
+                                   target_modules=("q_proj", "v_proj"))
+
+        def train(m):
+            loader = DataLoader(SyntheticASRDataset(cfg, size=2 * BATCH, language="english",
+                                                    seed=SEED), BATCH, coll, seed=SEED)
+            bank = lora_lib.init_lora(torch.Generator(device=device).manual_seed(SEED + 4),
+                                      cfg, lcfg)
+            tr = ASRTrainer(cfg, params, bank, lcfg, TrainingArgs(
+                learning_rate=5e-4, warmup_steps=1, max_steps=MESH_TRAIN_STEPS, eval_steps=0,
+                gradient_accumulation_steps=TRAIN_ACCUM, seed=SEED, device=str(device)),
+                mesh=m)
+            torch.cuda.synchronize()
+            reset_counts()
+            hist = tr.train(loader)
+            torch.cuda.synchronize()
+            return hist, tr.lora, read_counts()
+
+        # Meshless first: what warming up is left after the first step
+        # (which the medians drop) falls on it.
+        (h_p, bank_p, _) = train(None)
+        (h_m, bank_m, c_m) = train(mesh)
+        add(c_m)
+        d_bank = max(float((a - b).detach().abs().max()) for a, b in
+                     zip(whisper.tree_leaves(bank_m), whisper.tree_leaves(bank_p)))
+        d_loss = max(abs(a - b) / abs(b) for a, b in zip(h_m["loss"], h_p["loss"]))
+        ms = [1e3 * statistics.median(h["step_seconds"][1:]) for h in (h_m, h_p)]
+        n_attn = cfg.encoder_layers + 2 * cfg.decoder_layers
+        want = MESH_TRAIN_STEPS * TRAIN_ACCUM * n_attn
+        print(f"mesh train: {MESH_TRAIN_STEPS} steps of {BATCH} x {TRAIN_ACCUM}, labels "
+              f"{TRAIN_LABEL_LEN} | losses mesh "
+              f"{', '.join(f'{x:.6f}' for x in h_m['loss'])} vs meshless "
+              f"{', '.join(f'{x:.6f}' for x in h_p['loss'])} (max rel diff {d_loss:.2e}) | "
+              f"bank max |diff| {d_bank:.2e} | {ms[0]:.1f} ms per step mesh vs {ms[1]:.1f} "
+              f"meshless (median after the first) | launches "
+              f"{json.dumps({k: v for k, v in c_m.items() if v})}")
+        if d_loss > MESH_REL_TOL or d_bank > MESH_ABS_TOL:
+            fail("mesh train: the mesh trainer differs from the meshless one")
+        if (c_m["flash_attention_fwd"], c_m["flash_attention_bwd_dq"],
+                c_m["flash_attention_bwd_dkv"]) != (want, want, want):
+            fail(f"mesh train: K6 launches {c_m}, the design says {want} each "
+                 f"({n_attn} per microbatch)")
+        check_counts("mesh train", c_m, want_zero=tuple(k for k in KERNEL_NAMES
+                                                        if k not in K6_NAMES))
+
+        # (b) ASREvaluator over the greedy cell's clips: the classic int8
+        # cache (no K2/K3), captured; a meshless runner over the same cache.
+        g = torch.Generator(device=device).manual_seed(SEED + 1)
+        feats = [mel_ops.log_mel_spectrogram(
+            torch.randn((BATCH, mel_ops.N_SAMPLES), generator=g, device=device) * 0.1,
+            cfg.num_mel_bins, dtype=torch.bfloat16)[:, :, :cfg.num_audio_frames]
+            for _ in range(N_BATCHES)]
+        ev = ASREvaluator(cfg, params, language="hindi", max_new_tokens=MAX_NEW_TOKENS,
+                          device=device, mesh=mesh)
+        if not ev.capture or ev.flash != "hm" or ev._flags.get("head_minor") is not False:
+            fail(f"mesh evaluator: capture {ev.capture}, flash {ev.flash!r}, "
+                 f"cache {ev._flags}")
+        P = int(ev._prompt.shape[0])
+        runner = DecodeRunner(params, cfg, capture=CudaGraphCapture)
+
+        def meshless(f):
+            enc = whisper.encode(params, f, cfg, flash="hm")
+            cache = runner.prep(enc, ev.total, head_minor=False, **INT8)
+            return transcribe_tokens(runner.greedy(cache, ev._prompt), cfg, prompt_len=P)
+
+        def fenced(fn, f):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(f)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t
+
+        ev._transcribe_batch(feats[0])                 # warm-up: the capture
+        meshless(feats[0])
+        reset_counts()
+        got = [fenced(ev._transcribe_batch, f) for f in feats]
+        c_e, steps = read_counts(), read_steps()
+        add(c_e)
+        want_ids = [fenced(meshless, f) for f in feats]
+        same = all(a[0] == b[0] for a, b in zip(got, want_ids))
+        part = ev._transcribe_batch(feats[0][:MESH_PARTIAL])
+        same_part = part == meshless(feats[0][:MESH_PARTIAL])
+        n_tok = sum(len(r) for o in got for r in o[0])
+        print(f"mesh eval: {N_BATCHES} x {BATCH} clips, {MAX_NEW_TOKENS} new tokens, the "
+              f"classic int8 cache, captured | ids {'equal' if same else 'DIFFER'} to the "
+              f"meshless runner's | partial batch of {MESH_PARTIAL} "
+              f"{'equal' if same_part else 'DIFFERS'} | {n_tok} tokens kept | ms per batch "
+              f"mesh {', '.join(f'{1e3 * o[1]:.1f}' for o in got)} vs meshless "
+              f"{', '.join(f'{1e3 * o[1]:.1f}' for o in want_ids)} | steps "
+              f"{json.dumps(steps)} | launches {json.dumps({k: v for k, v in c_e.items() if v})}")
+        if not (same and same_part):
+            fail("mesh eval: the mesh evaluator's ids differ from the meshless runner's")
+        if c_e["encoder_attention_hm"] != cfg.encoder_layers * N_BATCHES or steps["classic"] < 1:
+            fail(f"mesh eval: K1 {c_e['encoder_attention_hm']} (the design says "
+                 f"{cfg.encoder_layers} per batch), classic steps {steps['classic']}")
+        check_counts("mesh eval", c_e, want_zero=tuple(k for k in KERNEL_NAMES
+                                                       if k != "encoder_attention_hm"))
+
+        # (c) LIDTrainer (exact encoder attention under a mesh, as JAX's).
+        langs = tuple(TARGET_LANGUAGES)
+        ds = LIDDataset({l: SyntheticASRDataset(cfg, size=BATCH, language=l, language_id=i,
+                                                seed=i) for i, l in enumerate(langs)}, langs)
+        ccfg = clf.ClassifierConfig(input_dim=cfg.d_model, hidden_dims=(256, 128),
+                                    num_classes=len(langs), dropout=0.1, pooling="mean",
+                                    languages=langs, encoder_layer=LID_LAYER)
+        head = clf.init_classifier(torch.Generator(device=device).manual_seed(SEED + 6), ccfg)
+
+        def lid(m):
+            tr = LIDTrainer(cfg, params, head, ccfg, LIDTrainingArgs(
+                learning_rate=1e-3, warmup_steps=1, max_steps=MESH_LID_STEPS, eval_steps=0,
+                encoder_layer=LID_LAYER, seed=SEED, device=str(device)), mesh=m)
+            tr.flash = False          # the meshless run on the mesh's attention
+            loader = DataLoader(ds, BATCH, LIDCollator(num_mels=cfg.num_mel_bins,
+                                                       num_frames=cfg.num_audio_frames),
+                                seed=SEED)
+            torch.cuda.synchronize()
+            reset_counts()
+            t = time.perf_counter()
+            hist = tr.train(loader)
+            torch.cuda.synchronize()
+            return hist["loss"], (time.perf_counter() - t) / MESH_LID_STEPS, read_counts()
+
+        lid(None)                     # warm-up (the exact attention's buffers)
+        (l_m, s_m, c_l), (l_p, s_p, _) = lid(mesh), lid(None)
+        add(c_l)
+        d_lid = max(abs(a - b) / abs(b) for a, b in zip(l_m, l_p))
+        print(f"mesh lid: {MESH_LID_STEPS} streaming steps of {BATCH} at layer {LID_LAYER} | "
+              f"losses mesh {', '.join(f'{x:.6f}' for x in l_m)} vs meshless "
+              f"{', '.join(f'{x:.6f}' for x in l_p)} (max rel diff {d_lid:.2e}) | "
+              f"{1e3 * s_m:.1f} ms per step mesh vs {1e3 * s_p:.1f} meshless | launches "
+              f"{json.dumps({k: v for k, v in c_l.items() if v})}")
+        if d_lid > MESH_REL_TOL or not np.isfinite(l_m).all():
+            fail("mesh lid: the mesh trainer differs from the meshless one")
+        check_counts("mesh lid", c_l, want_zero=KERNEL_NAMES)
+        print(f"mesh: {time.perf_counter() - t_phase:.1f} s | launches "
+              f"{json.dumps({k: v for k, v in total.items() if v})}")
+        return total
+    finally:
+        dist.destroy_process_group()
+
+
 def path_phases(cfg, params, n_params, device, work, profile=False) -> list:
     """The phases that drive a path, in order, as (name, run) pairs; `work`
     is a scratch directory (the lid phase's head, which the route phase
@@ -3548,7 +3755,8 @@ def path_phases(cfg, params, n_params, device, work, profile=False) -> list:
             ("route", lambda: phase_route(cfg, params, device, work)),
             ("transcribe", lambda: phase_transcribe(cfg, params, device, work)),
             ("stream", lambda: phase_stream(cfg, params, device)),
-            ("serve", lambda: phase_serve(cfg, params, device, work))]
+            ("serve", lambda: phase_serve(cfg, params, device, work)),
+            ("mesh", lambda: phase_mesh(cfg, params, device))]
 
 
 def main() -> int:

@@ -31,7 +31,9 @@ decode kernels, standalone — and the rest of the paper's Phases 2 and 3:
 the LID sweep and routed-inference CLIs (scripts/lid_sweep.py,
 scripts/route_infer.py), the adapter analysis (analysis/,
 scripts/analyze_adapters.py) and the HF checkpoint import
-(models/convert.py, models/base.py). The decode functions default, as JAX's do,
+(models/convert.py, models/base.py) — and data and tensor parallelism over
+torch.distributed (parallel/: the trainers' and the evaluator's `mesh=`,
+the CLIs' --dp/--tp/--dcn_dp under torchrun). The decode functions default, as JAX's do,
 to the unquantized classic cache; the serving programs ask for the int8
 one. Entry points run on the CUDA card unless
 given device="cpu" (device.py). The kernels are hand-written CUDA C++ for

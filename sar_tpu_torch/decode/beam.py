@@ -221,7 +221,7 @@ def beam_segment(params: dict, cache: whisper.DecodeCache, cfg: WhisperConfig,
                  begin_suppress: torch.Tensor | None = None,
                  timestamps: bool = False,
                  max_initial_timestamp_index: int | None = 1,
-                 kernels: bool = True) -> BeamState:
+                 kernels: bool = True, tp=None) -> BeamState:
     """Positions [lo, hi) of the beam loop over the first `self_len` rows
     of the self cache -> the state after them (new tensors; the cache is
     written in place). `adapter_idx` is per row of the B*K (beam-major);
@@ -241,7 +241,7 @@ def beam_segment(params: dict, cache: whisper.DecodeCache, cfg: WhisperConfig,
             cfg, lora=lora, adapter_idx=adapter_idx, lora_scale=lora_scale,
             scores_int8=scores_int8, beam_width=K,
             ancestry=state.anc if use_anc else None, kernels=kernels,
-            self_len=self_len)
+            self_len=self_len, tp=tp)
         state = beam_select(state, logits, pos, prompt_len,
                             length_penalty=length_penalty, eos=cfg.eos_token_id,
                             suppress=suppress, begin_suppress=begin_suppress,
@@ -278,7 +278,7 @@ def beam_decode(params: dict, enc_out: torch.Tensor, cfg: WhisperConfig,
                 segment: int = 32, timestamps: bool = False,
                 max_initial_timestamp_index: int | None = 1,
                 head_minor: bool | None = None,
-                kernels: bool = True) -> torch.Tensor:
+                kernels: bool = True, tp=None) -> torch.Tensor:
     """Beam search over a cache built from `enc_out` [B, S, D]: the
     unquantized classic one by default, as in the JAX package (plain
     torch: the cross-attention folds each sample's beams into one plain
@@ -313,7 +313,7 @@ def beam_decode(params: dict, enc_out: torch.Tensor, cfg: WhisperConfig,
                                self_kv_int8=self_kv_int8,
                                cross_kv_int4=cross_kv_int4,
                                self_kv_int4=self_kv_int4, head_minor=head_minor,
-                               self_batch=B * K, kernels=kernels)
+                               self_batch=B * K, kernels=kernels, tp=tp)
     idx_k = beam_row_adapters(adapter_idx, B, K, dev)
     suppress = (torch.as_tensor(suppress_ids, dtype=torch.int64, device=dev)
                 if suppress_ids else None)
@@ -328,7 +328,7 @@ def beam_decode(params: dict, enc_out: torch.Tensor, cfg: WhisperConfig,
                              scores_int8=scores_int8, suppress=suppress,
                              begin_suppress=begin_suppress, timestamps=timestamps,
                              max_initial_timestamp_index=max_initial_timestamp_index,
-                             kernels=kernels)
+                             kernels=kernels, tp=tp)
         if not segments.host_flag(state.unsat.any()):
             break
     # The finished slots stay sorted descending; slot 0 is the best (the

@@ -203,15 +203,22 @@ class DecodeRunner:
     `lora` with `lora_scale`): its static cache, and per key a greedy or
     beam program over static buffers, captured when `capture` is given (a
     factory of capture seams, e.g. CudaGraphCapture; one seam per key),
-    eager otherwise. See the module docstring."""
+    eager otherwise. See the module docstring. `tp` (the "model" group of
+    a tensor-parallel shard `params`) decodes this rank's heads over a
+    classic cache, eagerly: no machine at hand shows NCCL inside a
+    captured graph, so a runner with `tp` takes no `capture`."""
 
     def __init__(self, params: dict, cfg: WhisperConfig, *,
                  lora: dict | None = None, lora_scale: float = 1.0,
-                 kernels: bool = True, capture=None):
+                 kernels: bool = True, capture=None, tp=None):
+        if tp is not None and capture is not None:
+            raise ValueError("a DecodeRunner under tensor parallelism decodes "
+                             "eagerly: its collectives are not captured")
         self.params, self.cfg = params, cfg
         self.lora, self.lora_scale = lora, lora_scale
         self.kernels = kernels
         self.capture = capture
+        self.tp = tp
         self._cache: whisper.DecodeCache | None = None
         self._cache_key = None
         self._programs: dict = {}
@@ -233,13 +240,14 @@ class DecodeRunner:
             with torch.inference_mode(False):
                 self._cache = whisper.empty_cache(
                     self.cfg, B, S, total, kind=kind, self_batch=self_batch,
-                    dtype=enc_out.dtype, device=enc_out.device)
+                    dtype=enc_out.dtype, device=enc_out.device,
+                    heads=whisper.decoder_heads(self.params, self.cfg))
             self._cache_key = key
         return whisper.init_cache(self.params, enc_out, self.cfg, total,
                                   lora=self.lora, adapter_idx=adapter_idx,
                                   lora_scale=self.lora_scale,
                                   self_batch=self_batch, kernels=self.kernels,
-                                  out=self._cache, **cache_flags)
+                                  out=self._cache, tp=self.tp, **cache_flags)
 
     def _program(self, key, build) -> _Program:
         prog = self._programs.get(key)
@@ -306,8 +314,8 @@ class DecodeRunner:
                             max_initial_timestamp_index if timestamps else None),
                         **flags)
 
-        params, cfg, lora, scale, kernels = (self.params, self.cfg, self.lora,
-                                             self.lora_scale, self.kernels)
+        params, cfg, lora, scale, kernels, tp = (self.params, self.cfg, self.lora,
+                                                 self.lora_scale, self.kernels, self.tp)
 
         def build(seam):
             # The bodies hold what they read, not the runner: no cycle keeps
@@ -326,7 +334,7 @@ class DecodeRunner:
                     adapter_idx=idx, lora_scale=scale, scores_int8=scores_int8,
                     suppress=suppress, begin_suppress=begin, timestamps=timestamps,
                     max_initial_timestamp_index=max_initial_timestamp_index,
-                    prompt_width=P, kernels=kernels)
+                    prompt_width=P, kernels=kernels, tp=tp)
 
             return _Program([body(*g) for g in segments.grid(total, segment)],
                             finished.all, seam, (tokens, finished, idx, ex))
@@ -376,8 +384,8 @@ class DecodeRunner:
                         max_initial_timestamp_index=(
                             max_initial_timestamp_index if timestamps else None))
 
-        params, cfg, lora, scale, kernels = (self.params, self.cfg, self.lora,
-                                             self.lora_scale, self.kernels)
+        params, cfg, lora, scale, kernels, tp = (self.params, self.cfg, self.lora,
+                                                 self.lora_scale, self.kernels, self.tp)
 
         def build(seam):
             state = init_state(prompts, K, total, eos)
@@ -396,7 +404,7 @@ class DecodeRunner:
                         suppress=suppress, begin_suppress=begin,
                         timestamps=timestamps,
                         max_initial_timestamp_index=max_initial_timestamp_index,
-                        kernels=kernels)
+                        kernels=kernels, tp=tp)
                     for dst, src in zip(state, new):
                         if src is not dst:
                             dst.copy_(src)

@@ -167,7 +167,7 @@ def greedy_decode(params: dict, enc_out: torch.Tensor, cfg: WhisperConfig,
                   max_initial_timestamp_index: int | None = 1,
                   temperature: float = 0.0, seed: int | None = None,
                   with_logprobs: bool = False, with_no_speech: bool = False,
-                  kernels: bool = True):
+                  kernels: bool = True, tp=None):
     """Greedy decode over a cache built from `enc_out`: the unquantized
     classic one (the default, the JAX package's), the int8 head-minor one
     with cross_kv_int8 = self_kv_int8 = True (serving's), or the int4
@@ -183,7 +183,8 @@ def greedy_decode(params: dict, enc_out: torch.Tensor, cfg: WhisperConfig,
     docstring and `greedy_decode_from_cache`.
     Returns [B, min(P + max_new_tokens, max_target_positions)] int64
     (positions after EOS are EOS), then greedy_decode_from_cache's extra
-    outputs when asked."""
+    outputs when asked. `tp`: the "model" group of a tensor-parallel shard
+    of `params` (whisper.init_cache / decode_step)."""
     P = torch.as_tensor(prompt_ids).shape[-1]
     total = min(P + max_new_tokens, cfg.max_target_positions)
     cache = whisper.init_cache(params, enc_out, cfg, max_len=total, lora=lora,
@@ -192,7 +193,7 @@ def greedy_decode(params: dict, enc_out: torch.Tensor, cfg: WhisperConfig,
                                self_kv_int8=self_kv_int8,
                                cross_kv_int4=cross_kv_int4,
                                self_kv_int4=self_kv_int4, head_minor=head_minor,
-                               kernels=kernels)
+                               kernels=kernels, tp=tp)
     return greedy_decode_from_cache(
         params, cache, cfg, prompt_ids, lora=lora, adapter_idx=adapter_idx,
         lora_scale=lora_scale, scores_int8=scores_int8,
@@ -200,7 +201,7 @@ def greedy_decode(params: dict, enc_out: torch.Tensor, cfg: WhisperConfig,
         prompt_len=prompt_len, segment=segment, timestamps=timestamps,
         max_initial_timestamp_index=max_initial_timestamp_index,
         temperature=temperature, seed=seed, with_logprobs=with_logprobs,
-        with_no_speech=with_no_speech, kernels=kernels)
+        with_no_speech=with_no_speech, kernels=kernels, tp=tp)
 
 
 def greedy_segment(params: dict, cache: whisper.DecodeCache,
@@ -214,7 +215,7 @@ def greedy_segment(params: dict, cache: whisper.DecodeCache,
                    timestamps: bool = False,
                    max_initial_timestamp_index: int | None = 1,
                    prompt_width: int | None = None,
-                   kernels: bool = True) -> None:
+                   kernels: bool = True, tp=None) -> None:
     """Positions [lo, hi) of the greedy loop over the first `self_len` rows
     of the self cache, in place on `tokens` [B, total], `finished` [B], the
     accumulators of `ex` and the cache. `prompt_width` (the buffer's
@@ -232,7 +233,8 @@ def greedy_segment(params: dict, cache: whisper.DecodeCache,
                                             adapter_idx=adapter_idx,
                                             lora_scale=lora_scale,
                                             scores_int8=scores_int8,
-                                            kernels=kernels, self_len=self_len)
+                                            kernels=kernels, self_len=self_len,
+                                            tp=tp)
         if ex.no_speech_prob is not None and pos < width:
             # p(<|nospeech|>) of the raw logits, kept at no_speech_pos (the
             # position of <|sot|>, which lies inside the prompt buffer).
@@ -295,7 +297,7 @@ def greedy_decode_from_cache(params: dict, cache: whisper.DecodeCache,
                              with_no_speech: bool = False,
                              no_speech_pos: int = 0,
                              max_gen_tokens: int | None = None,
-                             kernels: bool = True):
+                             kernels: bool = True, tp=None):
     """The decode loop alone, from a prepared DecodeCache; the total length
     is the self cache's max_len. The self cache is written in place.
     `scores_int8` needs the int8 cache (see whisper.decode_step). One
@@ -335,7 +337,7 @@ def greedy_decode_from_cache(params: dict, cache: whisper.DecodeCache,
                        suppress=suppress, begin_suppress=begin_suppress,
                        timestamps=timestamps,
                        max_initial_timestamp_index=max_initial_timestamp_index,
-                       prompt_width=P, kernels=kernels)
+                       prompt_width=P, kernels=kernels, tp=tp)
         if segments.host_flag(finished.all()):
             break
     return extras_outputs(tokens, ex)

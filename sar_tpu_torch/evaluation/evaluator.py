@@ -31,7 +31,17 @@ cache, which supersedes kv_int8), with its checks
 through a FallbackTranscriber (evaluation/fallback.py: openai's
 temperature ladder with `best_of` candidates per sampled pass), greedy
 only, as the JAX evaluator: with beams it is turned off with a warning.
-Meshes are not ported and raise NotImplementedError.
+
+`mesh` (parallel/sharding.py, one process per rank) evaluates data and
+tensor parallel, as the JAX evaluator's mesh path: the weights are this
+rank's shard, a partial batch is padded to the batch shards, each rank
+decodes its rows over a classic cache (`use_head_minor(mesh=)` is
+False: no K2/K3, as no decode kernel of the JAX package has an SPMD
+rule) and the texts are gathered, so `evaluate` returns the same metrics
+on every rank. The encoder keeps its `flash` setting (K1 on the card, on
+the rank's heads). `scores_int8` and `fallback` are turned off with the
+JAX evaluator's warnings. The decode is captured where the "model" group
+has one rank; with more it runs eagerly (`DecodeRunner(tp=)`).
 
 `transcribe_audio` and `batch_transcribe` compute what the JAX package's
 do: exact encoder attention (flash=False) and greedy over the unquantized
@@ -68,6 +78,8 @@ from sar_tpu_torch.evaluation.fallback import FallbackTranscriber
 from sar_tpu_torch.models import whisper
 from sar_tpu_torch.models.config import WhisperConfig
 from sar_tpu_torch.ops import mel as mel_ops
+from sar_tpu_torch.parallel import distributed as pdist
+from sar_tpu_torch.parallel import sharding
 from sar_tpu_torch.training.metrics import (analyze_errors, compute_metrics,
                                             compute_metrics_per_sample)
 
@@ -110,9 +122,6 @@ class ASREvaluator:
                  task: str = "transcribe", kv_int4: bool = False,
                  device: torch.device | str | None = None,
                  kernels: bool = True, capture: bool | None = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "sar_tpu_torch ASREvaluator: not yet ported: mesh")
         if num_beams < 1:
             raise ValueError(f"num_beams must be >= 1, got {num_beams}")
         self.kv_int8, self.kv_int4 = quantized_decode_options(
@@ -121,10 +130,19 @@ class ASREvaluator:
             logger.info("beams + scores_int8 fold each sample's beams into "
                         "one s8 cross-attention call (K7) and reorder the "
                         "self cache physically each step")
+        if scores_int8 and mesh is not None:
+            logger.warning("scores_int8 is unsupported under a device mesh; "
+                           "falling back to bf16 attention scores")
+            scores_int8 = False
         self.scores_int8 = scores_int8
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.tp = sharding.model_group(mesh)
+        self.device = (resolve_device(device) if mesh is None
+                       else sharding.mesh_device(mesh))
         self.params = tree_to(params, self.device)
+        if mesh is not None:
+            self.params = sharding.shard_params(self.params, mesh, cfg)
         self.dtype = self.params["encoder"]["conv1"]["w"].dtype
         # Cast once to the compute dtype: lora_delta casts to it anyway.
         self.lora = (tree_to(lora, self.device, self.dtype)
@@ -143,16 +161,25 @@ class ASREvaluator:
                   else cfg.prompt_ids(language, task))
         self._prompt = torch.tensor(prompt, dtype=torch.int64, device=self.device)
         self.total = min(len(prompt) + max_new_tokens, cfg.max_target_positions)
-        self.capture = resolve_capture(capture, self.device, kernels)
+        if self.tp is not None and capture:
+            raise ValueError("capture=True under a mesh whose model axis has "
+                             f"{self.tp.size} ranks: its decode runs eagerly")
+        self.capture = (resolve_capture(capture, self.device, kernels)
+                        and self.tp is None)
         self._flags = dict(cross_kv_int8=self.kv_int8, self_kv_int8=self.kv_int8,
                            cross_kv_int4=self.kv_int4, self_kv_int4=self.kv_int4)
+        if mesh is not None:
+            self._flags["head_minor"] = whisper.use_head_minor(**self._flags, mesh=mesh)
         self.runner = DecodeRunner(self.params, cfg, lora=self.lora,
                                    lora_scale=lora_scale, kernels=kernels,
-                                   capture=CudaGraphCapture if self.capture else None)
-        # openai-style temperature fallback: greedy only, as in the JAX
-        # evaluator (the escalation re-decode has no beam path).
-        if fallback and num_beams > 1:
-            logger.warning("fallback applies to greedy evaluation; disabled here")
+                                   capture=CudaGraphCapture if self.capture else None,
+                                   tp=self.tp)
+        # openai-style temperature fallback: greedy single-chip only, as in
+        # the JAX evaluator (the escalation re-decode has no beam or mesh
+        # path).
+        if fallback and (num_beams > 1 or mesh is not None):
+            logger.warning("fallback applies to greedy single-chip "
+                           "evaluation; disabled here")
             fallback = False
         self.fallback, self.best_of = fallback, best_of
         self._fallback = None
@@ -171,7 +198,7 @@ class ASREvaluator:
         """The (adapted) encoder over a batch of log-mel features."""
         return whisper.encode(self.params, mel.to(self.device), self.cfg,
                               lora=self.lora, lora_scale=self.lora_scale,
-                              flash=self.flash)
+                              flash=self.flash, tp=self.tp)
 
     @torch.no_grad()
     def prep(self, mel: torch.Tensor) -> whisper.DecodeCache:
@@ -207,8 +234,21 @@ class ASREvaluator:
     def _transcribe_batch(self, mel: torch.Tensor, prompts=None) -> list:
         if self._fallback is not None:
             return self._fallback(mel)[0]
+        B = mel.shape[0]
+        if self.mesh is not None:
+            # This rank's rows of the batch padded to the batch shards.
+            mel = pdist.pad_global_batch(mel, self.mesh)
+            pad = mel.shape[0] - B
+            mel = pdist.put_global_batch(mel, self.mesh, device=self.device)
+            if prompts is not None and torch.as_tensor(prompts).dim() == 2:
+                prompts = torch.as_tensor(prompts)
+                prompts = pdist.put_global_batch(
+                    torch.cat([prompts, prompts[-1:].expand(pad, -1)]), self.mesh,
+                    device=self.device)
         ids = transcribe_tokens(self.tokens(mel, prompts), self.cfg,
                                 prompt_len=int(self._prompt.shape[0]))
+        if self.mesh is not None:
+            ids = sharding.batch_gather_objects(ids, self.mesh)[:B]
         if self.tokenizer is None:
             return ids
         return [self.tokenizer.decode(row) for row in ids]
@@ -264,7 +304,10 @@ class ASREvaluator:
 
     def save_results(self, results: dict, output_dir: str | Path) -> None:
         """metrics.json, and predictions.txt / references.txt when the
-        results hold them."""
+        results hold them; under a mesh rank 0 alone writes (every rank
+        holds the same results)."""
+        if not pdist.is_main_process():
+            return
         out = Path(output_dir)
         out.mkdir(parents=True, exist_ok=True)
         metrics = {k: v for k, v in results.items()

@@ -180,12 +180,18 @@ def _pool(params, ccfg, feats, mask):
 
 
 def _dropout(x: torch.Tensor, rate: float,
-             generator: torch.Generator | None) -> torch.Tensor:
+             generator: torch.Generator | None,
+             rows: tuple[int, int, int] | None = None) -> torch.Tensor:
     """Inverted dropout: keep with probability 1 - rate, scale by
-    1 / (1 - rate); the identity without a generator or at rate 0."""
+    1 / (1 - rate); the identity without a generator or at rate 0. `rows`
+    (lo, hi, n): x holds rows [lo, hi) of a batch of n (a data-parallel
+    shard), and the mask is the whole batch's at those rows."""
     if generator is None or rate <= 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1 - rate
+    shape = x.shape if rows is None else (rows[2],) + tuple(x.shape[1:])
+    keep = torch.rand(shape, generator=generator, device=x.device) < 1 - rate
+    if rows is not None:
+        keep = keep[rows[0]:rows[1]]
     return x * keep / (1 - rate)
 
 
@@ -193,10 +199,12 @@ def apply_classifier(params: dict, ccfg: ClassifierConfig,
                      hidden_states: torch.Tensor,
                      attention_mask: torch.Tensor | None = None,
                      labels: torch.Tensor | None = None, train: bool = False,
-                     generator: torch.Generator | None = None) -> dict:
+                     generator: torch.Generator | None = None,
+                     rows: tuple[int, int, int] | None = None) -> dict:
     """Forward pass -> {"logits", "probs", "loss"}; the loss only when
     `labels` are given. `train` with a `generator` (on the features'
-    device) applies the classifier's dropout."""
+    device) applies the classifier's dropout, with masks of the whole
+    batch when `rows` says the features are a shard of it (`_dropout`)."""
     x = hidden_states.float()
     g = generator if train else None
     if ccfg.use_layer_norm:
@@ -206,18 +214,27 @@ def apply_classifier(params: dict, ccfg: ClassifierConfig,
         for name in ("cnn1", "cnn2"):
             x = F.relu(F.conv1d(x, params[name]["w"], params[name]["b"],
                                 padding=ccfg.cnn_kernel_size // 2))
-            x = _dropout(x, ccfg.dropout, g)
+            x = _dropout(x, ccfg.dropout, g, rows)
         x = x.transpose(1, 2)
     h = _pool(params, ccfg, x, attention_mask)
     for i in range(len(ccfg.hidden_dims)):
         h = h @ params[f"mlp_{i}"]["w"] + params[f"mlp_{i}"]["b"]
-        h = _dropout(F.relu(_ln(h, params[f"mlp_ln_{i}"])), ccfg.dropout, g)
+        h = _dropout(F.relu(_ln(h, params[f"mlp_ln_{i}"])), ccfg.dropout, g, rows)
     logits = h @ params["out"]["w"] + params["out"]["b"]
-    loss = _weighted_smoothed_ce(logits, labels, ccfg) if labels is not None else None
+    loss = classifier_loss(logits, labels, ccfg) if labels is not None else None
     return {"logits": logits, "probs": torch.softmax(logits, -1), "loss": loss}
 
 
-def _weighted_smoothed_ce(logits, labels, ccfg: ClassifierConfig):
+def loss_weight(labels: torch.Tensor, ccfg: ClassifierConfig) -> torch.Tensor:
+    """The denominator of `classifier_loss` over `labels`: their count, or
+    their summed class weights (before the 1e-8 floor)."""
+    if ccfg.class_weights is None:
+        return torch.tensor(float(labels.shape[0]), device=labels.device)
+    w = torch.tensor(ccfg.class_weights, dtype=torch.float32, device=labels.device)
+    return w[labels.long()].sum()
+
+
+def classifier_loss(logits, labels, ccfg: ClassifierConfig):
     """torch CrossEntropyLoss semantics: label smoothing and per-class
     weights (the weighted mean normalised by the targets' summed weights)."""
     K = logits.shape[-1]
@@ -254,17 +271,19 @@ def predict_language(params, ccfg, hidden_states, attention_mask=None):
 @torch.no_grad()
 def encode_features(base_params: dict, mel: torch.Tensor, cfg: WhisperConfig,
                     layer_index: int = -1,
-                    flash: bool | str = False) -> torch.Tensor:
+                    flash: bool | str = False, tp=None) -> torch.Tensor:
     """Frozen encoder features [B, T, d] for LID. layer_index=-1: the final
     post-LN output (whisper.encode); k >= 0: the output of encoder layer k
     (0-based), running only the first k+1 layers, without the final LN.
     `flash` as in whisper.encode ("hm" launches the attention kernel on T
     padded to cross_pad_len); a tap layer takes "fq" as "hm", as the JAX
-    package does, while layer_index=-1 passes it on to whisper.encode."""
+    package does, while layer_index=-1 passes it on to whisper.encode.
+    `tp`: the "model" group of a tensor-parallel shard of `base_params`
+    (whisper.encoder_layers)."""
     from sar_tpu_torch.models import whisper
 
     if layer_index == -1:
-        return whisper.encode(base_params, mel, cfg, flash=flash)
+        return whisper.encode(base_params, mel, cfg, flash=flash, tp=tp)
     if flash == "fq":
         flash = "hm"            # no LoRA here, but fq buys nothing for taps
     enc = base_params["encoder"]
@@ -273,8 +292,8 @@ def encode_features(base_params: dict, mel: torch.Tensor, cfg: WhisperConfig,
     if not 0 <= k < L:
         raise ValueError(f"layer_index {layer_index} out of range for "
                          f"{L}-layer encoder")
-    x = whisper.encoder_front(enc, mel)
-    return whisper.encoder_layers(enc, x, cfg, k + 1, flash=flash)
+    x = whisper.encoder_front(enc, mel, tp)
+    return whisper.encoder_layers(enc, x, cfg, k + 1, flash=flash, tp=tp)
 
 
 def get_hidden_dim(cfg: WhisperConfig) -> int:

@@ -44,6 +44,19 @@ self_kv_int4=True)` builds the classic nibble-packed int4 cache
 (`quantize_kv4`: [.., hd/2] s8 bytes, two int4 lanes each), which
 `decode_step` tells apart by its hd/2 axis and reads with `_attention_int4`
 (plain torch, as in the JAX package).
+
+Tensor parallelism: `encode`, `encoder_layers`, `decode_train`, `forward`,
+`init_cache`, `decode_step` and `decode_cross_attn` take `tp`, the "model"
+group of a mesh (parallel/sharding.py), with `params` this rank's shard:
+q/k/v and fc1 hold a share of their output columns (column parallel), o
+and fc2 the matching input rows (row parallel: the partial products are
+summed over the group, then the bias is added once), the token embedding
+a range of the vocabulary (the lookup summed, the logits gathered), the
+conv stems a share of their channels (gathered after each). Each rank
+attends over its heads, whose count is read from its weights' width. A
+LoRA bank stays whole on every rank and is sliced where it meets a split
+projection. With `tp=None` no collective runs and every path is the one
+above.
 """
 
 from __future__ import annotations
@@ -71,6 +84,8 @@ from sar_tpu_torch.ops.flash_enc import (encoder_attention_fused,
                                          fused_qkv_supported)
 from sar_tpu_torch.ops.kv_init import (fused_kv_init, fused_kv_init_reference,
                                       quantize_rows)
+from sar_tpu_torch.parallel.sharding import (ModelGroup, model_gather,
+                                             model_sum, split_range)
 
 Params = dict[str, Any]
 
@@ -110,17 +125,23 @@ class LoraCtx(NamedTuple):
     scale: float = 1.0
     dropout: float = 0.0
     seed: int | None = None
+    rows: tuple[int, int, int] | None = None
 
 
 def lora_ctx(lora: Params | None, adapter_idx, scale: float,
              dtype: torch.dtype, dropout: float = 0.0,
-             seed: int | None = None) -> LoraCtx:
-    """The LoraCtx of one side's bank ({hook: {"a", "b"}}) for a call."""
+             seed: int | None = None,
+             rows: tuple[int, int, int] | None = None) -> LoraCtx:
+    """The LoraCtx of one side's bank ({hook: {"a", "b"}}) for a call.
+    `rows` (lo, hi, n): the batch holds rows [lo, hi) of a global batch of
+    n (a data-parallel shard), and the dropout masks are the global
+    batch's at those rows."""
     if lora is None or adapter_idx is None:
-        return LoraCtx(None, scale, dropout, seed)
+        return LoraCtx(None, scale, dropout, seed, rows)
     la = next(iter(lora.values()))["a"]                         # [L, A, d, r]
     idx = torch.as_tensor(adapter_idx, device=la.device).long()
-    return LoraCtx(F.one_hot(idx, la.shape[1]).to(dtype), scale, dropout, seed)
+    return LoraCtx(F.one_hot(idx, la.shape[1]).to(dtype), scale, dropout, seed,
+                   rows)
 
 
 _M64 = (1 << 64) - 1
@@ -142,23 +163,41 @@ def split_seed(seed: int | None) -> tuple[int | None, int | None]:
     return fold_in(seed, 0), fold_in(seed, 1)
 
 
-def dropout_keep(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
+def dropout_keep(x: torch.Tensor, seed: int, rate: float,
+                 rows: tuple[int, int, int] | None = None,
+                 cols: tuple[int, int, int] | None = None) -> torch.Tensor:
     """The inverted-dropout multiplier of x's shape: keep / (1 - rate) with
     P(keep) = 1 - rate, in x's dtype. Drawn from a generator of its own
     seeded with `seed`, so the same seed gives the same mask wherever it is
-    drawn (a checkpoint recompute restores only the default generators)."""
+    drawn (a checkpoint recompute restores only the default generators).
+    Where x is a shard of a larger tensor, rows [lo, hi) of n on the first
+    axis (`rows`) and/or columns [lo, hi) of n on the last (`cols`), the
+    mask is drawn at the whole tensor's shape and cut to x's part, so that
+    every layout of a batch over the ranks draws the same masks."""
     g = torch.Generator(device=x.device).manual_seed(seed)
-    u = torch.rand(x.shape, generator=g, device=x.device)
+    shape = list(x.shape)
+    if rows is not None:
+        shape[0] = rows[2]
+    if cols is not None:
+        shape[-1] = cols[2]
+    u = torch.rand(shape, generator=g, device=x.device)
+    if rows is not None:
+        u = u[rows[0]:rows[1]]
+    if cols is not None:
+        u = u[..., cols[0]:cols[1]]
     return (u < 1.0 - rate).to(x.dtype) / (1.0 - rate)
 
 
 def lora_delta(x: torch.Tensor, la: torch.Tensor, lb: torch.Tensor,
-               ctx: LoraCtx, salt: int = 0) -> torch.Tensor:
+               ctx: LoraCtx, salt: int = 0,
+               cols: tuple[int, int, int] | None = None) -> torch.Tensor:
     """`scale * (x @ A) @ B` for x [B, T, d_in]; la [A, d_in, r] and lb
     [A, r, d_out] are one layer's slice of a bank entry.
 
     With ctx.seed set and ctx.dropout > 0, x is first multiplied by the
-    inverted-dropout mask of `fold_in(ctx.seed, salt)`.
+    inverted-dropout mask of `fold_in(ctx.seed, salt)` (`cols`: x holds
+    columns [lo, hi) of n of the branch input, as `dropout_keep` takes
+    them).
 
     ctx.sel None: adapter 0 for every row. Otherwise MASKED-DENSE, as the
     JAX package: x against all A adapters as one [d_in, A*r] product, the
@@ -166,7 +205,8 @@ def lora_delta(x: torch.Tensor, la: torch.Tensor, lb: torch.Tensor,
     [A*r, d_out] product. Both products round to x's dtype, as the einsums
     do there."""
     if ctx.seed is not None and ctx.dropout > 0.0:
-        x = x * dropout_keep(x, fold_in(ctx.seed, salt), ctx.dropout)
+        shard = {k: v for k, v in (("rows", ctx.rows), ("cols", cols)) if v}
+        x = x * dropout_keep(x, fold_in(ctx.seed, salt), ctx.dropout, **shard)
     if ctx.sel is None:
         u = torch.matmul(x, la[0].to(x.dtype))
         return ctx.scale * torch.matmul(u, lb[0].to(x.dtype))
@@ -180,11 +220,62 @@ def lora_delta(x: torch.Tensor, la: torch.Tensor, lb: torch.Tensor,
 
 
 def _proj(x: torch.Tensor, p: Params, lora: Params | None,
-          ctx: LoraCtx, salt: int = 0) -> torch.Tensor:
+          ctx: LoraCtx, salt: int = 0, tp: ModelGroup | None = None) -> torch.Tensor:
+    """An (adapted) projection; under tensor parallelism (`tp`) a column-
+    parallel one: `p` holds this rank's output columns, and so does the
+    LoRA term (B's columns of the replicated bank)."""
     y = linear(x, p)
     if lora is not None:
-        y = y + lora_delta(x, lora["a"], lora["b"], ctx, salt)
+        lb = lora["b"]
+        if tp is not None:
+            lo, hi = split_range(lb.shape[-1], tp)
+            lb = lb[..., lo:hi]
+        y = y + lora_delta(x, lora["a"], lb, ctx, salt)
     return y
+
+
+def _row_proj(x: torch.Tensor, p: Params, lora: Params | None, ctx: LoraCtx,
+              salt: int = 0, tp: ModelGroup | None = None) -> torch.Tensor:
+    """A row-parallel projection under `tp`: x holds this rank's input
+    columns and `p` the matching rows of w; the partial products (the LoRA
+    term's too, from A's rows of the replicated bank) are summed over
+    "model", then the bias is added once. Without `tp`, `_proj`."""
+    if tp is None:
+        return _proj(x, p, lora, ctx, salt)
+    y = torch.matmul(x, p["w"])
+    if lora is not None:
+        la = lora["a"]
+        lo, hi = split_range(la.shape[-2], tp)
+        y = y + lora_delta(x, la[..., lo:hi, :], lora["b"], ctx, salt,
+                           cols=(lo, hi, la.shape[-2]))
+    y = model_sum(y, tp)
+    return y + p["b"].to(y.dtype) if "b" in p else y
+
+
+def _row_linear(x: torch.Tensor, p: Params, tp: ModelGroup | None) -> torch.Tensor:
+    """`linear` of a row-parallel layer (fc2) under `tp`."""
+    return linear(x, p) if tp is None else _row_proj(x, p, None, LoraCtx(), tp=tp)
+
+
+def _heads(n_heads: int, width: int, d_model: int) -> int:
+    """Heads held by a projection `width` wide: all of `n_heads` at
+    d_model, a rank's share under tensor parallelism."""
+    return n_heads * width // d_model
+
+
+def embed_tokens(dec: Params, tokens: torch.Tensor, vocab: int,
+                 tp: ModelGroup | None = None) -> torch.Tensor:
+    """The token embedding rows of `tokens`; under `tp` each rank holds a
+    range of the `vocab` rows, looks up the tokens inside it (zeros for the
+    rest) and the ranks' rows are summed."""
+    emb = dec["token_embed"]
+    if tp is None:
+        return emb[tokens]
+    lo, hi = split_range(vocab, tp)
+    local = tokens - lo
+    ok = (local >= 0) & (local < hi - lo)
+    rows = emb[local.clamp(0, hi - lo - 1)]
+    return model_sum(torch.where(ok[..., None], rows, torch.zeros_like(rows)), tp)
 
 
 def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -357,7 +448,7 @@ def _mha(q, k, v, mask=None, *, causal=False, flash=False):
 
 
 def _enc_layer_apply(x, p, num_heads, flash=False, t_valid=None, lora=None,
-                     ctx: LoraCtx = LoraCtx(), kernels: bool = True):
+                     ctx: LoraCtx = LoraCtx(), kernels: bool = True, tp=None):
     lo = lora or {}
     if flash == "fq" and not any(k in lo for k in ("q", "k", "v")):
         # K8: LN + q/k/v projections + attention in one entry point; LoRA
@@ -369,21 +460,23 @@ def _enc_layer_apply(x, p, num_heads, flash=False, t_valid=None, lora=None,
                     p["q"]["w"], p["q"]["b"], p["k"]["w"], p["v"]["w"],
                     p["v"]["b"], n_heads=num_heads, t_valid=t_valid)
     else:
-        a_m = _enc_attention(x, p, num_heads, flash, t_valid, lo, ctx, kernels)
-    x = x + _proj(a_m, p["o"], lo.get("o"), ctx, 3)
+        a_m = _enc_attention(x, p, num_heads, flash, t_valid, lo, ctx, kernels, tp)
+    x = x + _row_proj(a_m, p["o"], lo.get("o"), ctx, 3, tp)
     h = layer_norm(x, p["mlp_ln"]["scale"], p["mlp_ln"]["bias"])
     h = F.gelu(linear(h, p["fc1"]))
-    return x + linear(h, p["fc2"])
+    return x + _row_linear(h, p["fc2"], tp)
 
 
-def _enc_attention(x, p, num_heads, flash, t_valid, lo, ctx, kernels):
+def _enc_attention(x, p, num_heads, flash, t_valid, lo, ctx, kernels, tp=None):
     """The unfused attention half of an encoder layer: LN, the (adapted)
-    projections, then K1 ("hm" and "fq"), K6 (True) or exact attention."""
-    scaling = (x.shape[-1] // num_heads) ** -0.5
+    projections, then K1 ("hm" and "fq"), K6 (True) or exact attention.
+    `num_heads` are the heads of the projections' width (a rank's share
+    under `tp`)."""
+    scaling = (p["q"]["w"].shape[-1] // num_heads) ** -0.5
     h = layer_norm(x, p["attn_ln"]["scale"], p["attn_ln"]["bias"])
-    q = _proj(h, p["q"], lo.get("q"), ctx, 0) * scaling
-    k = _proj(h, p["k"], lo.get("k"), ctx, 1)
-    v = _proj(h, p["v"], lo.get("v"), ctx, 2)
+    q = _proj(h, p["q"], lo.get("q"), ctx, 0, tp) * scaling
+    k = _proj(h, p["k"], lo.get("k"), ctx, 1, tp)
+    v = _proj(h, p["v"], lo.get("v"), ctx, 2, tp)
     if flash in ("hm", "fq"):
         # Head-minor kernel on the residual layout: no split/merge copies;
         # `x` is padded to the kernel's T and keys >= t_valid are masked.
@@ -434,15 +527,19 @@ def _remat(body, remat):
     return run
 
 
-def encoder_front(enc: Params, mel: torch.Tensor) -> torch.Tensor:
+def encoder_front(enc: Params, mel: torch.Tensor,
+                  tp: ModelGroup | None = None) -> torch.Tensor:
     """The two GELU convolutions plus positions: mel [B, M, T_frames] ->
-    [B, T_frames/2, d] in the weights' dtype."""
+    [B, T_frames/2, d] in the weights' dtype. Under `tp` each rank holds a
+    share of each convolution's output channels, gathered over "model"
+    after each (the next op takes every channel)."""
     dtype = enc["conv1"]["w"].dtype
+    d = enc["pos_embed"].shape[-1]
     x = mel.to(dtype)                                            # [B, M, T]
     x = F.conv1d(x, enc["conv1"]["w"], padding=1) + enc["conv1"]["b"][:, None].to(dtype)
-    x = F.gelu(x)
+    x = model_gather(F.gelu(x), tp, 1, d)
     x = F.conv1d(x, enc["conv2"]["w"], stride=2, padding=1) + enc["conv2"]["b"][:, None].to(dtype)
-    x = F.gelu(x).transpose(1, 2)                                # [B, T, d]
+    x = model_gather(F.gelu(x), tp, 1, d).transpose(1, 2)       # [B, T, d]
     return x + enc["pos_embed"][:x.shape[1]].to(dtype)
 
 
@@ -450,13 +547,17 @@ def encoder_layers(enc: Params, x: torch.Tensor, cfg: WhisperConfig,
                    n_layers: int, *, flash: bool | str = False,
                    lora: Params | None = None,
                    ctx: LoraCtx = LoraCtx(), remat=False,
-                   kernels: bool = True) -> torch.Tensor:
+                   kernels: bool = True,
+                   tp: ModelGroup | None = None) -> torch.Tensor:
     """The first `n_layers` encoder layers over x [B, T, d]. flash=True
     takes K6 (training); with flash="hm" (K1) or "fq" (K8 where the layer's
     LoRA leaves q/k/v alone, else K1) the layers run on T padded to
     `cross_pad_len(T)` (padded rows carry garbage that masked keys keep out
     of real rows) and the pad is sliced off after the last layer.
-    `kernels=False` takes K1's and K8's plain versions on any device."""
+    `kernels=False` takes K1's and K8's plain versions on any device.
+    `tp` (the "model" group): `enc` holds this rank's shard
+    (parallel/sharding.py), each layer attends over the rank's heads and
+    sums its row-parallel products over the group."""
     if flash not in (False, True, "hm", "fq"):
         raise ValueError(f"encode(flash={flash!r}): want False, True, 'hm' "
                          f"or 'fq'")
@@ -465,11 +566,13 @@ def encoder_layers(enc: Params, x: torch.Tensor, cfg: WhisperConfig,
     if pad:
         x = F.pad(x, (0, 0, 0, pad))
 
+    heads = _heads(cfg.encoder_heads, enc["layers"]["q"]["w"].shape[-1], cfg.d_model)
+
     def body(x, l):
-        return _enc_layer_apply(x, _layer(enc["layers"], l), cfg.encoder_heads,
+        return _enc_layer_apply(x, _layer(enc["layers"], l), heads,
                                 flash=flash, t_valid=T,
                                 lora=_layer(lora, l) if lora else None,
-                                ctx=_layer_ctx(ctx, l), kernels=kernels)
+                                ctx=_layer_ctx(ctx, l), kernels=kernels, tp=tp)
     body = _remat(body, remat)
     for l in range(n_layers):
         x = body(x, l)
@@ -480,7 +583,9 @@ def encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig, *,
            lora: Params | None = None, adapter_idx=None,
            lora_scale: float = 1.0, lora_dropout: float = 0.0,
            dropout_seed: int | None = None, remat=False,
-           flash: bool | str = False, kernels: bool = True) -> torch.Tensor:
+           flash: bool | str = False, kernels: bool = True,
+           tp: ModelGroup | None = None,
+           dropout_rows: tuple[int, int, int] | None = None) -> torch.Tensor:
     """Encoder forward. mel: [B, num_mel_bins, T_frames] -> [B, T/2, d].
 
     flash: False = exact attention ([T, T] probabilities materialised);
@@ -495,19 +600,27 @@ def encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig, *,
     `lora` (a bank) adapts the hooks q/k/v/o it holds, with adapter 0 for
     every row or `adapter_idx` [B] per row; `lora_dropout` with
     `dropout_seed` drops the branch inputs (training). `remat` as `_remat`.
-    `kernels=False` takes K1's and K8's plain versions on any device."""
+    `kernels=False` takes K1's and K8's plain versions on any device.
+    `tp` (the "model" group) runs a tensor-parallel shard of the params
+    (`encoder_layers`); "fq" is "hm" there (the fused projections take the
+    whole width). `dropout_rows` (lo, hi, n): mel holds rows [lo, hi) of a
+    global batch of n, whose dropout masks are drawn (a data-parallel
+    shard)."""
     enc = params["encoder"]
-    x = encoder_front(enc, mel)
+    x = encoder_front(enc, mel, tp)
     enc_lora = lora.get("encoder") if lora else None
+    if flash == "fq" and tp is not None:
+        flash = "hm"
     if flash == "fq":
         lora_qkv = enc_lora is not None and any(k in enc_lora for k in ("q", "k", "v"))
         if lora_qkv or not fused_qkv_supported(cross_pad_len(x.shape[1]),
                                                x.shape[-1], cfg.encoder_heads):
             flash = "hm"
     ctx = lora_ctx(enc_lora, adapter_idx, lora_scale, x.dtype, lora_dropout,
-                   dropout_seed)
+                   dropout_seed, dropout_rows)
     x = encoder_layers(enc, x, cfg, cfg.encoder_layers, flash=flash,
-                       lora=enc_lora, ctx=ctx, remat=remat, kernels=kernels)
+                       lora=enc_lora, ctx=ctx, remat=remat, kernels=kernels,
+                       tp=tp)
     return layer_norm(x, enc["ln"]["scale"], enc["ln"]["bias"])
 
 
@@ -516,65 +629,87 @@ def encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig, *,
 # ---------------------------------------------------------------------------
 
 def _dec_layer_apply(x, enc_out, p, lora, ctx, num_heads, causal_mask,
-                     flash=False):
-    scaling = (x.shape[-1] // num_heads) ** -0.5
+                     flash=False, tp=None):
+    scaling = (p["self_q"]["w"].shape[-1] // num_heads) ** -0.5
     lo = lora or {}
     H = num_heads
     # Self-attention (causal).
     h = layer_norm(x, p["self_ln"]["scale"], p["self_ln"]["bias"])
-    q = _proj(h, p["self_q"], lo.get("self_q"), ctx, 0) * scaling
-    k = _proj(h, p["self_k"], lo.get("self_k"), ctx, 1)
-    v = _proj(h, p["self_v"], lo.get("self_v"), ctx, 2)
+    q = _proj(h, p["self_q"], lo.get("self_q"), ctx, 0, tp) * scaling
+    k = _proj(h, p["self_k"], lo.get("self_k"), ctx, 1, tp)
+    v = _proj(h, p["self_v"], lo.get("self_v"), ctx, 2, tp)
     a = _mha(split_heads(q, H), split_heads(k, H), split_heads(v, H),
              causal_mask, causal=True, flash=flash)
-    x = x + _proj(merge_heads(a), p["self_o"], lo.get("self_o"), ctx, 3)
+    x = x + _row_proj(merge_heads(a), p["self_o"], lo.get("self_o"), ctx, 3, tp)
     # Cross-attention.
     h = layer_norm(x, p["cross_ln"]["scale"], p["cross_ln"]["bias"])
-    q = _proj(h, p["cross_q"], lo.get("cross_q"), ctx, 4) * scaling
-    k = _proj(enc_out, p["cross_k"], lo.get("cross_k"), ctx, 5)
-    v = _proj(enc_out, p["cross_v"], lo.get("cross_v"), ctx, 6)
+    q = _proj(h, p["cross_q"], lo.get("cross_q"), ctx, 4, tp) * scaling
+    k = _proj(enc_out, p["cross_k"], lo.get("cross_k"), ctx, 5, tp)
+    v = _proj(enc_out, p["cross_v"], lo.get("cross_v"), ctx, 6, tp)
     a = _mha(split_heads(q, H), split_heads(k, H), split_heads(v, H),
              flash=flash)
-    x = x + _proj(merge_heads(a), p["cross_o"], lo.get("cross_o"), ctx, 7)
+    x = x + _row_proj(merge_heads(a), p["cross_o"], lo.get("cross_o"), ctx, 7, tp)
     # MLP.
     h = layer_norm(x, p["mlp_ln"]["scale"], p["mlp_ln"]["bias"])
     h = F.gelu(linear(h, p["fc1"]))
-    return x + linear(h, p["fc2"])
+    return x + _row_linear(h, p["fc2"], tp)
+
+
+def decoder_heads(params: Params, cfg: WhisperConfig) -> int:
+    """The decoder heads `params` hold: all of them, or a rank's share of a
+    tensor-parallel shard."""
+    return _heads(cfg.decoder_heads,
+                  params["decoder"]["layers"]["self_q"]["w"].shape[-1], cfg.d_model)
+
+
+def _logits(x: torch.Tensor, dec: Params, cfg: WhisperConfig,
+            tp: ModelGroup | None) -> torch.Tensor:
+    """fp32 logits of the final hidden states x [..., d]; under `tp` each
+    rank's vocabulary range, gathered over "model"."""
+    return model_gather(torch.matmul(x.float(), logits_weight(dec).T), tp, -1,
+                        cfg.vocab_size)
 
 
 def decode_train(params: Params, enc_out: torch.Tensor, tokens: torch.Tensor,
                  cfg: WhisperConfig, *, lora: Params | None = None,
                  adapter_idx=None, lora_scale: float = 1.0,
                  lora_dropout: float = 0.0, dropout_seed: int | None = None,
-                 remat=False, flash: bool = False) -> torch.Tensor:
+                 remat=False, flash: bool = False,
+                 tp: ModelGroup | None = None,
+                 dropout_rows: tuple[int, int, int] | None = None) -> torch.Tensor:
     """Teacher-forced decoder forward. tokens: [B, T] -> logits [B, T, V]
     fp32 (products of the compute-dtype operands summed in fp32). flash=True
     runs the causal self-attention (T x T) and the cross-attention
-    (T x S) through K6."""
+    (T x S) through K6. `tp` and `dropout_rows` as in `encode`: under
+    `tp` the vocabulary is split too, so the token lookup sums over
+    "model" and the logits are gathered."""
     dec = params["decoder"]
     dtype = enc_out.dtype
     T = tokens.shape[1]
-    x = dec["token_embed"][tokens].to(dtype) + dec["pos_embed"][:T].to(dtype)
+    x = (embed_tokens(dec, tokens, cfg.vocab_size, tp).to(dtype)
+         + dec["pos_embed"][:T].to(dtype))
     causal = (None if flash else
               torch.ones((T, T), dtype=torch.bool, device=x.device).tril()[None, None])
     dec_lora = lora.get("decoder") if lora else None
     ctx = lora_ctx(dec_lora, adapter_idx, lora_scale, dtype, lora_dropout,
-                   dropout_seed)
+                   dropout_seed, dropout_rows)
+    heads = decoder_heads(params, cfg)
 
     def body(x, l):
         return _dec_layer_apply(x, enc_out, _layer(dec["layers"], l),
                                 _layer(dec_lora, l) if dec_lora else None,
-                                _layer_ctx(ctx, l), cfg.decoder_heads, causal,
-                                flash=flash)
+                                _layer_ctx(ctx, l), heads, causal,
+                                flash=flash, tp=tp)
     body = _remat(body, remat)
     for l in range(cfg.decoder_layers):
         x = body(x, l)
     x = layer_norm(x, dec["ln"]["scale"], dec["ln"]["bias"])
-    return torch.matmul(x.float(), logits_weight(dec).T)
+    return _logits(x, dec, cfg, tp)
 
 
 def detect_language(params: Params, enc_out: torch.Tensor,
-                    cfg: WhisperConfig) -> tuple[torch.Tensor, torch.Tensor]:
+                    cfg: WhisperConfig,
+                    tp: ModelGroup | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Zero-shot language ID from the model itself (openai-whisper's
     `detect_language`): the decoder sees only `<|sot|>` and its next-token
     distribution is renormalized over the language tokens. Returns
@@ -584,7 +719,7 @@ def detect_language(params: Params, enc_out: torch.Tensor,
     B = enc_out.shape[0]
     sot = torch.full((B, 1), cfg.sot_token_id, dtype=torch.int64,
                      device=enc_out.device)
-    logits = decode_train(params, enc_out, sot, cfg)[:, 0]
+    logits = decode_train(params, enc_out, sot, cfg, tp=tp)[:, 0]
     n = min(len(WHISPER_LANGUAGES), cfg.vocab_size - cfg.lang_token_offset)
     lang_logits = logits[:, cfg.lang_token_offset:cfg.lang_token_offset + n].float()
     probs = torch.softmax(lang_logits, dim=-1)
@@ -596,7 +731,8 @@ def decode_cross_attn(params: Params, enc_out: torch.Tensor,
                       heads: tuple[tuple[int, int], ...],
                       lora: Params | None = None, adapter_idx=None,
                       lora_scale: float = 1.0,
-                      with_token_probs: bool = False):
+                      with_token_probs: bool = False,
+                      tp: ModelGroup | None = None):
     """Teacher-forced decoder forward returning the cross-attention
     probabilities of the selected (layer, head) pairs: [B, len(heads), T, S]
     fp32, ordered like `heads` (the word aligner's capture, openai's
@@ -608,35 +744,42 @@ def decode_cross_attn(params: Params, enc_out: torch.Tensor,
     `with_token_probs=True` also returns [B, T] fp32: the probability of
     tokens[:, t + 1] given the prefix (0 at T - 1), gathered then
     normalized by the row's logsumexp (one logit read per position, no
-    second [B, T, V] softmax)."""
+    second [B, T, V] softmax).
+
+    Under `tp` (a tensor-parallel shard) each rank keeps the maps of the
+    selected heads it holds and zeros for the others, and the maps are
+    summed over "model"."""
     dec = params["decoder"]
     dtype = enc_out.dtype
     T = tokens.shape[1]
-    x = dec["token_embed"][tokens].to(dtype) + dec["pos_embed"][:T].to(dtype)
+    x = (embed_tokens(dec, tokens, cfg.vocab_size, tp).to(dtype)
+         + dec["pos_embed"][:T].to(dtype))
     causal = torch.ones((T, T), dtype=torch.bool, device=x.device).tril()[None, None]
     dec_lora = lora.get("decoder") if lora else None
     ctx = lora_ctx(dec_lora, adapter_idx, lora_scale, dtype)
-    H = cfg.decoder_heads
-    scaling = (cfg.d_model // H) ** -0.5
+    H = decoder_heads(params, cfg)
+    h0 = 0 if tp is None else tp.rank * H            # this rank's first head
+    scaling = (cfg.d_model // cfg.decoder_heads) ** -0.5
     by_layer: dict[int, list[tuple[int, int]]] = {}
     for idx, (l, h) in enumerate(heads):
-        by_layer.setdefault(l, []).append((idx, h))
+        if h0 <= h < h0 + H:
+            by_layer.setdefault(l, []).append((idx, h - h0))
     captured: list[torch.Tensor | None] = [None] * len(heads)
     for l in range(cfg.decoder_layers):
         p = _layer(dec["layers"], l)
         lo = _layer(dec_lora, l) if dec_lora else {}
         # Self-attention (causal), as _dec_layer_apply.
         h_ = layer_norm(x, p["self_ln"]["scale"], p["self_ln"]["bias"])
-        q = _proj(h_, p["self_q"], lo.get("self_q"), ctx, 0) * scaling
-        k = _proj(h_, p["self_k"], lo.get("self_k"), ctx, 1)
-        v = _proj(h_, p["self_v"], lo.get("self_v"), ctx, 2)
+        q = _proj(h_, p["self_q"], lo.get("self_q"), ctx, 0, tp) * scaling
+        k = _proj(h_, p["self_k"], lo.get("self_k"), ctx, 1, tp)
+        v = _proj(h_, p["self_v"], lo.get("self_v"), ctx, 2, tp)
         a = attention(split_heads(q, H), split_heads(k, H), split_heads(v, H), causal)
-        x = x + _proj(merge_heads(a), p["self_o"], lo.get("self_o"), ctx, 3)
+        x = x + _row_proj(merge_heads(a), p["self_o"], lo.get("self_o"), ctx, 3, tp)
         # Cross-attention, the selected heads' probabilities kept.
         h_ = layer_norm(x, p["cross_ln"]["scale"], p["cross_ln"]["bias"])
-        q = _proj(h_, p["cross_q"], lo.get("cross_q"), ctx, 4) * scaling
-        k = _proj(enc_out, p["cross_k"], lo.get("cross_k"), ctx, 5)
-        v = _proj(enc_out, p["cross_v"], lo.get("cross_v"), ctx, 6)
+        q = _proj(h_, p["cross_q"], lo.get("cross_q"), ctx, 4, tp) * scaling
+        k = _proj(enc_out, p["cross_k"], lo.get("cross_k"), ctx, 5, tp)
+        v = _proj(enc_out, p["cross_v"], lo.get("cross_v"), ctx, 6, tp)
         qh, kh, vh = (split_heads(t, H) for t in (q, k, v))
         probs = torch.softmax(torch.matmul(qh.float(), kh.float().transpose(-1, -2)),
                               dim=-1)
@@ -644,20 +787,25 @@ def decode_cross_attn(params: Params, enc_out: torch.Tensor,
             captured[idx] = probs[:, hh].clone()
         a = torch.matmul(probs.to(qh.dtype), vh)
         del probs
-        x = x + _proj(merge_heads(a), p["cross_o"], lo.get("cross_o"), ctx, 7)
+        x = x + _row_proj(merge_heads(a), p["cross_o"], lo.get("cross_o"), ctx, 7, tp)
         # MLP.
         h_ = layer_norm(x, p["mlp_ln"]["scale"], p["mlp_ln"]["bias"])
-        x = x + linear(F.gelu(linear(h_, p["fc1"])), p["fc2"])
-    maps = torch.stack(captured, dim=1)
+        x = x + _row_linear(F.gelu(linear(h_, p["fc1"])), p["fc2"], tp)
+    if tp is not None:
+        zero = torch.zeros((x.shape[0], T, enc_out.shape[1]), device=x.device)
+        maps = model_sum(torch.stack([zero if m is None else m for m in captured],
+                                     dim=1), tp)
+    else:
+        maps = torch.stack(captured, dim=1)
     if not with_token_probs:
         return maps
     xf = layer_norm(x, dec["ln"]["scale"], dec["ln"]["bias"])
-    logits = torch.matmul(xf.float(), logits_weight(dec).T)
+    logits = _logits(xf, dec, cfg, tp)
     nxt = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
     chosen = torch.gather(logits, -1, nxt[..., None])[..., 0]
-    tp = torch.exp(chosen - torch.logsumexp(logits, dim=-1))
-    tp[:, -1] = 0.0
-    return maps, tp
+    token_probs = torch.exp(chosen - torch.logsumexp(logits, dim=-1))
+    token_probs[:, -1] = 0.0
+    return maps, token_probs
 
 
 def forward(params: Params, mel: torch.Tensor, tokens: torch.Tensor,
@@ -680,13 +828,16 @@ def shift_tokens_right(labels: torch.Tensor, start_token_id: int,
     return torch.where(inp == -100, torch.full_like(inp, pad_token_id), inp)
 
 
-def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean cross entropy over the positions whose label is not -100."""
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       count: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean cross entropy over the positions whose label is not -100: their
+    summed nll over their count, or over `count` when given (a batch
+    shard's share of the global mean, `count` the global batch's)."""
     mask = labels != -100
     safe = torch.where(mask, labels, torch.zeros_like(labels)).long()
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
-    return (nll * mask).sum() / mask.sum().clamp_min(1)
+    return (nll * mask).sum() / (mask.sum() if count is None else count).clamp_min(1)
 
 
 # ---------------------------------------------------------------------------
@@ -763,14 +914,15 @@ def unpack_kv4(p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def use_head_minor(*, cross_kv_int8: bool, self_kv_int8: bool,
                    cross_kv_int4: bool = False,
-                   self_kv_int4: bool = False) -> bool:
+                   self_kv_int4: bool = False, mesh=None) -> bool:
     """The default cross-KV layout of a decode path: head-minor slabs (the
     layout K3, K5 and K7 stream) for a full int8 KV cache, the classic
-    layout for int4 packing or an unquantized cache. The classic int8
-    layout (the JAX package's choice on a CPU without scores_int8, and
+    layout for int4 packing, an unquantized cache or a device `mesh` (as
+    in the JAX package: mesh decodes keep the classic layout). The classic
+    int8 layout (the JAX package's choice on a CPU without scores_int8, and
     under meshes) is built only when `init_cache(head_minor=False)` asks
     for it."""
-    return (cross_kv_int8 and self_kv_int8
+    return (mesh is None and cross_kv_int8 and self_kv_int8
             and not (cross_kv_int4 or self_kv_int4))
 
 
@@ -813,15 +965,18 @@ def cache_kind(*, cross_kv_int8: bool = False, self_kv_int8: bool = False,
 def empty_cache(cfg: WhisperConfig, batch: int, frames: int, max_len: int, *,
                 kind: str, self_batch: int | None = None,
                 dtype: torch.dtype = torch.float32,
-                device: torch.device | str = "cpu") -> DecodeCache:
+                device: torch.device | str = "cpu",
+                heads: int | None = None) -> DecodeCache:
     """An uninitialised DecodeCache of `kind` (CACHE_KINDS) for `batch`
     samples of `frames` encoder frames, `self_batch` (default `batch`)
     self-cache rows of `max_len` positions; `dtype` is the compute dtype
-    (the plain cache's). `init_cache(out=)` fills it."""
+    (the plain cache's); `heads` (default all) the decoder heads it holds
+    (a rank's share under tensor parallelism). `init_cache(out=)` fills
+    it."""
     if kind not in CACHE_KINDS:
         raise ValueError(f"cache kind {kind!r} not in {CACHE_KINDS}")
-    L, H = cfg.decoder_layers, cfg.decoder_heads
-    hd = cfg.d_model // H
+    L, H = cfg.decoder_layers, heads or cfg.decoder_heads
+    hd = cfg.d_model // cfg.decoder_heads
     SB = batch if self_batch is None else self_batch
     S = cross_pad_len(frames) if kind == "int8_head_minor" else frames
     width = hd // 2 if kind == "int4" else hd
@@ -831,7 +986,7 @@ def empty_cache(cfg: WhisperConfig, batch: int, frames: int, max_len: int, *,
         return torch.empty(shape, dtype=dt, device=device)
 
     if kind == "int8_head_minor":
-        cross = (L, batch, S, cfg.d_model)
+        cross = (L, batch, S, H * hd)
     else:
         cross = (L, batch, H, S, width)
     scales = (lambda shape: None) if kind == "plain" else (
@@ -852,7 +1007,8 @@ def init_cache(params: Params, enc_out: torch.Tensor, cfg: WhisperConfig,
                self_batch: int | None = None,
                kernels: bool = True, cross_kv_int4: bool = False,
                self_kv_int4: bool = False,
-               out: DecodeCache | None = None) -> DecodeCache:
+               out: DecodeCache | None = None,
+               tp: ModelGroup | None = None) -> DecodeCache:
     """The decode cache of `enc_out`: cross K/V projected once per batch
     and a zeroed self cache of `max_len` positions. By default, as in the
     JAX package, the unquantized classic cache (`_init_cache_classic`, plain
@@ -886,16 +1042,26 @@ def init_cache(params: Params, enc_out: torch.Tensor, cfg: WhisperConfig,
     it. Its self cache and scales are zeroed, as a new one's are.
 
     `head_minor` defaults to `use_head_minor`'s choice; one int8 flag
-    without the other raises."""
+    without the other raises.
+
+    `tp` (the "model" group of a tensor-parallel shard of `params`): the
+    cache holds this rank's heads, in a classic layout (the decode kernels
+    take whole slabs, as the JAX package's have no SPMD rule); the
+    head-minor layout raises there."""
     kind = cache_kind(cross_kv_int8=cross_kv_int8, self_kv_int8=self_kv_int8,
                       cross_kv_int4=cross_kv_int4, self_kv_int4=self_kv_int4,
                       head_minor=head_minor)
+    if tp is not None and kind == "int8_head_minor":
+        raise ValueError("the int8 head-minor cache is not built under tensor "
+                         "parallelism: pass head_minor=False (the classic "
+                         "layout, as the JAX package decodes under a mesh)")
     B, S, _ = enc_out.shape
+    H = decoder_heads(params, cfg)
     want = empty_cache(cfg, B, S, max_len, kind=kind, self_batch=self_batch,
-                       dtype=enc_out.dtype, device="meta")
+                       dtype=enc_out.dtype, device="meta", heads=H)
     if out is None:
         out = empty_cache(cfg, B, S, max_len, kind=kind, self_batch=self_batch,
-                          dtype=enc_out.dtype, device=enc_out.device)
+                          dtype=enc_out.dtype, device=enc_out.device, heads=H)
     for name, w in want._asdict().items():
         o = getattr(out, name)
         if (o is None) != (w is None) or (o is not None and (
@@ -910,10 +1076,10 @@ def init_cache(params: Params, enc_out: torch.Tensor, cfg: WhisperConfig,
     if kind != "int8_head_minor":
         _init_cache_classic(params, enc_out, cfg, out, lora=lora,
                             adapter_idx=adapter_idx, lora_scale=lora_scale,
-                            quant={"int4": "int4", "int8_classic": "int8"}.get(kind))
+                            quant={"int4": "int4", "int8_classic": "int8"}.get(kind),
+                            tp=tp)
         return out
     dec = params["decoder"]
-    H = cfg.decoder_heads
     pad = cross_pad_len(S) - S
     enc_pad = F.pad(enc_out, (0, 0, 0, pad)) if pad else enc_out.contiguous()
     lay = dec["layers"]
@@ -945,7 +1111,8 @@ def _init_cache_classic(params: Params, enc_out: torch.Tensor,
                         cfg: WhisperConfig, out: DecodeCache, *,
                         lora: Params | None = None, adapter_idx=None,
                         lora_scale: float = 1.0,
-                        quant: str | None = None) -> None:
+                        quant: str | None = None,
+                        tp: ModelGroup | None = None) -> None:
     """The cross fields of a classic-layout cache `out` (plain torch, as the
     JAX package's jnp body): each layer's (adapted) projection of `enc_out`
     split into heads, cross K/V [L, B, H, S, hd] in the compute dtype; with
@@ -953,16 +1120,16 @@ def _init_cache_classic(params: Params, enc_out: torch.Tensor,
     [.., S]); with "int4", nibble-packed by `quantize_kv4` ([.., hd/2] s8).
     Written layer by layer into `out`, as the JAX package's scan body
     quantizes per layer: the fp32 temporaries of one layer, not of the
-    whole stack."""
+    whole stack. Under `tp`, this rank's heads."""
     lay = params["decoder"]["layers"]
-    H = cfg.decoder_heads
+    H = decoder_heads(params, cfg)
     dec_lora = lora.get("decoder") if lora else None
     ctx = lora_ctx(dec_lora, adapter_idx, lora_scale, enc_out.dtype)
     quantize = quantize_kv4 if quant == "int4" else quantize_kv
     for l in range(lay["cross_k"]["w"].shape[0]):
         p, lo = _layer(lay, l), (_layer(dec_lora, l) if dec_lora else {})
-        k = split_heads(_proj(enc_out, p["cross_k"], lo.get("cross_k"), ctx, 5), H)
-        v = split_heads(_proj(enc_out, p["cross_v"], lo.get("cross_v"), ctx, 6), H)
+        k = split_heads(_proj(enc_out, p["cross_k"], lo.get("cross_k"), ctx, 5, tp), H)
+        v = split_heads(_proj(enc_out, p["cross_v"], lo.get("cross_v"), ctx, 6, tp), H)
         if quant is not None:
             (k, out.cross_k_scale[l]), (v, out.cross_v_scale[l]) = quantize(k), quantize(v)
         out.cross_k[l], out.cross_v[l] = k, v
@@ -1105,7 +1272,8 @@ def decode_step(params: Params, tokens: torch.Tensor, pos: int,
                 lora_scale: float = 1.0, scores_int8: bool = False,
                 beam_width: int = 1, ancestry: torch.Tensor | None = None,
                 kernels: bool = True,
-                self_len: int | None = None) -> tuple[torch.Tensor, DecodeCache]:
+                self_len: int | None = None,
+                tp: ModelGroup | None = None) -> tuple[torch.Tensor, DecodeCache]:
     """One autoregressive step. tokens: [B] int64 at position `pos` (< the
     self cache's max_len). Returns (logits [B, V] fp32, cache), the self
     cache updated in place at column `pos`.
@@ -1139,9 +1307,15 @@ def decode_step(params: Params, tokens: torch.Tensor, pos: int,
     beams. `ancestry` [B/K, K, max_len] (beam mode only, not with int4 or
     scores_int8, whose beams reorder the self cache) reads the self cache as
     slot-major (`_self_attention_beam`); its column `pos` must be the
-    identity, since each beam writes its own slot at this step."""
-    H = cfg.decoder_heads
-    half = cfg.d_model // H // 2
+    identity, since each beam writes its own slot at this step.
+
+    `tp` (the "model" group of a tensor-parallel shard of `params`, over a
+    classic cache of this rank's heads from `init_cache(tp=)`): the
+    row-parallel products are summed over the group and the logits
+    gathered, so every rank of the group returns the same logits."""
+    H = cache.self_k.shape[2]                  # this rank's heads under tp
+    hd = cfg.d_model // cfg.decoder_heads
+    half = hd // 2
     plain_cache = cache.self_k_scale is None
     self_int4 = not plain_cache and cache.self_k.shape[-1] == half
     cross_int4 = (cache.cross_k_scale is not None and cache.cross_k.dim() == 5
@@ -1169,10 +1343,10 @@ def decode_step(params: Params, tokens: torch.Tensor, pos: int,
                          f"self cache's {max_len} rows")
     dec = params["decoder"]
     dtype = dec["token_embed"].dtype
-    x = dec["token_embed"][tokens][:, None, :].to(dtype)         # [B, 1, d]
+    x = embed_tokens(dec, tokens, cfg.vocab_size, tp)[:, None, :].to(dtype)  # [B, 1, d]
     x = x + dec["pos_embed"][pos].to(dtype)
     pos_mask = (torch.arange(n, device=x.device) <= pos)[None, None, None, :]
-    scaling = (cfg.d_model // H) ** -0.5
+    scaling = hd ** -0.5
     cross = cross_decode_attention_exact if kernels else cross_decode_reference_exact
     self_attn = (_attention_int4 if self_int4 else
                  _attention_int8_mxu if scores_int8 else _attention_int8)
@@ -1185,9 +1359,9 @@ def decode_step(params: Params, tokens: torch.Tensor, pos: int,
         lo = _layer(dec_lora, l) if dec_lora else {}
         # Self-attention against the cache (row `pos` written first).
         h = layer_norm(x, p["self_ln"]["scale"], p["self_ln"]["bias"])
-        q = _proj(h, p["self_q"], lo.get("self_q"), ctx) * scaling
-        k = split_heads(_proj(h, p["self_k"], lo.get("self_k"), ctx), H)
-        v = split_heads(_proj(h, p["self_v"], lo.get("self_v"), ctx), H)
+        q = _proj(h, p["self_q"], lo.get("self_q"), ctx, tp=tp) * scaling
+        k = split_heads(_proj(h, p["self_k"], lo.get("self_k"), ctx, tp=tp), H)
+        v = split_heads(_proj(h, p["self_v"], lo.get("self_v"), ctx, tp=tp), H)
         # The first n rows of layer l's self cache (all of it by default).
         sk, sv = cache.self_k[l, :, :, :n], cache.self_v[l, :, :, :n]
         if plain_cache:
@@ -1211,13 +1385,13 @@ def decode_step(params: Params, tokens: torch.Tensor, pos: int,
                                          ancestry, pos, beam_width)
             else:
                 a = self_attn(split_heads(q, H), sk, sks, sv, svs, mask=pos_mask)
-        x = x + _proj(merge_heads(a), p["self_o"], lo.get("self_o"), ctx)
+        x = x + _row_proj(merge_heads(a), p["self_o"], lo.get("self_o"), ctx, tp=tp)
         # Cross-attention: exact over the classic cache, int4 or int8 over
         # the quantized classic slabs, or over the head-minor int8 slabs of layer
         # l (K3/K5 exact, K7 with scores_int8); beam queries are folded per
         # sample ([B/K, K, ...]) when beam_width > 1.
         h = layer_norm(x, p["cross_ln"]["scale"], p["cross_ln"]["bias"])
-        q = _proj(h, p["cross_q"], lo.get("cross_q"), ctx) * scaling
+        q = _proj(h, p["cross_q"], lo.get("cross_q"), ctx, tp=tp) * scaling
         if plain_cache:
             # The K beam queries of a sample ride its one cross slab as K
             # query rows ([B/K, H, K, hd]), unfolded after.
@@ -1241,11 +1415,11 @@ def decode_step(params: Params, tokens: torch.Tensor, pos: int,
                   if beam_width > 1 else q[:, 0])
             o = cross(qc, cache.cross_k, cache.cross_k_scale, cache.cross_v,
                       cache.cross_v_scale, layer=l, n_heads=H)
-        x = x + _proj(o.reshape(B, 1, -1), p["cross_o"], lo.get("cross_o"), ctx)
+        x = x + _row_proj(o.reshape(B, 1, -1), p["cross_o"], lo.get("cross_o"),
+                          ctx, tp=tp)
         # MLP.
         h = layer_norm(x, p["mlp_ln"]["scale"], p["mlp_ln"]["bias"])
         h = F.gelu(linear(h, p["fc1"]))
-        x = x + linear(h, p["fc2"])
+        x = x + _row_linear(h, p["fc2"], tp)
     x = layer_norm(x, dec["ln"]["scale"], dec["ln"]["bias"])
-    logits = torch.matmul(x[:, 0].float(), logits_weight(dec).T)
-    return logits, cache
+    return _logits(x[:, 0], dec, cfg, tp), cache

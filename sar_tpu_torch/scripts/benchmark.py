@@ -44,8 +44,14 @@ over `--iters` iterations after one warm-up, and each row also carries its
 per-iteration walls (`iter_s`). A config row that runs out of device
 memory is recorded as {"batch": b, ..., "error": "oom"} (capacity probes);
 any other error propagates. Each streaming update is fenced the same
-way. Device meshes (`--dp/--tp/--dcn_dp`) and `--platform` are refused.
-`--output` writes the report.
+way. `--dp/--tp/--dcn_dp` run the config and train rows on a device mesh,
+one process per device (`torchrun --nproc_per_node N -m
+sar_tpu_torch.scripts.benchmark ...`): each rank runs its rows of every
+batch (the decode over a classic cache, eager where the "model" axis has
+more than one rank), and the rates are of the whole batch; as in the JAX
+CLI, `--attn_scores int8` falls back to bf16 scores there, and the routed,
+serving and streaming rows run the single-device program, ignoring the
+mesh. `--platform` is refused. `--output` (rank 0) writes the report.
 """
 
 from __future__ import annotations
@@ -91,9 +97,15 @@ def parse_args(argv=None):
     p.add_argument("--iters", type=int, default=3)
     p.add_argument("--platform", type=str, default="auto",
                    choices=["auto", "cpu", "tpu"], help="not ported: use --device")
-    p.add_argument("--dp", type=int, default=1, help="not ported: must be 1")
-    p.add_argument("--tp", type=int, default=1, help="not ported: must be 1")
-    p.add_argument("--dcn_dp", type=int, default=1, help="not ported: must be 1")
+    p.add_argument("--dp", type=int, default=1,
+                   help="Data-parallel mesh axis (batch shards over it); "
+                        "one process per device, launched with torchrun")
+    p.add_argument("--tp", type=int, default=1,
+                   help="Tensor-parallel mesh axis (attention heads / FFN "
+                        "split over it; must divide the heads)")
+    p.add_argument("--dcn_dp", type=int, default=1,
+                   help="Data-parallel replicas across nodes (adds a leading "
+                        "'replica' mesh axis)")
     p.add_argument("--streaming", action="store_true",
                    help="Per-update latency of the streaming transcriber "
                         "(batch 1; one row per --kv_cache)")
@@ -138,12 +150,6 @@ def parse_args(argv=None):
                         "card) or eager (off)")
     p.add_argument("--output", type=str, default=None)
     args = p.parse_args(argv)
-    meshes = [f"--{k} {getattr(args, k)}" for k in ("dp", "tp", "dcn_dp")
-              if getattr(args, k) != 1]
-    if meshes:
-        p.error(f"{', '.join(meshes)}: device meshes are not ported to "
-                f"sar_tpu_torch yet (benchmark one card; scripts/benchmark.py "
-                f"is the JAX version)")
     if args.platform != "auto":
         p.error(f"--platform {args.platform}: not ported to sar_tpu_torch "
                 f"(use --device)")
@@ -364,10 +370,11 @@ def run_routed(cfg, params, batch, max_new_tokens, iters, kv, n_languages,
 
 
 def run_train(cfg, params, batch, accum, label_len, lora_rank, iters, device,
-              remat=True):
+              remat=True, mesh=None):
     """Steady-state LoRA train-step throughput: `ASRTrainer.train_step`
     over `accum` microbatches of random mel and labels (forward, backward
-    with K6 on the card, clipped AdamW)."""
+    with K6 on the card, clipped AdamW); on `mesh`, each rank's rows of
+    them."""
     from sar_tpu_torch.models import lora as lora_lib
     from sar_tpu_torch.training.trainer import ASRTrainer, TrainingArgs
 
@@ -375,7 +382,7 @@ def run_train(cfg, params, batch, accum, label_len, lora_rank, iters, device,
     bank = lora_lib.init_lora(torch.Generator().manual_seed(0), cfg, lcfg)
     targs = TrainingArgs(gradient_accumulation_steps=accum,
                          gradient_checkpointing=remat, device=str(device))
-    trainer = ASRTrainer(cfg, params, bank, lcfg, targs)
+    trainer = ASRTrainer(cfg, params, bank, lcfg, targs, mesh=mesh)
     rng = np.random.default_rng(0)
     micro = [{"input_features": rng.standard_normal(
                   (batch, cfg.num_mel_bins, cfg.num_audio_frames)).astype(np.float32),
@@ -391,34 +398,47 @@ def run_train(cfg, params, batch, accum, label_len, lora_rank, iters, device,
 
 def run_config(cfg, params, batch, max_new_tokens, kv, iters, device,
                scores_int8=False, num_beams=1, agreement=True, layout="auto",
-               capture=None):
+               capture=None, mesh=None):
     """One config row: mel -> encode -> cache -> greedy (or beam search),
     timed per batch through a DecodeRunner (the evaluator's programs; the
     cache its static one); with its agreement key where the JAX CLI has
-    one."""
+    one. On `mesh` each rank runs its shard of the weights on its rows of
+    the batch over a classic cache, as the JAX CLI's mesh rows."""
     from sar_tpu_torch.decode.graphs import (CudaGraphCapture, DecodeRunner,
                                              resolve_capture)
     from sar_tpu_torch.decode.greedy import greedy_decode_from_cache
     from sar_tpu_torch.models import whisper
     from sar_tpu_torch.ops import mel as mel_ops
+    from sar_tpu_torch.parallel import distributed as pdist
+    from sar_tpu_torch.parallel import sharding
 
+    if scores_int8 and mesh is not None:
+        # The evaluator's guard: no s8 decode under a mesh.
+        logger.warning("--attn_scores int8 is unsupported under a mesh; "
+                       "using bf16 scores")
+        scores_int8 = False
     kv_int8, kv_int4 = kv == "int8", kv == "int4"
     flags = dict(cross_kv_int8=kv_int8, self_kv_int8=kv_int8,
                  cross_kv_int4=kv_int4, self_kv_int4=kv_int4)
     prompt = cfg.prompt_ids("hindi")
     total = min(len(prompt) + max_new_tokens, cfg.max_target_positions)
     audio = _audio(batch, device)
+    tp = sharding.model_group(mesh)
+    if mesh is not None:
+        # Every rank's rows of the batch: the rates below are the batch's.
+        audio = pdist.put_global_batch(audio, mesh)
+        params = sharding.shard_params(params, mesh, cfg)
     flash = "hm" if device.type == "cuda" else False
-    runner = DecodeRunner(params, cfg, capture=CudaGraphCapture
-                          if resolve_capture(capture, device) else None)
+    runner = DecodeRunner(params, cfg, tp=tp, capture=CudaGraphCapture
+                          if resolve_capture(capture, device) and tp is None else None)
 
     @torch.no_grad()
     def encode():
-        return whisper.encode(params, _mel(cfg, audio), cfg, flash=flash)
+        return whisper.encode(params, _mel(cfg, audio), cfg, flash=flash, tp=tp)
 
-    # classic forces the [L,B,H,S,hd] layout; None defers to the decoder's
-    # own choice (use_head_minor).
-    beam_hm = False if layout == "classic" else None
+    # classic forces the [L,B,H,S,hd] layout, and so does a mesh; None
+    # defers to the decoder's own choice (use_head_minor).
+    beam_hm = False if layout == "classic" or mesh is not None else None
     hm = False
     if num_beams > 1:
         def run():
@@ -428,7 +448,7 @@ def run_config(cfg, params, batch, max_new_tokens, kv, iters, device,
             return runner.beam(cache, prompt, num_beams=num_beams,
                                scores_int8=scores_int8)
     else:
-        hm = layout != "classic" and whisper.use_head_minor(**flags)
+        hm = layout != "classic" and whisper.use_head_minor(**flags, mesh=mesh)
 
         def run():
             return runner.greedy(runner.prep(encode(), total, head_minor=hm, **flags),
@@ -456,7 +476,7 @@ def run_config(cfg, params, batch, max_new_tokens, kv, iters, device,
         classic = lambda: greedy_decode_from_cache(
             params, whisper.init_cache(params, encode(), cfg, max_len=total,
                                        cross_kv_int8=True, self_kv_int8=True,
-                                       head_minor=False), cfg, prompt)
+                                       head_minor=False, tp=tp), cfg, prompt, tp=tp)
         if scores_int8:
             row["token_agreement_vs_bf16"] = _agreement(out, classic())
         elif kv_int8 and hm:
@@ -480,7 +500,8 @@ def _report(args, rows, peaks, with_tokens=True) -> dict:
     report["results"] = rows
     if peaks:
         report["peak_mem_gb"] = peaks
-    if args.output:
+    from sar_tpu_torch.parallel.distributed import is_main_process
+    if args.output and is_main_process():
         Path(args.output).parent.mkdir(parents=True, exist_ok=True)
         Path(args.output).write_text(json.dumps(report, indent=2))
     return report
@@ -491,8 +512,17 @@ def main(argv=None) -> dict:
     from sar_tpu_torch.device import resolve_device
     from sar_tpu_torch.models import whisper
     from sar_tpu_torch.models.config import get_config
+    from sar_tpu_torch.parallel.distributed import (is_main_process,
+                                                    maybe_initialize_distributed)
+    from sar_tpu_torch.parallel.sharding import mesh_device, mesh_from_flags
 
-    device = resolve_device(args.device)
+    maybe_initialize_distributed(device=args.device)
+    mesh = mesh_from_flags(args.dp, args.tp, args.dcn_dp)
+    if not is_main_process():
+        logging.getLogger().setLevel(logging.WARNING)     # rank 0 logs
+    device = resolve_device(args.device) if mesh is None else mesh_device(mesh)
+    if mesh is not None:
+        logger.info("benchmarking on mesh %s", mesh)
     capture = {"auto": None, "on": True, "off": False}[args.capture]
     logger.warning("no pretrained weights are read: random init (seed 0); "
                    "throughput numbers are unaffected")
@@ -519,7 +549,8 @@ def main(argv=None) -> dict:
             r = measured(lambda: run_train(cfg, params, b, args.train_accum,
                                            args.train_label_len, args.train_lora_rank,
                                            args.iters, device,
-                                           remat=args.train_remat == "on"),
+                                           remat=args.train_remat == "on",
+                                           mesh=mesh),
                          mode="train", batch=b, accum=args.train_accum)
             if "error" not in r:
                 print(f"train batch={b} x accum={r['accum']}: {r['s_per_step']} s/step "
@@ -527,6 +558,9 @@ def main(argv=None) -> dict:
                       f"r{r['lora_rank']}) walls {r['iter_s']}")
         return _report(args, rows, peaks, with_tokens=False)
     if args.routed:
+        if mesh is not None:
+            logger.warning("--routed benchmarks the single-chip routed program; "
+                           "ignoring the mesh flags")
         for b in args.batch_sizes:
             r = measured(lambda: run_routed(cfg, params, b, args.max_new_tokens,
                                             args.iters, args.kv_cache[0],
@@ -543,6 +577,9 @@ def main(argv=None) -> dict:
                       f"agreement {r['token_agreement_vs_oracle']}")
         return _report(args, rows, peaks)
     if args.serving:
+        if mesh is not None:
+            logger.warning("--serving benchmarks the single-chip serving program; "
+                           "ignoring the mesh flags")
         for b in args.batch_sizes:
             r = measured(lambda: run_serving(cfg, params, b, args.max_new_tokens,
                                              args.serving_requests,
@@ -556,6 +593,9 @@ def main(argv=None) -> dict:
                       f"({r['batches']} batches)")
         return _report(args, rows, peaks)
     if args.streaming:
+        if mesh is not None:
+            logger.warning("--streaming benchmarks the single-chip streaming program; "
+                           "ignoring the mesh flags")
         for kv in args.kv_cache:
             r = measured(lambda: run_streaming(cfg, params, args.streaming_chunk_seconds,
                                                args.iters, kv == "int8",
@@ -582,7 +622,7 @@ def main(argv=None) -> dict:
                                                 num_beams=nb,
                                                 agreement=not args.no_agreement,
                                                 layout=args.kv_layout,
-                                                capture=capture),
+                                                capture=capture, mesh=mesh),
                              batch=b, kv=kv, attn_scores=args.attn_scores,
                              num_beams=nb)
                 if "error" in r:

@@ -14,9 +14,16 @@ wait for files in the repository, so `--model` whisper-test with the
 kernel K7) and `--kv_cache int4` (the nibble-packed cache) are the opt-in
 quantized decode, refused together as the evaluator refuses them;
 `--kv_cache bf16` decodes over the unquantized cache. `--fallback` (with
-`--best_of`) transcribes through openai's temperature ladder. Flags of
-the JAX script that the port has not got (meshes, --platform,
---cache_dir) fail with a message.
+`--best_of`) transcribes through openai's temperature ladder.
+`--dp/--tp/--dcn_dp` evaluate on a device mesh, one process per device:
+
+    torchrun --nproc_per_node 2 -m sar_tpu_torch.scripts.evaluate_model \
+        --checkpoint none --model whisper-test --language english \
+        --data_sources synthetic --dp 2 --output_dir out/
+
+(every rank transcribes its rows of each batch; rank 0 prints and writes
+the results). Flags of the JAX script that the port has not got
+(--platform, --cache_dir) fail with a message.
 """
 
 from __future__ import annotations
@@ -30,8 +37,8 @@ import torch
 
 logger = logging.getLogger("evaluate_model")
 
-# Flags of the JAX script the port does not have yet.
-NOT_PORTED = ("--platform", "--dp", "--tp", "--dcn_dp", "--cache_dir")
+# Flags of the JAX script the port does not have.
+NOT_PORTED = ("--platform", "--cache_dir")
 
 
 def parse_args(argv=None):
@@ -77,6 +84,15 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: the CUDA card)")
+    p.add_argument("--dp", type=int, default=1,
+                   help="Data-parallel mesh axis (batch shards over it); "
+                        "one process per device, launched with torchrun")
+    p.add_argument("--tp", type=int, default=1,
+                   help="Tensor-parallel mesh axis (attention heads / FFN "
+                        "split over it; must divide the heads)")
+    p.add_argument("--dcn_dp", type=int, default=1,
+                   help="Data-parallel replicas across nodes (adds a leading "
+                        "'replica' mesh axis)")
     for flag in NOT_PORTED:
         p.add_argument(flag, nargs="?", const=True, default=None,
                        help=argparse.SUPPRESS)
@@ -103,9 +119,16 @@ def main(argv=None) -> dict:
     from sar_tpu_torch.evaluation import ASREvaluator
     from sar_tpu_torch.models import lora as lora_lib
     from sar_tpu_torch.models.base import load_base_model
+    from sar_tpu_torch.parallel.distributed import (is_main_process,
+                                                    maybe_initialize_distributed)
+    from sar_tpu_torch.parallel.sharding import mesh_device, mesh_from_flags
     from sar_tpu_torch.training.metrics import compute_metrics_per_sample
 
-    device = resolve_device(args.device)
+    maybe_initialize_distributed(device=args.device)
+    mesh = mesh_from_flags(args.dp, args.tp, args.dcn_dp)
+    if not is_main_process():
+        logging.getLogger().setLevel(logging.WARNING)     # rank 0 logs
+    device = resolve_device(args.device) if mesh is None else mesh_device(mesh)
     dtype = torch.float32 if args.mixed_precision == "no" else torch.bfloat16
     cfg, params = load_base_model(args.model, dtype=dtype, device=device)
     tokenizer = get_tokenizer(args.model, language=args.language, task=args.task)
@@ -143,9 +166,11 @@ def main(argv=None) -> dict:
                              kv_int4=args.kv_cache == "int4",
                              scores_int8=args.attn_scores == "int8",
                              fallback=args.fallback, best_of=args.best_of,
-                             device=device)
+                             device=device, mesh=mesh)
     need_preds = args.save_predictions or args.per_sample
     results = evaluator.evaluate(loader, return_predictions=need_preds)
+    if not is_main_process():
+        return results
 
     print(f"WER: {results['wer'] * 100:.2f}%")
     print(f"CER: {results['cer'] * 100:.2f}%")

@@ -8,11 +8,15 @@ The port of scripts/train_lora.py, with its flags and defaults plus
 `--device` (default: the CUDA card). It writes output_dir/config.yaml, the
 best-WER checkpoint under best/, periodic step_N/ checkpoints, the final
 adapter under final/ and history.json. `--flash_attention auto` runs the
-three attentions of a step through kernel K6 on the card. Real Whisper
-weights and corpora wait for files in the repository, so `--model
-whisper-test` with `--data_sources synthetic` is what runs today; device
-meshes (`--dp/--tp/--dcn_dp`), `--platform`, `--num_workers`,
-`--cache_dir` and the other sources are refused with a message.
+three attentions of a step through kernel K6 on the card.
+`--num_workers` collates batches on a thread pool. `--dp/--tp/--dcn_dp`
+train on a device mesh, one process per device (`torchrun
+--nproc_per_node N -m sar_tpu_torch.scripts.train_lora ...`); every rank
+loads the same global batches and keeps its rows, and rank 0 alone writes
+the outputs. Real Whisper weights and corpora wait for files in the
+repository, so `--model whisper-test` with `--data_sources synthetic` is
+what runs today; `--platform`, `--cache_dir` and the other sources are
+refused with a message.
 """
 
 from __future__ import annotations
@@ -65,12 +69,18 @@ def parse_args(argv=None):
     p.add_argument("--mixed_precision", type=str, default="bf16",
                    choices=["no", "fp16", "bf16"])
     p.add_argument("--max_new_tokens", type=int, default=256)
-    p.add_argument("--dp", type=int, default=1, help="not ported: must be 1")
-    p.add_argument("--tp", type=int, default=1, help="not ported: must be 1")
-    p.add_argument("--dcn_dp", type=int, default=1, help="not ported: must be 1")
+    p.add_argument("--dp", type=int, default=1,
+                   help="Data-parallel mesh axis (batch shards over it); "
+                        "one process per device, launched with torchrun")
+    p.add_argument("--tp", type=int, default=1,
+                   help="Tensor-parallel mesh axis (attention heads / FFN "
+                        "split over it; must divide the heads)")
+    p.add_argument("--dcn_dp", type=int, default=1,
+                   help="Data-parallel replicas across nodes (adds a leading "
+                        "'replica' mesh axis)")
     p.add_argument("--num_workers", type=int, default=0,
-                   help="not ported: must be 0 (the loader collates on one "
-                        "background thread)")
+                   help="Collation threads of the loader (0: one background "
+                        "thread collates in order)")
     p.add_argument("--platform", type=str, default="auto",
                    choices=["auto", "cpu", "tpu"],
                    help="not ported: use --device")
@@ -97,16 +107,6 @@ def parse_args(argv=None):
     p.add_argument("--early_stopping_patience", type=int, default=5)
     p.add_argument("--resume_from", type=str, default=None)
     args = p.parse_args(argv)
-    meshes = [f"--{k} {getattr(args, k)}" for k in ("dp", "tp", "dcn_dp")
-              if getattr(args, k) != 1]
-    if meshes:
-        p.error(f"{', '.join(meshes)}: device meshes are not ported to "
-                f"sar_tpu_torch yet (train on one card; scripts/train_lora.py "
-                f"is the JAX version)")
-    if args.num_workers:
-        p.error(f"--num_workers {args.num_workers}: collation worker pools are "
-                f"not ported to sar_tpu_torch (the loader prefetches on one "
-                f"thread)")
     if args.cache_dir is not None:
         p.error("--cache_dir: not ported to sar_tpu_torch (real Whisper weights "
                 "wait for files in the repository)")
@@ -134,16 +134,25 @@ def main(argv=None) -> dict:
     from sar_tpu_torch.device import resolve_device
     from sar_tpu_torch.models import lora as lora_lib
     from sar_tpu_torch.models.base import load_base_model
+    from sar_tpu_torch.parallel.distributed import (is_main_process,
+                                                    maybe_initialize_distributed)
+    from sar_tpu_torch.parallel.sharding import mesh_device, mesh_from_flags
     from sar_tpu_torch.training import (ASRTrainer, CheckpointCallback,
                                         EarlyStoppingCallback, TrainingArgs,
                                         WandbCallback)
 
-    device = resolve_device(args.device)
+    maybe_initialize_distributed(device=args.device)
+    mesh = mesh_from_flags(args.dp, args.tp, args.dcn_dp)
+    if not is_main_process():
+        logging.getLogger().setLevel(logging.WARNING)     # rank 0 logs
+    device = resolve_device(args.device) if mesh is None else mesh_device(mesh)
+    main_rank = is_main_process()
     out = Path(args.output_dir)
-    out.mkdir(parents=True, exist_ok=True)
-    (out / "config.yaml").write_text(
-        "\n".join(f"{k}: {json.dumps(v)}" for k, v in sorted(vars(args).items()))
-        + "\n")
+    if main_rank:
+        out.mkdir(parents=True, exist_ok=True)
+        (out / "config.yaml").write_text(
+            "\n".join(f"{k}: {json.dumps(v)}" for k, v in sorted(vars(args).items()))
+            + "\n")
 
     dtype = torch.float32 if args.mixed_precision == "no" else torch.bfloat16
     cfg, params = load_base_model(args.model, dtype=dtype, device=device)
@@ -166,16 +175,18 @@ def main(argv=None) -> dict:
     coll = create_collator(cfg.sot_token_id, pad_to_length=args.max_label_length,
                            num_mels=cfg.num_mel_bins,
                            num_frames=cfg.num_audio_frames, device=device)
-    train_loader = DataLoader(train_ds, args.batch_size, coll, seed=args.seed)
+    train_loader = DataLoader(train_ds, args.batch_size, coll, seed=args.seed,
+                              num_workers=args.num_workers)
     eval_loader = DataLoader(val_ds, args.batch_size, coll, shuffle=False,
-                             drop_last=False)
+                             drop_last=False, num_workers=args.num_workers)
 
-    callbacks = [
-        CheckpointCallback(out, save_steps=args.save_steps,
-                           save_total_limit=args.save_total_limit),
-        EarlyStoppingCallback(patience=args.early_stopping_patience),
-    ]
-    if not args.no_wandb:
+    # Every rank takes the same early-stopping decision (the metrics are
+    # the whole batch's on each); rank 0 alone writes and logs.
+    callbacks = [EarlyStoppingCallback(patience=args.early_stopping_patience)]
+    if main_rank:
+        callbacks.insert(0, CheckpointCallback(out, save_steps=args.save_steps,
+                                               save_total_limit=args.save_total_limit))
+    if not args.no_wandb and main_rank:
         callbacks.insert(0, WandbCallback(project=args.wandb_project,
                                           name=args.wandb_run_name,
                                           config=vars(args)))
@@ -190,13 +201,17 @@ def main(argv=None) -> dict:
         flash_attention=args.flash_attention, seed=args.seed,
         device=str(device))
     trainer = ASRTrainer(cfg, params, bank, lcfg, targs, tokenizer=tokenizer,
-                         language=args.language, callbacks=callbacks)
+                         language=args.language, callbacks=callbacks, mesh=mesh)
+    if mesh is not None:
+        logger.info("training on mesh %s", mesh)
     if args.resume_from:
         trainer.load_checkpoint(args.resume_from)
         logger.info("resumed from %s at step %d", args.resume_from,
                     trainer.global_step)
 
     history = trainer.train(train_loader, eval_loader)
+    if not main_rank:
+        return history
 
     lora_lib.save_adapter(out / "final", trainer.lora, trainer.lora_cfg,
                           metadata={"language": args.language,

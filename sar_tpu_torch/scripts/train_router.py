@@ -18,10 +18,14 @@ precomputes the training features from a loader that drops no sample (the
 JAX script reads its drop_last train loader, so up to batch_size - 1
 samples never train), and `--cache_features` with
 `--gradient_accumulation_steps` > 1 is refused (the JAX script runs it at
-1). Real Whisper weights and corpora wait for files in the repository, so
-`--base_model whisper-test` with `--data_sources synthetic` is what runs
-today; device meshes (`--dp/--tp/--dcn_dp`), `--platform`, `--cache_dir`
-and the other sources are refused with a message.
+1). `--dp/--tp/--dcn_dp` train on a device mesh, one process per device
+(`torchrun --nproc_per_node N -m sar_tpu_torch.scripts.train_router ...`):
+the frozen encoder runs data and tensor parallel, the head is replicated,
+rank 0 alone writes the outputs; `--cache_features` is a single-process
+path and refuses a mesh, as the JAX trainer does. Real Whisper weights and
+corpora wait for files in the repository, so `--base_model whisper-test`
+with `--data_sources synthetic` is what runs today; `--platform`,
+`--cache_dir` and the other sources are refused with a message.
 """
 
 from __future__ import annotations
@@ -95,20 +99,20 @@ def parse_args(argv=None):
     p.add_argument("--resume_from", type=str, default=None,
                    help="Checkpoint dir (an output_dir or its classifier/ "
                         "subdir) to resume from")
-    p.add_argument("--dp", type=int, default=1, help="not ported: must be 1")
-    p.add_argument("--tp", type=int, default=1, help="not ported: must be 1")
-    p.add_argument("--dcn_dp", type=int, default=1, help="not ported: must be 1")
+    p.add_argument("--dp", type=int, default=1,
+                   help="Data-parallel mesh axis (batch shards over it); "
+                        "one process per device, launched with torchrun")
+    p.add_argument("--tp", type=int, default=1,
+                   help="Tensor-parallel mesh axis for the frozen encoder "
+                        "(must divide its heads)")
+    p.add_argument("--dcn_dp", type=int, default=1,
+                   help="Data-parallel replicas across nodes (adds a leading "
+                        "'replica' mesh axis)")
     p.add_argument("--platform", type=str, default="auto",
                    choices=["auto", "cpu", "tpu"], help="not ported: use --device")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: the CUDA card)")
     args = p.parse_args(argv)
-    meshes = [f"--{k} {getattr(args, k)}" for k in ("dp", "tp", "dcn_dp")
-              if getattr(args, k) != 1]
-    if meshes:
-        p.error(f"{', '.join(meshes)}: device meshes are not ported to "
-                f"sar_tpu_torch yet (train on one card; scripts/train_router.py "
-                f"is the JAX version)")
     if args.platform != "auto":
         p.error(f"--platform {args.platform}: not ported to sar_tpu_torch "
                 f"(use --device)")
@@ -134,15 +138,24 @@ def main(argv=None) -> dict:
     from sar_tpu_torch.models import classifier as clf
     from sar_tpu_torch.models.base import load_base_model
     from sar_tpu_torch.training import WandbCallback
+    from sar_tpu_torch.parallel.distributed import (is_main_process,
+                                                    maybe_initialize_distributed)
+    from sar_tpu_torch.parallel.sharding import mesh_device, mesh_from_flags
     from sar_tpu_torch.training.lid_trainer import (LIDDataset, LIDTrainer,
                                                     LIDTrainingArgs)
 
-    device = resolve_device(args.device)
+    maybe_initialize_distributed(device=args.device)
+    mesh = mesh_from_flags(args.dp, args.tp, args.dcn_dp)
+    if not is_main_process():
+        logging.getLogger().setLevel(logging.WARNING)     # rank 0 logs
+    device = resolve_device(args.device) if mesh is None else mesh_device(mesh)
+    main_rank = is_main_process()
     out = Path(args.output_dir)
-    out.mkdir(parents=True, exist_ok=True)
-    (out / "config.yaml").write_text(
-        "\n".join(f"{k}: {json.dumps(v)}" for k, v in sorted(vars(args).items()))
-        + "\n")
+    if main_rank:
+        out.mkdir(parents=True, exist_ok=True)
+        (out / "config.yaml").write_text(
+            "\n".join(f"{k}: {json.dumps(v)}" for k, v in sorted(vars(args).items()))
+            + "\n")
 
     dtype = torch.float32 if args.mixed_precision == "no" else torch.bfloat16
     cfg, params = load_base_model(args.base_model, dtype=dtype, device=device)
@@ -187,7 +200,7 @@ def main(argv=None) -> dict:
                              drop_last=False)
 
     callbacks = []
-    if not args.no_wandb:
+    if not args.no_wandb and main_rank:
         callbacks.append(WandbCallback(project=args.wandb_project,
                                        name=args.wandb_run_name, config=vars(args)))
     targs = LIDTrainingArgs(
@@ -197,7 +210,10 @@ def main(argv=None) -> dict:
         mixed_precision=args.mixed_precision,
         gradient_accumulation_steps=args.gradient_accumulation_steps,
         encoder_layer=args.encoder_layer, seed=args.seed, device=str(device))
-    trainer = LIDTrainer(cfg, params, clf_params, ccfg, targs, callbacks=callbacks)
+    trainer = LIDTrainer(cfg, params, clf_params, ccfg, targs, callbacks=callbacks,
+                         mesh=mesh)
+    if mesh is not None:
+        logger.info("LID training on mesh %s", mesh)
     if args.resume_from:
         trainer.load_checkpoint(args.resume_from)
         logger.info("resumed from %s at step %d", args.resume_from,
@@ -216,6 +232,8 @@ def main(argv=None) -> dict:
     else:
         history = trainer.train(train_loader, eval_loader)
 
+    if not main_rank:
+        return history
     trainer.save_checkpoint(out / "classifier")
     (out / "history.json").write_text(json.dumps(
         {"loss": history["loss"][-50:], "eval": history["eval"]}, indent=2))

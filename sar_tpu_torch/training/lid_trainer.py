@@ -27,7 +27,17 @@ The classifier's dropout draws from a torch generator seeded with
 `args.seed` (JAX draws from jax.random), so losses equal the JAX
 trainer's only with dropout 0. The head trains in fp32; the base model is
 frozen in the compute dtype. The trainer runs on the CUDA card unless
-`LIDTrainingArgs.device` says otherwise. Device meshes are not ported.
+`LIDTrainingArgs.device` says otherwise.
+
+`mesh` (parallel/sharding.py, one process per rank): the frozen encoder
+runs tensor and data parallel on this rank's shard of the weights and
+rows of each batch, with exact attention (as the JAX trainer under a
+mesh); the head is replicated, its loss is this rank's share of the
+global batch's (weighted) mean, and its gradients are summed over the
+batch shards, so AdamW runs identically on every rank. Evaluation pads a
+partial batch to the batch shards and gathers the logits, so the metrics
+are the whole batch's. The feature cache is a single-process path and
+refuses a mesh, as in the JAX package. Only rank 0 writes checkpoints.
 """
 
 from __future__ import annotations
@@ -45,6 +55,8 @@ from sar_tpu_torch.models import classifier as clf
 from sar_tpu_torch.models import whisper
 from sar_tpu_torch.models.config import WhisperConfig
 from sar_tpu_torch.models.whisper import tree_leaves, tree_map
+from sar_tpu_torch.parallel import distributed as pdist
+from sar_tpu_torch.parallel import sharding
 from sar_tpu_torch.training.optim import apply_updates, make_optimizer
 
 logger = logging.getLogger(__name__)
@@ -113,10 +125,6 @@ class LIDTrainer:
                  clf_params: dict, clf_cfg: clf.ClassifierConfig,
                  args: LIDTrainingArgs | None = None,
                  callbacks: list | None = None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "LIDTrainer(mesh=...): device meshes are not ported to "
-                "sar_tpu_torch yet; train on one card")
         self.cfg = model_cfg
         self.clf_cfg = clf_cfg
         self.args = args or LIDTrainingArgs()
@@ -128,13 +136,18 @@ class LIDTrainer:
                 "extracts the features the head was trained on — set both "
                 "to the same value")
         self.callbacks = callbacks or []
-        self.device = resolve_device(self.args.device)
+        self.mesh = mesh
+        self.tp = sharding.model_group(mesh)
+        self.device = (resolve_device(self.args.device) if mesh is None
+                       else sharding.mesh_device(mesh))
         self.compute_dtype = (torch.bfloat16
                               if self.args.mixed_precision in ("bf16", "fp16")
                               else torch.float32)
         base = tree_to(base_params, self.device)
-        self.base_params = (whisper.cast_params(base, self.compute_dtype)
-                            if self.compute_dtype != torch.float32 else base)
+        base = (whisper.cast_params(base, self.compute_dtype)
+                if self.compute_dtype != torch.float32 else base)
+        self.base_params = (base if mesh is None
+                            else sharding.shard_params(base, mesh, model_cfg))
         self.params = self._masters(clf_params)
         self.tx, self.schedule = make_optimizer(
             learning_rate=self.args.learning_rate,
@@ -146,8 +159,9 @@ class LIDTrainer:
         self.opt_state = self.tx.init(self.params)
         self.global_step = 0
         self.best_metric: float | None = None
-        # The encoder attention kernel K1 on the card, exact attention on the CPU.
-        self.flash = "hm" if self.device.type == "cuda" else False
+        # The encoder attention kernel K1 on the card, exact attention on
+        # the CPU and under a mesh (as the JAX trainer).
+        self.flash = "hm" if self.device.type == "cuda" and mesh is None else False
         self._gen = torch.Generator(device=self.device).manual_seed(self.args.seed)
 
     def _masters(self, params: dict) -> dict:
@@ -158,14 +172,23 @@ class LIDTrainer:
     # ------------------------------------------------------------------
     def features(self, mel) -> torch.Tensor:
         """The frozen encoder's features of a batch of log-mel features at
-        the tap layer, in the compute dtype."""
+        the tap layer, in the compute dtype (under a mesh, of the rows this
+        rank was given)."""
         mel = torch.as_tensor(mel).to(self.device, self.compute_dtype)
         return clf.encode_features(self.base_params, mel, self.cfg,
                                    layer_index=self.args.encoder_layer,
-                                   flash=self.flash)
+                                   flash=self.flash, tp=self.tp)
 
     def _labels(self, labels) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(labels)).to(self.device).long()
+        return pdist.as_tensor(labels).to(self.device).long()
+
+    def _rows(self, x):
+        """This rank's rows of a global batch array under a mesh (all of it
+        otherwise), on the device."""
+        x = pdist.as_tensor(x)
+        if self.mesh is None:
+            return x.to(self.device)
+        return pdist.put_global_batch(x, self.mesh, device=self.device)
 
     def _update(self, losses_and_grads: list) -> torch.Tensor:
         """Average the microbatches' (loss, grads), clip, AdamW; -> mean loss."""
@@ -175,19 +198,39 @@ class LIDTrainer:
         apply_updates(self.params, updates)
         return sum(l for l, _ in losses_and_grads) / A
 
-    def _loss_and_grads(self, feats: torch.Tensor, labels: torch.Tensor):
+    def _loss_and_grads(self, feats: torch.Tensor, labels: torch.Tensor,
+                        rows: tuple[int, int, int] | None = None):
+        """(loss, head gradients) of a microbatch; under a mesh `feats` and
+        `labels` are this rank's `rows` (lo, hi, n) of it, and the loss
+        and gradients are the whole microbatch's."""
         leaves = tree_leaves(self.params)
         loss = clf.apply_classifier(self.params, self.clf_cfg, feats, labels=labels,
-                                    train=True, generator=self._gen)["loss"]
-        grads = iter(torch.autograd.grad(loss, leaves))
+                                    train=True, generator=self._gen,
+                                    rows=rows)["loss"]
+        if self.mesh is not None:
+            # This rank's share of the global mean: local num / global den.
+            den = clf.loss_weight(labels, self.clf_cfg)
+            loss = loss * (den / sharding.batch_sum(den, self.mesh))
+        grads = torch.autograd.grad(loss, leaves)
+        if self.mesh is not None:
+            grads = sharding.reduce_gradients(list(grads), self.mesh)
+            loss = sharding.batch_sum(loss.detach(), self.mesh)
+        grads = iter(grads)
         return loss.detach(), tree_map(lambda _: next(grads), self.params)
+
+    def _micro(self, b: dict):
+        n = len(b["language_ids"])
+        rows = None
+        if self.mesh is not None:
+            r = pdist.global_batch_sharding(self.mesh, n)
+            rows = (r.start, r.stop, n)
+        return self._loss_and_grads(self.features(self._rows(b["input_features"])),
+                                    self._rows(b["language_ids"]).long(), rows)
 
     def train_step(self, micro: list[dict]) -> torch.Tensor:
         """One optimizer update over the microbatches `micro` (collated
         batches with "input_features" and "language_ids") -> mean loss."""
-        return self._update([self._loss_and_grads(self.features(b["input_features"]),
-                                                  self._labels(b["language_ids"]))
-                             for b in micro])
+        return self._update([self._micro(b) for b in micro])
 
     def _log_step(self, history: dict, loss, t0: float, every: int, tag: str) -> None:
         self.global_step += 1
@@ -234,7 +277,9 @@ class LIDTrainer:
         [N, T, d] in the compute dtype, labels [N] int64), on the device.
         Features depend on the tap layer, not on the head, so one cache
         serves every head at that layer. Give it a loader that drops no
-        sample (drop_last=False) to cache the whole split."""
+        sample (drop_last=False) to cache the whole split. A single-process
+        path: a mesh is refused, as in the JAX package."""
+        self._refuse_mesh()
         feats, labels = [], []
         for batch in loader.one_epoch():
             feats.append(self.features(batch["input_features"]))
@@ -247,6 +292,7 @@ class LIDTrainer:
         """train(), over a feature cache from precompute_features: one
         microbatch per step, drawn from host-side permutations of the cache
         (`np.random.default_rng(args.seed)`, epoch after epoch)."""
+        self._refuse_mesh()
         args = self.args
         if args.gradient_accumulation_steps != 1:
             raise ValueError(
@@ -281,29 +327,48 @@ class LIDTrainer:
             cb.on_train_end(self)
         return history
 
-    @torch.no_grad()
-    def _eval_batch(self, feats, labels, confusion, losses) -> None:
-        out = clf.apply_classifier(self.params, self.clf_cfg, feats, labels=labels)
-        losses.append(float(out["loss"]))
-        np.add.at(confusion, (labels.cpu().numpy(),
-                              out["logits"].argmax(-1).cpu().numpy()), 1)
+    def _eval_batch(self, logits, labels, confusion, losses) -> None:
+        """Add one batch's loss and its confusion counts."""
+        labels = self._labels(labels)
+        losses.append(float(clf.classifier_loss(logits, labels, self.clf_cfg)))
+        np.add.at(confusion, (labels.cpu().numpy(), logits.argmax(-1).cpu().numpy()), 1)
 
+    def _logits(self, mel) -> torch.Tensor:
+        """The head's logits of a batch of log-mel features. Under a mesh the
+        batch is padded to the batch shards, this rank's rows go through the
+        encoder and the head, and the logits are gathered and cut to the
+        batch (without one, the pad is empty and the gather is the rows)."""
+        B = len(mel)
+        feats = self.features(self._rows(pdist.pad_global_batch(mel, self.mesh)))
+        logits = clf.apply_classifier(self.params, self.clf_cfg, feats)["logits"]
+        return sharding.batch_gather(logits, self.mesh)[:B]
+
+    @torch.no_grad()
     def evaluate_cached(self, feats: torch.Tensor, labels: torch.Tensor,
                         batch_size: int = 64) -> dict:
         """evaluate(), over a feature cache."""
+        self._refuse_mesh()
         for cb in self.callbacks:
             cb.on_evaluate_begin(self)
         K = self.clf_cfg.num_classes
         confusion = np.zeros((K, K), np.int64)
         losses: list[float] = []
         for s in range(0, int(feats.shape[0]), batch_size):
-            self._eval_batch(feats[s:s + batch_size], labels[s:s + batch_size],
-                             confusion, losses)
+            logits = clf.apply_classifier(self.params, self.clf_cfg,
+                                          feats[s:s + batch_size])["logits"]
+            self._eval_batch(logits, labels[s:s + batch_size], confusion, losses)
         metrics = self._lid_metrics(confusion, losses)
         for cb in self.callbacks:
             cb.on_evaluate_end(self, metrics)
         return metrics
 
+    def _refuse_mesh(self) -> None:
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "feature caching is a single-host fast path; under a mesh "
+                "use the streaming train() (encoder cost is sharded there)")
+
+    @torch.no_grad()
     def evaluate(self, eval_loader) -> dict:
         """Loss, accuracy, per-class accuracy and the confusion matrix over
         one epoch of `eval_loader`."""
@@ -313,8 +378,8 @@ class LIDTrainer:
         confusion = np.zeros((K, K), np.int64)
         losses: list[float] = []
         for batch in eval_loader.one_epoch():
-            self._eval_batch(self.features(batch["input_features"]),
-                             self._labels(batch["language_ids"]), confusion, losses)
+            self._eval_batch(self._logits(batch["input_features"]),
+                             batch["language_ids"], confusion, losses)
         metrics = self._lid_metrics(confusion, losses)
         for cb in self.callbacks:
             cb.on_evaluate_end(self, metrics)
@@ -336,7 +401,9 @@ class LIDTrainer:
     # ------------------------------------------------------------------
     def save_checkpoint(self, path: str | Path) -> None:
         """The classifier directory (params + config) and train_state.pt
-        (optimizer state, global_step, best_metric)."""
+        (optimizer state, global_step, best_metric); rank 0 alone writes."""
+        if not pdist.is_main_process():
+            return
         path = Path(path)
         clf.save_classifier(path, self.params, self.clf_cfg,
                             metadata={"global_step": self.global_step,

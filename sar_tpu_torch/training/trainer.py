@@ -22,7 +22,19 @@ The evaluation decodes through the unquantized classic cache, as the JAX
 trainer's `greedy_decode` defaults do, and its encoder takes K6's forward
 on the card; its teacher-forced decoder takes exact attention, as there.
 The trainer runs on the CUDA card unless `TrainingArgs.device` says
-otherwise (sar_tpu_torch/device.py). Device meshes are not ported.
+otherwise (sar_tpu_torch/device.py).
+
+`mesh` (parallel/sharding.py, one process per rank) trains data and
+tensor parallel: the base weights are this rank's shard (`shard_params`),
+the bank is replicated, and each microbatch keeps this rank's rows of the
+global batch every rank loaded (`put_global_batch`). The loss of a
+microbatch is its global mean: the local sum over the all-reduced global
+token count, so shards holding different numbers of label tokens weigh
+as they should. The gradients are reduced over the mesh
+(`reduce_gradients`), so clipping and AdamW run identically on every
+rank. LoRA dropout masks are the global batch's at this rank's rows
+(`dropout_rows`), as on one device. Evaluation pads a partial batch to
+the batch shards and gathers the tokens. Only rank 0 writes checkpoints.
 """
 
 from __future__ import annotations
@@ -42,6 +54,8 @@ from sar_tpu_torch.models import lora as lora_lib
 from sar_tpu_torch.models import whisper
 from sar_tpu_torch.models.config import WhisperConfig
 from sar_tpu_torch.models.whisper import tree_leaves, tree_map
+from sar_tpu_torch.parallel import distributed as pdist
+from sar_tpu_torch.parallel import sharding
 from sar_tpu_torch.training import checkpoints
 from sar_tpu_torch.training.metrics import compute_metrics
 from sar_tpu_torch.training.optim import (apply_updates, global_norm,
@@ -93,10 +107,6 @@ class ASRTrainer:
                  args: TrainingArgs | None = None, tokenizer=None,
                  language: str = "hindi", languages: list | None = None,
                  callbacks: list | None = None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "ASRTrainer(mesh=...): device meshes (data/tensor parallel) "
-                "are not ported to sar_tpu_torch yet; train on one card")
         self.cfg = model_cfg
         self.args = args or TrainingArgs()
         self.lora_cfg = lora_cfg
@@ -105,11 +115,16 @@ class ASRTrainer:
         # Bank order: index i of `languages` = adapter i = language_ids i.
         self.languages = list(languages) if languages else [language]
         self.callbacks = callbacks or []
-        self.device = resolve_device(self.args.device)
+        self.mesh = mesh
+        self.tp = sharding.model_group(mesh)
+        self.device = (resolve_device(self.args.device) if mesh is None
+                       else sharding.mesh_device(mesh))
         self.compute_dtype = self.args.compute_dtype()
         base = tree_to(base_params, self.device)
-        self.base_params = (whisper.cast_params(base, self.compute_dtype)
-                            if self.compute_dtype != torch.float32 else base)
+        base = (whisper.cast_params(base, self.compute_dtype)
+                if self.compute_dtype != torch.float32 else base)
+        self.base_params = (base if mesh is None
+                            else sharding.shard_params(base, mesh, model_cfg))
         self.lora = self._masters(lora)
         self.tx, self.schedule = make_optimizer(
             learning_rate=self.args.learning_rate,
@@ -131,34 +146,60 @@ class ASRTrainer:
                         .clone().requires_grad_(True), lora)
 
     # ------------------------------------------------------------------
+    def _put(self, x, dtype=None) -> torch.Tensor:
+        """A batch array on the device: this rank's rows under a mesh."""
+        x = pdist.as_tensor(x)
+        if self.mesh is not None:
+            x = pdist.put_global_batch(x, self.mesh, device=self.device)
+        return x.to(self.device, dtype)
+
     def _batch(self, batch: dict):
-        """(mel in the compute dtype, labels int64, adapter index or None)
-        of a collated batch, on the device."""
-        mel = torch.as_tensor(batch["input_features"]).to(self.device,
-                                                          self.compute_dtype)
-        labels = torch.as_tensor(np.asarray(batch["labels"])).to(self.device).long()
-        ids = torch.as_tensor(np.asarray(batch.get(
-            "language_ids", np.zeros(len(batch["texts"]), np.int32)))).to(self.device).long()
-        return mel, labels, (ids if self.multi_adapter else None)
+        """(mel in the compute dtype, labels int64, adapter index or None,
+        the dropout rows) of a collated batch, on the device: under a mesh
+        this rank's rows, with (lo, hi, global rows)."""
+        n = len(batch["labels"])
+        mel = self._put(batch["input_features"], self.compute_dtype)
+        labels = self._put(batch["labels"]).long()
+        ids = self._put(batch.get("language_ids", np.zeros(n, np.int32))).long()
+        rows = None
+        if self.mesh is not None:
+            r = pdist.global_batch_sharding(self.mesh, n)
+            rows = (r.start, r.stop, n)
+        return mel, labels, (ids if self.multi_adapter else None), rows
+
+    def _loss(self, logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        """The cross entropy over the batch's label tokens: under a mesh this
+        rank's share of the global mean (its sum over the global count)."""
+        if self.mesh is None:
+            return whisper.cross_entropy_loss(logits, labels)
+        count = sharding.batch_sum((labels != -100).sum().float(), self.mesh)
+        return whisper.cross_entropy_loss(logits, labels, count=count)
 
     def microbatch_loss(self, batch: dict, seed: int | None) -> torch.Tensor:
         """The teacher-forced loss of one microbatch, with LoRA dropout
-        drawn from `seed`, as a graph to differentiate."""
-        mel, labels, idx = self._batch(batch)
+        drawn from `seed`, as a graph to differentiate (under a mesh, this
+        rank's share: `_loss`)."""
+        mel, labels, idx, rows = self._batch(batch)
         dec_in = whisper.shift_tokens_right(labels, self.cfg.sot_token_id,
                                             self.cfg.pad_token_id)
         logits = whisper.forward(
             self.base_params, mel, dec_in, self.cfg, lora=self.lora,
             adapter_idx=idx, lora_scale=self.lora_cfg.scale,
             lora_dropout=self.lora_cfg.dropout, dropout_seed=seed,
-            remat=self.args.gradient_checkpointing, flash=self.flash)
-        return whisper.cross_entropy_loss(logits, labels)
+            remat=self.args.gradient_checkpointing, flash=self.flash,
+            tp=self.tp, dropout_rows=rows)
+        return self._loss(logits, labels)
 
     def lora_grads(self, batch: dict, seed: int | None):
-        """(loss, gradients of the LoRA masters as a tree) of a microbatch."""
+        """(loss, gradients of the LoRA masters as a tree) of a microbatch;
+        under a mesh the global loss and the reduced gradients."""
         params = tree_leaves(self.lora)
         loss = self.microbatch_loss(batch, seed)
-        grads = iter(torch.autograd.grad(loss, params))
+        grads = torch.autograd.grad(loss, params)
+        if self.mesh is not None:
+            grads = sharding.reduce_gradients(list(grads), self.mesh)
+            loss = sharding.batch_sum(loss.detach(), self.mesh)
+        grads = iter(grads)
         return loss.detach(), tree_map(lambda _: next(grads), self.lora)
 
     def train_step(self, micro: list[dict]):
@@ -238,18 +279,22 @@ class ASRTrainer:
     def eval_batch(self, batch: dict, prompt_table: torch.Tensor):
         """(teacher-forced loss, greedy tokens [B, P + max_new_tokens]) of
         one batch: the encoder (K6 on the card), the decoder with exact
-        attention, greedy over the unquantized cache."""
-        mel, labels, idx = self._batch(batch)
+        attention, greedy over the unquantized cache. Under a mesh a
+        partial batch is padded to the batch shards (rows of -100 labels,
+        which weigh nothing), each rank runs its rows, and the loss and
+        the tokens are those of the whole batch."""
+        B = len(batch["labels"])
+        mel, labels, idx, _ = self._batch(_pad_rows(batch, self.mesh))
         cfg, scale = self.cfg, self.lora_cfg.scale
         enc_out = whisper.encode(self.base_params, mel, cfg, lora=self.lora,
                                  adapter_idx=idx, lora_scale=scale,
-                                 flash=self.flash)
+                                 flash=self.flash, tp=self.tp)
         dec_in = whisper.shift_tokens_right(labels, cfg.sot_token_id,
                                             cfg.pad_token_id)
         logits = whisper.decode_train(self.base_params, enc_out, dec_in, cfg,
                                       lora=self.lora, adapter_idx=idx,
-                                      lora_scale=scale)
-        loss = whisper.cross_entropy_loss(logits, labels)
+                                      lora_scale=scale, tp=self.tp)
+        loss = self._loss(logits, labels)
         prompt = prompt_table[idx] if idx is not None else prompt_table[0]
         # Eager, not through a captured DecodeRunner: training moves the
         # bank between evaluations, and an evaluation decodes a few batches
@@ -260,8 +305,9 @@ class ASRTrainer:
                                max_new_tokens=self.args.max_new_tokens,
                                lora=self.lora, adapter_idx=idx,
                                lora_scale=scale, cross_kv_int8=False,
-                               self_kv_int8=False)
-        return loss, tokens
+                               self_kv_int8=False, tp=self.tp)
+        return (sharding.batch_sum(loss, self.mesh),
+                sharding.batch_gather(tokens, self.mesh)[:B])
 
     def evaluate(self, eval_loader) -> dict:
         for cb in self.callbacks:
@@ -290,6 +336,10 @@ class ASRTrainer:
 
     # ------------------------------------------------------------------
     def save_checkpoint(self, path: str | Path) -> None:
+        """The adapter, optimizer state and counters (rank 0 alone writes:
+        every rank holds the same replicated state)."""
+        if not pdist.is_main_process():
+            return
         checkpoints.save_checkpoint(
             path, self.lora, self.lora_cfg, self.opt_state,
             self.global_step, self.epoch, self.best_metric,
@@ -305,3 +355,15 @@ class ASRTrainer:
                           "mu": tree_to(opt_state["mu"], self.device),
                           "nu": tree_to(opt_state["nu"], self.device)}
         self.multi_adapter = lora_lib.num_adapters(self.lora) > 1
+
+
+def _pad_rows(batch: dict, mesh) -> dict:
+    """A collated batch padded to the batch shards of `mesh` (as it is
+    without one): zero features, -100 labels (no weight in the loss),
+    adapter 0. Features and labels may be arrays or tensors on any device."""
+    n = len(batch["labels"])
+    return {**batch,
+            "input_features": pdist.pad_global_batch(batch["input_features"], mesh),
+            "labels": pdist.pad_global_batch(batch["labels"], mesh, -100),
+            "language_ids": pdist.pad_global_batch(
+                batch.get("language_ids", np.zeros(n, np.int32)), mesh)}

@@ -8,6 +8,8 @@ numpy-made data and JAX-made weights to both packages. JAX runs on the CPU
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -65,6 +67,22 @@ def random_bank(cfg, num_adapters: int, r: int, seed: int = 0,
     port_bank = {s: {h: {k: torch.from_numpy(v.copy()) for k, v in e.items()}
                      for h, e in hooks.items()} for s, hooks in np_bank.items()}
     return jax_bank, port_bank
+
+
+@contextlib.contextmanager
+def one_process_mesh(tmp_path):
+    """A ("data", "model") mesh of 1 x 1 over a gloo group of one process
+    (a file rendezvous under `tmp_path`), taken down on exit."""
+    import torch.distributed as dist
+
+    from sar_tpu_torch.parallel.sharding import make_mesh
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rendezvous",
+                            world_size=1, rank=0)
+    try:
+        yield make_mesh(1, 1)
+    finally:
+        dist.destroy_process_group()
 
 
 def bf16_rounding_case(T_pad: int = 8):

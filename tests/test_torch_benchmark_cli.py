@@ -137,6 +137,12 @@ def test_rows_carry_jax_keys(extra):
 
 @pytest.mark.parametrize("extra", [["--dp", "2"], ["--platform", "tpu"]])
 def test_refused_flags(extra, capsys):
+    """--platform is refused at parsing; a mesh flag is ported and, in one
+    process, exits naming the devices it needs."""
+    if extra[0] == "--dp":
+        with pytest.raises(SystemExit, match="--dp 2 x --tp 1 needs 2 devices"):
+            benchmark.main([*CPU, *extra])
+        return
     with pytest.raises(SystemExit):
         benchmark.parse_args([*CPU, *extra])
     assert "not ported to sar_tpu_torch" in capsys.readouterr().err

@@ -111,8 +111,8 @@ def test_phase_list_ends_with_the_phase2_clis_and_imports_no_jax():
     """chip_smoke.py drives the LID sweep and routed inference CLIs after
     the lid phase (whose head the route phase reads), then single-file
     transcription, streaming and the HTTP server (whose routed server reads
-    the route phase's adapters), and neither importing it nor building its
-    phase list pulls in jax or sar_tpu."""
+    the route phase's adapters), then the device-mesh phase, and neither
+    importing it nor building its phase list pulls in jax or sar_tpu."""
     code = ("import sys, chip_smoke\n"
             "names = [n for n, _ in chip_smoke.path_phases(None, None, 0, None, 'w')]\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'sar_tpu')]\n"
@@ -122,7 +122,8 @@ def test_phase_list_ends_with_the_phase2_clis_and_imports_no_jax():
     assert out.returncode == 0, out.stderr
     names, bad = out.stdout.strip().splitlines()
     assert names == str(["greedy", "routed", "beam", "train", "s8", "fq", "bench", "graphs",
-                         "lid", "sweep", "route", "transcribe", "stream", "serve"])
+                         "lid", "sweep", "route", "transcribe", "stream", "serve",
+                         "mesh"])
     assert bad == "[]"
 
 

@@ -2,7 +2,10 @@
 against sar_tpu's on the same HF-style items: tests/test_datasets.py's
 four oracles (the duration filter, the label-length filter, the items,
 concatenation), each holding the port's kept indices and items equal to
-JAX's, plus a sample whose check raises, kept as JAX keeps it."""
+JAX's, plus a sample whose check raises, kept as JAX keeps it; and the
+loader's collation thread pool (sar_tpu_torch/data/loader.py
+`num_workers`) against one thread and the JAX loader's pool
+(tests/test_loader_throughput.py's oracle)."""
 
 import numpy as np
 import pytest
@@ -81,3 +84,39 @@ def test_concat_dataset(index):
     assert len(got) == len(want) == 8
     assert got[index] is want[index]
     assert got[2]["text"] == "hello world" and got[3]["text"] == "zz"
+
+
+@pytest.mark.parametrize("shuffle,drop_last", [(False, True), (True, False)])
+def test_loader_workers_match_one_thread_and_jax(shuffle, drop_last):
+    """Batches equal with and without workers, in the same order, and
+    equal to the JAX loader's with its pool; over two epochs of iterate()
+    too, where the pipeline crosses the epoch boundary."""
+    from sar_tpu.data.collate import create_collator as jax_collator
+    from sar_tpu.data.loader import DataLoader as JaxLoader
+    from sar_tpu.data.synthetic import SyntheticASRDataset as JaxSynthetic
+    from sar_tpu_torch.data import DataLoader, SyntheticASRDataset, create_collator
+
+    def batches(loader, n=None):
+        if n is None:
+            return list(loader.one_epoch())
+        it = loader.iterate()
+        return [next(it) for _ in range(n)]
+
+    kw = dict(batch_size=3, shuffle=shuffle, drop_last=drop_last, seed=4)
+    ds = SyntheticASRDataset(CFG, size=10, num_words=2, seed=1)
+    coll = create_collator(CFG.sot_token_id, pad_to_length=16)
+    serial = DataLoader(ds, collator=coll, prefetch=0, **kw)
+    pooled = DataLoader(ds, collator=coll, num_workers=3, prefetch=1, **kw)
+    jax_pooled = JaxLoader(JaxSynthetic(CFG, size=10, num_words=2, seed=1),
+                           collator=jax_collator(CFG.sot_token_id, pad_to_length=16),
+                           num_workers=3, prefetch=1, **kw)
+    for n in (None, 7):
+        want = batches(serial, n)
+        assert len(want) == (7 if n else 3 if drop_last else 4)
+        for got in (batches(pooled, n), batches(jax_pooled, n)):
+            assert len(got) == len(want)
+            for a, b in zip(got, want):
+                np.testing.assert_array_equal(a["input_features"], b["input_features"])
+                np.testing.assert_array_equal(a["labels"], b["labels"])
+                assert list(a["texts"]) == list(b["texts"])
+    assert pooled.current_epoch == 2 if drop_last else pooled.current_epoch == 1

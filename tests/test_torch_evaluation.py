@@ -380,10 +380,43 @@ def test_evaluate_cli_in_process(model, tmp_path, capsys):
 @pytest.mark.parametrize("extra", [["--cache_dir", "x"], ["--attn_scores", "int8", "--kv_cache", "int4"],
                                    ["--tp", "2"], ["--dcn_dp", "2"]])
 def test_evaluate_cli_refuses_flags_not_ported(extra, capsys):
+    """The flags the port has not got fail at parsing; a mesh flag is
+    ported and, in one process, exits naming the devices it needs."""
     from sar_tpu_torch.scripts import evaluate_model
+    argv = ["--checkpoint", "none", "--language", "english", *extra]
+    if extra[0] in ("--tp", "--dcn_dp"):
+        with pytest.raises(SystemExit, match="needs 2 devices but 1 is running"):
+            evaluate_model.main([*argv, "--device", "cpu"])
+        return
     with pytest.raises(SystemExit):
-        evaluate_model.parse_args(["--checkpoint", "none", "--language", "english", *extra])
+        evaluate_model.parse_args(argv)
     assert "sar_tpu_torch" in capsys.readouterr().err
+
+
+def test_evaluate_cli_under_torchrun_equals_one_process(tmp_path):
+    """`torchrun --nproc_per_node 2 ... --dp 2`: two gloo ranks, each
+    transcribing its rows; metrics.json equals a one-process run's, and
+    rank 0 alone prints and writes."""
+    import os
+    import subprocess
+
+    from sar_tpu_torch.scripts import evaluate_model
+    argv = ["--checkpoint", "none", "--model", "whisper-test", "--language", "english",
+            "--data_sources", "synthetic", "--max_samples", "6", "--batch_size", "4",
+            "--max_new_tokens", "6", "--mixed_precision", "no", "--device", "cpu"]
+    evaluate_model.main([*argv, "--output_dir", str(tmp_path / "one")])
+    env = {**os.environ, "OMP_NUM_THREADS": "1",
+           "PYTHONPATH": os.pathsep.join([os.getcwd(), os.environ.get("PYTHONPATH", "")])}
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "2", "-m", "sar_tpu_torch.scripts.evaluate_model", *argv,
+         "--dp", "2", "--output_dir", str(tmp_path / "two")],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.count("WER: ") == 1 and proc.stdout.count("Samples: 6") == 1
+    assert (json.loads((tmp_path / "two" / "metrics.json").read_text())
+            == json.loads((tmp_path / "one" / "metrics.json").read_text()))
+    assert sorted(p.name for p in (tmp_path / "two").iterdir()) == ["metrics.json"]
 
 
 def test_loaders_that_wait_for_files_refuse_clearly(monkeypatch):
@@ -420,6 +453,9 @@ def test_new_port_modules_import_neither_jax_nor_sar_tpu():
             "import sar_tpu_torch.evaluation.hallucination, sar_tpu_torch.scripts.transcribe\n"
             "import sar_tpu_torch.decode.graphs, sar_tpu_torch.evaluation.streaming\n"
             "import sar_tpu_torch.scripts.serve, sar_tpu_torch.data.datasets\n"
+            "import sar_tpu_torch.parallel.sharding, sar_tpu_torch.parallel.distributed\n"
+            "import sar_tpu_torch.scripts.train_lora, sar_tpu_torch.scripts.train_router\n"
+            "import sar_tpu_torch.scripts.benchmark\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
             "       or m == 'sar_tpu' or m.startswith('sar_tpu.')]\n"
             "print(bad)\n")

@@ -163,9 +163,20 @@ def test_encoder_layer_mismatch_is_refused(world, tmp_path):
                     LIDTrainingArgs(encoder_layer=-1, device="cpu"))
     with pytest.raises(ValueError, match="encoder_layer=0"):
         tr.load_checkpoint(tmp_path / "c")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        LIDTrainer(CFG, tp, cp_final, ccfg_final, LIDTrainingArgs(device="cpu"),
-                   mesh=object())
+    # A mesh is taken (it was refused before the port had meshes): on one
+    # process it trains as without one; the feature cache refuses it, as
+    # the JAX trainer's does.
+    from _torch_port import one_process_mesh
+    batch = next(iter(DataLoader(LIDDataset(world[3], LANGS), 4, LIDCollator(),
+                                 seed=0).one_epoch()))
+    want = LIDTrainer(CFG, tp, cp_final, ccfg_final,
+                      LIDTrainingArgs(device="cpu", mixed_precision="no")).train_step([batch])
+    with one_process_mesh(tmp_path) as mesh:
+        tr = LIDTrainer(CFG, tp, cp_final, ccfg_final,
+                        LIDTrainingArgs(device="cpu", mixed_precision="no"), mesh=mesh)
+        assert float(tr.train_step([batch])) == pytest.approx(float(want), rel=1e-6)
+        with pytest.raises(NotImplementedError, match="feature caching"):
+            tr.precompute_features(None)
 
 
 def test_reference_faults_are_not_copied(world, tmp_path, caplog):

@@ -413,9 +413,30 @@ def test_checkpoint_round_trip(tmp_path):
     assert jcfg.r == 4 and meta["language"] == "english"
 
 
-def test_mesh_is_refused():
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ASRTrainer(CFG, {}, {}, tlora.LoraConfig(), TrainingArgs(device="cpu"), mesh=object())
+def test_mesh_is_refused(tmp_path):
+    """A mesh is taken (it was refused before the port had meshes): on a
+    one-process mesh the trainer trains as without one."""
+    from _torch_port import one_process_mesh
+    train, _, _ = _loaders(False)
+    micro = [next(iter(train.one_epoch()))]
+    _, tp = jax_whisper(CFG, seed=0)
+    lcfg = tlora.LoraConfig(r=4, alpha=8, dropout=0.1)
+
+    def trainer(mesh):
+        return ASRTrainer(CFG, tp, tlora.init_lora(torch.Generator().manual_seed(3), CFG,
+                                                   lcfg), lcfg,
+                          TrainingArgs(learning_rate=3e-3, warmup_steps=1, max_steps=2,
+                                       gradient_accumulation_steps=1, mixed_precision="no",
+                                       gradient_checkpointing=False, seed=0, device="cpu"),
+                          mesh=mesh)
+    plain = trainer(None)
+    want = float(plain.train_step(micro)[0])
+    with one_process_mesh(tmp_path) as mesh:
+        tr = trainer(mesh)
+        assert tr.mesh is mesh and tr.tp is None
+        got = float(tr.train_step(micro)[0])
+    assert got == pytest.approx(want, rel=1e-6)
+    _tree_close(_np(tr.lora), _np(plain.lora), atol=1e-6)
 
 
 def test_bf16_dtypes():
