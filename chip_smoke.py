@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--profile | --kernels-only]
 
 Phases, each printing its own line(s); any failure raises and exits non-zero.
-Every decode loop of phases 4-11 and 14-17 runs as the entry points run it: each
+Every decode loop of phases 4-11, 14-17 and 19 runs as the entry points run it: each
 segment of the greedy or beam loop a CUDA graph captured at the first
 batch of its shape and replayed after (decode/graphs.py); each such phase
 warms up (and so captures) before its counted run, counts the decode
@@ -201,7 +201,16 @@ eager evaluator's (capture=False) on one batch.
    for MESH_LID_STEPS streaming steps (exact attention: no kernel), each
    against the same run without a mesh: losses and bank, ids, losses
    equal; ms per step and per batch, mesh and meshless.
-19. result: one JSON line with every kernel's numbers, then the last line
+19. mixed: the six mixed-precision caches ((cross, self) precisions that
+   differ: plain, int8, int4) at whisper-small, batch 8, 30 s clips, 64
+   new tokens: per pair one encode (K1 12), the classic cache and the eager
+   greedy loop (no other kernel: plain torch reads both sides), then the
+   same through a DecodeRunner's CUDA graphs (captured first, then prep +
+   replay: no kernel), tokens equal, the classic steps and host syncs the
+   tokens predict, ms per token-step and the cache's bytes; then 4 beams
+   for (int8, plain) (ancestry) and (int8, int4) (physical reorder), eager
+   against captured, tokens equal.
+20. result: one JSON line with every kernel's numbers, then the last line
    {"ok": true, "device": {...}}.
 
 With --kernels-only, it runs phases 1-3 and prints the kernel table
@@ -431,6 +440,15 @@ def bound(flops: float, nbytes: float, peak_ops: float = PEAK_BF16_FLOPS) -> tup
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def card_line() -> str:
+    """The card's name and power limit, as `nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader` prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
+        check=True).stdout.strip()
+
+
 def phase_device():
     import torch
     if not torch.cuda.is_available():
@@ -439,10 +457,7 @@ def phase_device():
               file=sys.stderr)
         sys.exit(2)
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
-        check=True).stdout.strip()
+    smi = card_line()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"device: {name} | count {torch.cuda.device_count()} | torch "
@@ -3734,6 +3749,145 @@ def phase_mesh(cfg, params, device):
         dist.destroy_process_group()
 
 
+# The mixed-precision caches, (cross, self) precisions -> init_cache's flags;
+# the int4 flag wins over its side's int8 flag (the (int8, int4) and (int4,
+# int8) flags pass both).
+MIXED_PAIRS = {
+    ("plain", "int8"): dict(self_kv_int8=True),
+    ("plain", "int4"): dict(self_kv_int4=True),
+    ("int8", "plain"): dict(cross_kv_int8=True),
+    ("int8", "int4"): dict(cross_kv_int8=True, self_kv_int8=True, self_kv_int4=True),
+    ("int4", "plain"): dict(cross_kv_int4=True),
+    ("int4", "int8"): dict(cross_kv_int8=True, cross_kv_int4=True, self_kv_int8=True),
+}
+MIXED_BEAM_PAIRS = (("int8", "plain"), ("int8", "int4"))
+
+
+def phase_mixed(cfg, params, device, batch, max_new_tokens):
+    """The mixed-precision decode caches at whisper-small, batch `batch`,
+    30 s clips (the greedy cell's), `max_new_tokens`: for each of the six
+    (cross, self) pairs whose sides differ (MIXED_PAIRS), one encode (K1)
+    and the cache, then the eager greedy loop (greedy_decode_from_cache)
+    with the counters zeroed before and read after (K1 12, no other
+    kernel: the classic layout reads both sides in plain torch; the classic
+    steps and host syncs those the tokens predict), then the same through
+    one DecodeRunner with CUDA graphs (its capture pass first, uncounted;
+    then prep + replay: no kernel, the same steps), tokens equal; ms per
+    token-step of each and the cache's bytes. Then beams of BEAM_WIDTH for
+    MIXED_BEAM_PAIRS (ancestry and physical reorder), one encode (K1 12)
+    and eager beam_decode against the runner's captured beam, tokens equal.
+    Returns the launch counts of the counted runs."""
+    import torch
+    from sar_tpu_torch.decode import beam_decode
+    from sar_tpu_torch.decode.graphs import CudaGraphCapture, DecodeRunner
+    from sar_tpu_torch.decode.greedy import greedy_decode_from_cache
+    from sar_tpu_torch.models import whisper
+    from sar_tpu_torch.ops import mel as mel_ops
+
+    t_phase = time.perf_counter()
+    g = torch.Generator(device=device).manual_seed(SEED + 1)      # the greedy cell's clips
+    feats = mel_ops.log_mel_spectrogram(
+        torch.randn((batch, mel_ops.N_SAMPLES), generator=g, device=device) * 0.1,
+        cfg.num_mel_bins, dtype=torch.bfloat16)[:, :, :cfg.num_audio_frames]
+    prompt = cfg.prompt_ids("hindi")
+    P = len(prompt)
+    total = min(P + max_new_tokens, cfg.max_target_positions)
+    K = BEAM_WIDTH
+    card = card_line()
+    total_counts = dict.fromkeys(KERNEL_NAMES, 0)
+    runner = DecodeRunner(params, cfg, capture=CudaGraphCapture)
+
+    def fenced(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    def counted(label, fn, want_k1):
+        """fn() with the counters zeroed before and read after: K1 at
+        `want_k1`, no other kernel."""
+        torch.cuda.synchronize()
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        c, st = read_counts(), read_steps()
+        for k in KERNEL_NAMES:
+            total_counts[k] += c[k]
+        if c["encoder_attention_hm"] != want_k1 or any(
+                v for k, v in c.items() if k != "encoder_attention_hm"):
+            fail(f"{label}: launches {json.dumps({k: v for k, v in c.items() if v})}, the "
+                 f"design says K1 = {want_k1} and no other kernel")
+        if any(st[k] for k in ("greedy", "beam", "s8")):
+            fail(f"{label}: steps {st}: a mixed cache's steps are classic ones")
+        return out, st
+
+    for pair, flags in MIXED_PAIRS.items():
+        label = f"mixed {pair[0]}/{pair[1]}"
+        if whisper.cache_kind(**flags) != "/".join(pair):
+            fail(f"{label}: the flags ask for the {whisper.cache_kind(**flags)} cache")
+
+        def eager():
+            enc = whisper.encode(params, feats, cfg, flash="hm")
+            cache = whisper.init_cache(params, enc, cfg, total, **flags)
+            return enc, cache, fenced(lambda: greedy_decode_from_cache(params, cache, cfg,
+                                                                       prompt))
+
+        (enc, cache, (tok_e, s_e)), st_e = counted(f"{label} eager", eager, cfg.encoder_layers)
+        nbytes = sum(x.numel() * x.element_size() for x in cache if x is not None)
+        cross_b = sum(x.numel() * x.element_size() for x in
+                      (cache.cross_k, cache.cross_v, cache.cross_k_scale, cache.cross_v_scale)
+                      if x is not None)
+        del cache
+
+        def replay():
+            cache = runner.prep(enc, total, **flags)
+            return fenced(lambda: runner.greedy(cache, prompt))
+
+        replay()                                                     # the capture pass
+        (tok_c, s_c), st_c = counted(f"{label} captured", replay, 0)
+        check_captured_equals_eager(label, tok_c, tok_e)
+        needed, run = decode_steps(tok_e, cfg, P)
+        for name, st in (("eager", st_e), ("captured", st_c)):
+            if st["classic"] != run or st["host_syncs"] != segments_run(total, run):
+                fail(f"{label} {name}: {st['classic']} classic steps and {st['host_syncs']} "
+                     f"host syncs, the tokens predict {run} and {segments_run(total, run)}")
+        gs = runner.graph_stats()
+        print(f"{label}: batch {batch}, {max_new_tokens} new tokens, {run} steps run "
+              f"({needed} needed) | ms per token-step eager {1e3 * s_e / run:.3f}, captured "
+              f"{1e3 * s_c / run:.3f} | cache "
+              f"{nbytes / 1e6:.1f} MB (cross {cross_b / 1e6:.1f} MB) | graphs {gs['graphs']}, "
+              f"capture {gs['capture_s']:.2f} s | {card}")
+
+    for pair in MIXED_BEAM_PAIRS:
+        label, flags = f"mixed beam {K} {pair[0]}/{pair[1]}", MIXED_PAIRS[pair]
+
+        def eager():
+            enc = whisper.encode(params, feats, cfg, flash="hm")
+            return enc, fenced(lambda: beam_decode(params, enc, cfg, prompt, num_beams=K,
+                                                   max_new_tokens=max_new_tokens, **flags))
+
+        (enc, (tok_e, s_e)), st_e = counted(f"{label} eager", eager, cfg.encoder_layers)
+
+        def captured():
+            cache = runner.prep(enc, total, self_batch=batch * K, **flags)
+            return runner.beam(cache, prompt, num_beams=K)
+
+        captured()                                                   # the capture pass
+        (tok_c, s_c), st_c = counted(f"{label} captured", lambda: fenced(captured), 0)
+        check_captured_equals_eager(label, tok_c, tok_e)
+        if st_c["classic"] != st_e["classic"] or st_c["host_syncs"] != st_e["host_syncs"]:
+            fail(f"{label}: captured steps {st_c}, eager {st_e}")
+        steps = st_e["classic"]
+        reads = "physically reordered" if pair[1] == "int4" else "through the ancestry"
+        print(f"{label}: batch {batch} x {K} beams, {steps} steps run | ms per token-step "
+              f"eager {1e3 * s_e / steps:.3f}, captured {1e3 * s_c / steps:.3f} (each with "
+              f"its cache build) | self reads {reads} | {card}")
+    print(f"mixed: {time.perf_counter() - t_phase:.1f} s | launches "
+          f"{json.dumps({k: v for k, v in total_counts.items() if v})}")
+    return total_counts
+
+
 def path_phases(cfg, params, n_params, device, work, profile=False) -> list:
     """The phases that drive a path, in order, as (name, run) pairs; `work`
     is a scratch directory (the lid phase's head, which the route phase
@@ -3756,7 +3910,8 @@ def path_phases(cfg, params, n_params, device, work, profile=False) -> list:
             ("transcribe", lambda: phase_transcribe(cfg, params, device, work)),
             ("stream", lambda: phase_stream(cfg, params, device)),
             ("serve", lambda: phase_serve(cfg, params, device, work)),
-            ("mesh", lambda: phase_mesh(cfg, params, device))]
+            ("mesh", lambda: phase_mesh(cfg, params, device)),
+            ("mixed", lambda: phase_mixed(cfg, params, device, BATCH, MAX_NEW_TOKENS))]
 
 
 def main() -> int:

@@ -33,18 +33,19 @@ stopped candidates all sit near -1e9, and the finished merge) sort with a
 stable descending sort instead.
 
 The cache is the JAX package's default, the unquantized classic one,
-unless the int8 or int4 flags ask for another (see `beam_decode`).
+unless the int8 or int4 flags ask for another, each side at its own
+precision (see `beam_decode`).
 Cross K/V are ONE copy per sample, shared by its K beams: `decode_step`
 folds the beam queries into one cross-attention call (kernel K5 over the
 int8 cache, plain attention over the classic one). The
 self cache holds B*K slots that are never moved: an ancestry matrix
 anc[b, k, t] (the slot that wrote row t of beam k's history) is composed
-per step with `torch.gather` instead of reordering the cache. The int4
-cache and `scores_int8` (kernel K7) keep the JAX package's physical
-reorder instead: after each step the self cache and its scales are
-gathered by the surviving beams' sources, within each sample (the cross
-slabs stay one per sample), in place and only over the segment's rows, as
-JAX gathers its segment-sized buffers. `timestamps=True` runs the
+per step with `torch.gather` instead of reordering the cache. An int4
+self side and `scores_int8` (kernel K7) keep the JAX package's physical
+reorder instead, whatever the cross side is: after each step the self
+cache and its scales are gathered by the surviving beams' sources, within
+each sample (the cross slabs stay one per sample), in place and only over
+the segment's rows, as JAX gathers its segment-sized buffers. `timestamps=True` runs the
 timestamp grammar (decode/timestamps.py) on the log-probs, as JAX's beam
 search does.
 """
@@ -229,8 +230,10 @@ def beam_segment(params: dict, cache: whisper.DecodeCache, cfg: WhisperConfig,
     Nothing here reads the device from the host: the body of one segment's
     CUDA graph (decode/graphs.py)."""
     B, K, total = state.run_seqs.shape
-    int4 = cache.self_k.shape[-1] == cfg.d_model // cfg.decoder_heads // 2
-    use_anc = K > 1 and not (int4 or scores_int8)
+    # The self side alone decides (JAX's use_anc): an int4 self cache takes
+    # the physical reorder whatever the cross side is.
+    self_int4 = cache.self_k.shape[-1] == cfg.d_model // cfg.decoder_heads // 2
+    use_anc = K > 1 and not (self_int4 or scores_int8)
     slots = torch.arange(K, device=state.anc.device)
     for pos in range(lo, hi):
         # This step writes each beam's row into its own slot: column `pos`
@@ -284,8 +287,14 @@ def beam_decode(params: dict, enc_out: torch.Tensor, cfg: WhisperConfig,
     torch: the cross-attention folds each sample's beams into one plain
     attention call, the self cache is read through the ancestry); the int8
     head-minor one with cross_kv_int8 = self_kv_int8 = True (kernels K2 and
-    K5); or the int4 classic one (cross_kv_int4 = self_kv_int4 = True).
-    `head_minor` as `init_cache` takes it. prompt_ids: [P] or [B, P].
+    K5); or a classic one of any other (cross, self) pair of precisions,
+    plain, int8 or int4 by each side's own flags (an int4 flag wins over
+    its side's int8 flag; `whisper.cache_kind`), e.g. the int4 classic one
+    (cross_kv_int4 = self_kv_int4 = True) or an int8 cross side beside an
+    unquantized self side (cross_kv_int8=True). The self side decides the
+    beams' self reads: through the ancestry, or physically reordered for an
+    int4 self side. `head_minor` as `init_cache` takes it. prompt_ids: [P]
+    or [B, P].
     Returns the best beam of each sample,
     [B, min(P + max_new_tokens, max_target_positions)] int64; positions
     after its EOS are EOS.

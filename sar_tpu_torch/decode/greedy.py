@@ -23,10 +23,13 @@ in `jax.jit`.
 
 The cache is, as in the JAX package, the unquantized classic one by
 default; the int8 head-minor one of serving (`cross_kv_int8=True,
-self_kv_int8=True`, kernels K2 and K3), the classic int8 one (the same
-flags with `head_minor=False`, plain torch), or the int4 classic one
-(`cross_kv_int4=True, self_kv_int4=True`) on request; `scores_int8` takes
-the decode steps over the int8 cache to s8 scores (kernel K7).
+self_kv_int8=True`, kernels K2 and K3) on request, or a classic one whose
+cross and self sides each take their own precision from their own flags
+(plain, int8, or int4, which wins over its side's int8 flag): the nine
+(cross, self) pairs of `whisper.cache_kind`, the classic int8 one being
+the int8 flags with `head_minor=False`; `scores_int8` takes the decode
+steps over an int8 cache to s8 scores (kernel K7 over the head-minor
+slabs).
 
 The JAX package's decode options are here with its meanings, all inside
 the step so that a captured segment carries them: `begin_suppress_ids`
@@ -170,13 +173,14 @@ def greedy_decode(params: dict, enc_out: torch.Tensor, cfg: WhisperConfig,
                   kernels: bool = True, tp=None):
     """Greedy decode over a cache built from `enc_out`: the unquantized
     classic one (the default, the JAX package's), the int8 head-minor one
-    with cross_kv_int8 = self_kv_int8 = True (serving's), or the int4
-    classic one (the int4 flags supersede the int8 ones); the layout is
-    `whisper.use_head_minor`'s unless `head_minor` says otherwise
-    (head_minor=False with the int8 flags: the classic int8 cache).
-    `scores_int8` needs the int8 flags and decodes over that cache with s8
-    scores (K7 over the head-minor slabs, plain torch over the classic
-    ones).
+    with cross_kv_int8 = self_kv_int8 = True (serving's), or a classic one
+    of any other (cross, self) pair of precisions, plain, int8 or int4,
+    each side by its own flags (an int4 flag supersedes its side's int8
+    flag; `whisper.cache_kind`); the layout is `whisper.use_head_minor`'s
+    unless `head_minor` says otherwise (head_minor=False with the int8
+    flags: the classic int8 cache). `scores_int8` needs both sides int8 and
+    decodes with s8 scores (K7 over the head-minor slabs, plain torch over
+    the classic ones).
     prompt_ids: [P] or [B, P] (e.g. cfg.prompt_ids(lang)). `lora` (a bank)
     adapts the cache build and every step, with adapter 0 for the batch or
     `adapter_idx` [B] per row. `segment` and the options as in the module
@@ -297,6 +301,7 @@ def greedy_decode_from_cache(params: dict, cache: whisper.DecodeCache,
                              with_no_speech: bool = False,
                              no_speech_pos: int = 0,
                              max_gen_tokens: int | None = None,
+                             return_cache: bool = False,
                              kernels: bool = True, tp=None):
     """The decode loop alone, from a prepared DecodeCache; the total length
     is the self cache's max_len. The self cache is written in place.
@@ -311,8 +316,11 @@ def greedy_decode_from_cache(params: dict, cache: whisper.DecodeCache,
     rng); `with_logprobs` adds (sum_logprobs [B] fp32, n_scored [B]
     int32), `with_no_speech` adds no_speech_prob [B] fp32 (at
     `no_speech_pos`), `max_gen_tokens` caps the generated tokens per row.
-    Returns tokens [B, total] int64, then those in that order (a flat
-    tuple when any is asked)."""
+    `return_cache` adds the final DecodeCache: `cache` itself, its cross
+    fields as they were and its self fields as the loop left them (rows
+    up to the end of the last segment run).
+    Returns tokens [B, total] int64, then those in that order, then the
+    cache (a flat tuple when any is asked), as the JAX package's."""
     if seed is None and temperature != 0.0:
         raise ValueError("temperature > 0 requires a seed")
     B = cache.cross_k.shape[1]
@@ -340,7 +348,10 @@ def greedy_decode_from_cache(params: dict, cache: whisper.DecodeCache,
                        prompt_width=P, kernels=kernels, tp=tp)
         if segments.host_flag(finished.all()):
             break
-    return extras_outputs(tokens, ex)
+    out = extras_outputs(tokens, ex)
+    if not return_cache:
+        return out
+    return (*(out if isinstance(out, tuple) else (out,)), cache)
 
 
 def extras_outputs(tokens: torch.Tensor, ex: GreedyExtras):

@@ -914,52 +914,69 @@ def unpack_kv4(p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def use_head_minor(*, cross_kv_int8: bool, self_kv_int8: bool,
                    cross_kv_int4: bool = False,
-                   self_kv_int4: bool = False, mesh=None) -> bool:
+                   self_kv_int4: bool = False, scores_int8: bool = False,
+                   mesh=None) -> bool:
     """The default cross-KV layout of a decode path: head-minor slabs (the
     layout K3, K5 and K7 stream) for a full int8 KV cache, the classic
-    layout for int4 packing, an unquantized cache or a device `mesh` (as
-    in the JAX package: mesh decodes keep the classic layout). The classic
-    int8 layout (the JAX package's choice on a CPU without scores_int8, and
-    under meshes) is built only when `init_cache(head_minor=False)` asks
-    for it."""
+    layout for int4 packing on either side, an unquantized side or a
+    device `mesh` (as in the JAX package: mesh decodes keep the classic
+    layout). `scores_int8` is the JAX package's argument and changes
+    nothing here, as on its accelerator: the s8 scores take the head-minor
+    slabs too. The classic int8 layout (the JAX package's choice on a CPU
+    without scores_int8, and under meshes) is built only when
+    `init_cache(head_minor=False)` asks for it."""
     return (mesh is None and cross_kv_int8 and self_kv_int8
             and not (cross_kv_int4 or self_kv_int4))
 
 
-CACHE_KINDS = ("plain", "int8_classic", "int8_head_minor", "int4")
+_PRECISIONS = ("plain", "int8", "int4")
+# A classic-layout cache named by the precisions of its cross and self
+# sides ("cross/self"), and the int8 head-minor cache of serving.
+CACHE_KINDS = (*(f"{c}/{s}" for c in _PRECISIONS for s in _PRECISIONS),
+               "int8_head_minor")
+
+
+def _precision(int8: bool, int4: bool) -> str:
+    """One side's precision: its int4 flag wins over its int8 flag."""
+    return "int4" if int4 else "int8" if int8 else "plain"
 
 
 def cache_kind(*, cross_kv_int8: bool = False, self_kv_int8: bool = False,
                cross_kv_int4: bool = False, self_kv_int4: bool = False,
                head_minor: bool | None = None) -> str:
-    """The cache the flags ask for, one of CACHE_KINDS: "plain" (the
-    unquantized classic cache, no flag), "int8_head_minor" (both int8
-    flags; the layout K2-K5 and K7 use), "int8_classic" (both int8 flags
-    with head_minor=False) or "int4" (both int4 flags, which supersede the
-    int8 ones). `head_minor` defaults to `use_head_minor`'s choice; the
-    combinations the port has not got raise."""
-    int4 = cross_kv_int4 or self_kv_int4
+    """The cache the flags ask for, one of CACHE_KINDS. Each side, cross
+    and self, is plain (the compute dtype), int8 or int4 by its own flags,
+    as in the JAX package: "plain/plain" is the default, "int8/plain" an
+    int8 cross cache beside an unquantized self cache. Both int8 flags and
+    no int4 flag give "int8_head_minor" (the layout K2-K5 and K7 use)
+    unless head_minor=False asks for the classic "int8/int8". `head_minor`
+    defaults to `use_head_minor`'s choice; head_minor=True needs both int8
+    flags and no int4 flag."""
     if head_minor is None:
         head_minor = use_head_minor(cross_kv_int8=cross_kv_int8,
                                     self_kv_int8=self_kv_int8,
                                     cross_kv_int4=cross_kv_int4,
                                     self_kv_int4=self_kv_int4)
-    if head_minor and int4:
+    if head_minor and (cross_kv_int4 or self_kv_int4):
         raise ValueError("head_minor (the s8-kernel layout) does not support "
                          "int4 packing")
-    if int4 and not (cross_kv_int4 and self_kv_int4):
-        raise NotImplementedError("the port's int4 cache packs the cross and "
-                                  "the self K/V both")
-    int8 = cross_kv_int8 or self_kv_int8
-    if int8 and not int4 and not (cross_kv_int8 and self_kv_int8):
-        raise NotImplementedError("the port's int8 cache quantizes the cross "
-                                  "and the self K/V both")
     if head_minor and not (cross_kv_int8 and self_kv_int8):
         raise ValueError("head_minor requires an int8 KV cache "
                          "(cross_kv_int8 and self_kv_int8)")
     if head_minor:
         return "int8_head_minor"
-    return "int4" if int4 else "int8_classic" if int8 else "plain"
+    return (f"{_precision(cross_kv_int8, cross_kv_int4)}/"
+            f"{_precision(self_kv_int8, self_kv_int4)}")
+
+
+def _cache_precisions(kind: str) -> tuple[str, str]:
+    """The (cross, self) precisions of a cache kind (CACHE_KINDS)."""
+    if kind not in CACHE_KINDS:
+        raise ValueError(f"cache kind {kind!r} not in {CACHE_KINDS}")
+    if kind == "int8_head_minor":
+        return "int8", "int8"
+    cross, self_ = kind.split("/")
+    return cross, self_
 
 
 def empty_cache(cfg: WhisperConfig, batch: int, frames: int, max_len: int, *,
@@ -970,33 +987,38 @@ def empty_cache(cfg: WhisperConfig, batch: int, frames: int, max_len: int, *,
     """An uninitialised DecodeCache of `kind` (CACHE_KINDS) for `batch`
     samples of `frames` encoder frames, `self_batch` (default `batch`)
     self-cache rows of `max_len` positions; `dtype` is the compute dtype
-    (the plain cache's); `heads` (default all) the decoder heads it holds
-    (a rank's share under tensor parallelism). `init_cache(out=)` fills
-    it."""
-    if kind not in CACHE_KINDS:
-        raise ValueError(f"cache kind {kind!r} not in {CACHE_KINDS}")
+    (a plain side's); `heads` (default all) the decoder heads it holds
+    (a rank's share under tensor parallelism). Each side has the JAX
+    package's fields for its precision: K/V in the compute dtype and no
+    scales (plain), or s8 values ([.., hd], or [.., hd/2] nibble-packed for
+    int4) with fp32 scales per row. `init_cache(out=)` fills it."""
+    cross_p, self_p = _cache_precisions(kind)
     L, H = cfg.decoder_layers, heads or cfg.decoder_heads
     hd = cfg.d_model // cfg.decoder_heads
     SB = batch if self_batch is None else self_batch
-    S = cross_pad_len(frames) if kind == "int8_head_minor" else frames
-    width = hd // 2 if kind == "int4" else hd
-    vdt = dtype if kind == "plain" else torch.int8
 
     def new(shape, dt):
         return torch.empty(shape, dtype=dt, device=device)
 
+    def side(p, rows):
+        """(K, V, K scales, V scales) of a classic side of precision `p`
+        over `rows` ([L, B, H, T])."""
+        if p == "plain":
+            return new((*rows, hd), dtype), new((*rows, hd), dtype), None, None
+        vals = (*rows, hd // 2 if p == "int4" else hd)
+        return (new(vals, torch.int8), new(vals, torch.int8),
+                new(rows, torch.float32), new(rows, torch.float32))
+
     if kind == "int8_head_minor":
-        cross = (L, batch, S, H * hd)
+        S = cross_pad_len(frames)
+        ck, cv = (new((L, batch, S, H * hd), torch.int8) for _ in range(2))
+        cks, cvs = (new((L, batch, H, S), torch.float32) for _ in range(2))
     else:
-        cross = (L, batch, H, S, width)
-    scales = (lambda shape: None) if kind == "plain" else (
-        lambda shape: new(shape, torch.float32))
-    self_shape = (L, SB, H, max_len, width)
-    return DecodeCache(
-        self_k=new(self_shape, vdt), self_v=new(self_shape, vdt),
-        cross_k=new(cross, vdt), cross_v=new(cross, vdt),
-        cross_k_scale=scales((L, batch, H, S)), cross_v_scale=scales((L, batch, H, S)),
-        self_k_scale=scales(self_shape[:4]), self_v_scale=scales(self_shape[:4]))
+        ck, cv, cks, cvs = side(cross_p, (L, batch, H, frames))
+    sk, sv, sks, svs = side(self_p, (L, SB, H, max_len))
+    return DecodeCache(self_k=sk, self_v=sv, cross_k=ck, cross_v=cv,
+                       cross_k_scale=cks, cross_v_scale=cvs,
+                       self_k_scale=sks, self_v_scale=svs)
 
 
 def init_cache(params: Params, enc_out: torch.Tensor, cfg: WhisperConfig,
@@ -1015,12 +1037,15 @@ def init_cache(params: Params, enc_out: torch.Tensor, cfg: WhisperConfig,
     torch, cross K/V [L, B, H, S, hd] in the compute dtype). With
     cross_kv_int8 = self_kv_int8 = True, the int8 head-minor cache of
     serving: cross K/V projected and quantized by kernel K2
-    (fused_kv_init) into head-minor slabs, an int8 self cache. With
-    cross_kv_int4 = self_kv_int4 = True (which supersede the int8 flags),
-    the classic nibble-packed int4 cache. With the int8 flags and
-    head_minor=False, the JAX package's classic int8 cache (plain torch,
-    as its jnp body): cross K/V [L, B, H, S, hd] int8 with per-row scales
-    [L, B, H, S], which `decode_step` reads through `_attention_int8`.
+    (fused_kv_init) into head-minor slabs, an int8 self cache. Otherwise
+    the classic layout (plain torch, as the JAX package's jnp body), each
+    side at its own precision (`cache_kind`): the cross K/V quantized per
+    row by the cross flags (int8 [L, B, H, S, hd] or nibble-packed int4
+    [.., hd/2], scales [L, B, H, S]), the self cache allocated by the self
+    flags; an int4 flag wins over its side's int8 flag. So the int8 flags
+    with head_minor=False give the JAX package's classic int8 cache, which
+    `decode_step` reads through `_attention_int8`, and one side may stay
+    unquantized beside a quantized other (the mixed pairs).
 
     `self_batch` (default B) sizes the self cache apart from the cross
     slabs: beam search keeps ONE cross slab per sample, shared by its K
@@ -1041,8 +1066,8 @@ def init_cache(params: Params, enc_out: torch.Tensor, cfg: WhisperConfig,
     cache into its decode program, so that no second cache is alive beside
     it. Its self cache and scales are zeroed, as a new one's are.
 
-    `head_minor` defaults to `use_head_minor`'s choice; one int8 flag
-    without the other raises.
+    `head_minor` defaults to `use_head_minor`'s choice; head_minor=True
+    without both int8 flags, or with an int4 flag, raises.
 
     `tp` (the "model" group of a tensor-parallel shard of `params`): the
     cache holds this rank's heads, in a classic layout (the decode kernels
@@ -1076,8 +1101,7 @@ def init_cache(params: Params, enc_out: torch.Tensor, cfg: WhisperConfig,
     if kind != "int8_head_minor":
         _init_cache_classic(params, enc_out, cfg, out, lora=lora,
                             adapter_idx=adapter_idx, lora_scale=lora_scale,
-                            quant={"int4": "int4", "int8_classic": "int8"}.get(kind),
-                            tp=tp)
+                            cross=_cache_precisions(kind)[0], tp=tp)
         return out
     dec = params["decoder"]
     pad = cross_pad_len(S) - S
@@ -1111,13 +1135,14 @@ def _init_cache_classic(params: Params, enc_out: torch.Tensor,
                         cfg: WhisperConfig, out: DecodeCache, *,
                         lora: Params | None = None, adapter_idx=None,
                         lora_scale: float = 1.0,
-                        quant: str | None = None,
+                        cross: str = "plain",
                         tp: ModelGroup | None = None) -> None:
     """The cross fields of a classic-layout cache `out` (plain torch, as the
     JAX package's jnp body): each layer's (adapted) projection of `enc_out`
-    split into heads, cross K/V [L, B, H, S, hd] in the compute dtype; with
-    `quant` "int8", quantized per row by `quantize_kv` (s8, fp32 scales
-    [.., S]); with "int4", nibble-packed by `quantize_kv4` ([.., hd/2] s8).
+    split into heads, cross K/V [L, B, H, S, hd] in the compute dtype at
+    precision `cross` "plain"; with "int8", quantized per row by
+    `quantize_kv` (s8, fp32 scales [.., S]); with "int4", nibble-packed by
+    `quantize_kv4` ([.., hd/2] s8). The self side is not touched here.
     Written layer by layer into `out`, as the JAX package's scan body
     quantizes per layer: the fp32 temporaries of one layer, not of the
     whole stack. Under `tp`, this rank's heads."""
@@ -1125,12 +1150,12 @@ def _init_cache_classic(params: Params, enc_out: torch.Tensor,
     H = decoder_heads(params, cfg)
     dec_lora = lora.get("decoder") if lora else None
     ctx = lora_ctx(dec_lora, adapter_idx, lora_scale, enc_out.dtype)
-    quantize = quantize_kv4 if quant == "int4" else quantize_kv
+    quantize = quantize_kv4 if cross == "int4" else quantize_kv
     for l in range(lay["cross_k"]["w"].shape[0]):
         p, lo = _layer(lay, l), (_layer(dec_lora, l) if dec_lora else {})
         k = split_heads(_proj(enc_out, p["cross_k"], lo.get("cross_k"), ctx, 5, tp), H)
         v = split_heads(_proj(enc_out, p["cross_v"], lo.get("cross_v"), ctx, 6, tp), H)
-        if quant is not None:
+        if cross != "plain":
             (k, out.cross_k_scale[l]), (v, out.cross_v_scale[l]) = quantize(k), quantize(v)
         out.cross_k[l], out.cross_v[l] = k, v
 
@@ -1288,14 +1313,17 @@ def decode_step(params: Params, tokens: torch.Tensor, pos: int,
     can capture it (decode/graphs.py): `adapter_idx` and `ancestry` are
     device tensors there.
 
-    The cross path over the int8 head-minor cache goes through a decode
-    kernel (ops/decode_cross.py): K3/K5, or K7 with `scores_int8`, which
-    also takes the self-attention to s8 (`_attention_int8_mxu`);
-    `kernels=False` runs the kernels' plain versions on any device. An int4
-    cache (told apart by its hd/2 axis) is read by `_attention_int4`, the
-    unquantized classic cache (no scales) by plain `attention`, and the
-    classic int8 cache (5-d cross K/V with scales) by `_attention_int8`
-    (`_attention_int8_mxu` with `scores_int8`), as in the JAX package.
+    The self and the cross sides are dispatched apart, as in the JAX
+    package, each from its own fields' shapes and `None`-ness (so a mixed
+    cache, one side quantized and the other not or at another precision,
+    reads each side as its own): a side without scales by plain
+    `attention`, an int4 side (told apart by its hd/2 axis) by
+    `_attention_int4`, a classic int8 side by `_attention_int8`
+    (`_attention_int8_mxu` with `scores_int8`). The cross path over the int8
+    head-minor cache (4-d slabs) goes through a decode kernel
+    (ops/decode_cross.py): K3/K5, or K7 with `scores_int8`; `kernels=False`
+    runs the kernels' plain versions on any device. `scores_int8` needs both
+    sides int8; `ancestry` takes no int4 self side.
     `lora` adapts the decoder hooks it holds (self_q/k/v/o, cross_q/o;
     cross_k/v live in the cache), per row when `adapter_idx` is given.
 
@@ -1316,13 +1344,12 @@ def decode_step(params: Params, tokens: torch.Tensor, pos: int,
     H = cache.self_k.shape[2]                  # this rank's heads under tp
     hd = cfg.d_model // cfg.decoder_heads
     half = hd // 2
-    plain_cache = cache.self_k_scale is None
-    self_int4 = not plain_cache and cache.self_k.shape[-1] == half
-    cross_int4 = (cache.cross_k_scale is not None and cache.cross_k.dim() == 5
-                  and cache.cross_k.shape[-1] == half)
-    cross_int8_classic = (cache.cross_k_scale is not None
-                          and cache.cross_k.dim() == 5 and not cross_int4)
-    if scores_int8 and (plain_cache or cache.cross_k_scale is None):
+    self_plain = cache.self_k_scale is None
+    self_int4 = not self_plain and cache.self_k.shape[-1] == half
+    cross_plain = cache.cross_k_scale is None
+    cross_classic = cache.cross_k.dim() == 5     # else the head-minor slabs
+    cross_int4 = not cross_plain and cross_classic and cache.cross_k.shape[-1] == half
+    if scores_int8 and (self_plain or cross_plain):
         raise ValueError("scores_int8 requires an int8 KV cache "
                          "(cross_kv_int8=True and self_kv_int8=True)")
     if scores_int8 and (self_int4 or cross_int4):
@@ -1364,7 +1391,7 @@ def decode_step(params: Params, tokens: torch.Tensor, pos: int,
         v = split_heads(_proj(h, p["self_v"], lo.get("self_v"), ctx, tp=tp), H)
         # The first n rows of layer l's self cache (all of it by default).
         sk, sv = cache.self_k[l, :, :, :n], cache.self_v[l, :, :, :n]
-        if plain_cache:
+        if self_plain:
             cache.self_k[l, :, :, pos] = k[:, :, 0]
             cache.self_v[l, :, :, pos] = v[:, :, 0]
             if ancestry is not None:
@@ -1386,19 +1413,19 @@ def decode_step(params: Params, tokens: torch.Tensor, pos: int,
             else:
                 a = self_attn(split_heads(q, H), sk, sks, sv, svs, mask=pos_mask)
         x = x + _row_proj(merge_heads(a), p["self_o"], lo.get("self_o"), ctx, tp=tp)
-        # Cross-attention: exact over the classic cache, int4 or int8 over
-        # the quantized classic slabs, or over the head-minor int8 slabs of layer
-        # l (K3/K5 exact, K7 with scores_int8); beam queries are folded per
-        # sample ([B/K, K, ...]) when beam_width > 1.
+        # Cross-attention: exact over an unquantized classic side, int4 or
+        # int8 over the quantized classic slabs, or over the head-minor int8
+        # slabs of layer l (K3/K5 exact, K7 with scores_int8); beam queries
+        # are folded per sample ([B/K, K, ...]) when beam_width > 1.
         h = layer_norm(x, p["cross_ln"]["scale"], p["cross_ln"]["bias"])
         q = _proj(h, p["cross_q"], lo.get("cross_q"), ctx, tp=tp) * scaling
-        if plain_cache:
+        if cross_plain:
             # The K beam queries of a sample ride its one cross slab as K
             # query rows ([B/K, H, K, hd]), unfolded after.
             qh = q.reshape(B // beam_width, beam_width, H, -1).transpose(1, 2)
             a = attention(qh, cache.cross_k[l], cache.cross_v[l])
             o = a.transpose(1, 2).reshape(B, 1, -1)
-        elif cross_int4 or cross_int8_classic:
+        elif cross_classic:
             qh = q.reshape(B // beam_width, beam_width, H, -1).transpose(1, 2)
             attn = (_attention_int4 if cross_int4 else
                     _attention_int8_mxu if scores_int8 else _attention_int8)

@@ -111,7 +111,8 @@ def test_phase_list_ends_with_the_phase2_clis_and_imports_no_jax():
     """chip_smoke.py drives the LID sweep and routed inference CLIs after
     the lid phase (whose head the route phase reads), then single-file
     transcription, streaming and the HTTP server (whose routed server reads
-    the route phase's adapters), then the device-mesh phase, and neither
+    the route phase's adapters), then the device-mesh phase and the
+    mixed-precision caches, and neither
     importing it nor building its phase list pulls in jax or sar_tpu."""
     code = ("import sys, chip_smoke\n"
             "names = [n for n, _ in chip_smoke.path_phases(None, None, 0, None, 'w')]\n"
@@ -123,7 +124,7 @@ def test_phase_list_ends_with_the_phase2_clis_and_imports_no_jax():
     names, bad = out.stdout.strip().splitlines()
     assert names == str(["greedy", "routed", "beam", "train", "s8", "fq", "bench", "graphs",
                          "lid", "sweep", "route", "transcribe", "stream", "serve",
-                         "mesh"])
+                         "mesh", "mixed"])
     assert bad == "[]"
 
 

@@ -174,8 +174,16 @@ def test_init_cache_int4_matches_jax_and_decode_step_refusals(model):
             tw.decode_step(tp, tok, 0, cache, CFG, beam_width=3, ancestry=anc, **kw)
     with pytest.raises(ValueError, match="int4"):
         tw.init_cache(tp, t(enc), CFG, max_len=8, head_minor=True, **INT4)
-    with pytest.raises(NotImplementedError):
-        tw.init_cache(tp, t(enc), CFG, max_len=8, cross_kv_int4=True)
+    # cross_kv_int4 alone: an int4 cross cache beside an unquantized self
+    # cache, built as JAX builds it (tests/test_torch_mixed_cache.py).
+    got = tw.init_cache(tp, t(enc), CFG, max_len=8, cross_kv_int4=True)
+    want = jw.init_cache(jp, enc, CFG, max_len=8, cross_kv_int4=True)
+    assert got.self_k_scale is None and want.self_k_scale is None
+    assert got.self_k.dtype == torch.float32 and got.self_k.shape == want.self_k.shape
+    assert got.cross_k.shape == want.cross_k.shape and got.cross_k.shape[-1] == hd // 2
+    assert (got.cross_k.numpy() != np.asarray(want.cross_k)).mean() <= 1e-3
+    np.testing.assert_allclose(got.cross_k_scale.numpy(), np.asarray(want.cross_k_scale),
+                               rtol=1e-5, atol=0)
     assert tw.use_head_minor(cross_kv_int8=True, self_kv_int8=True)
     assert not tw.use_head_minor(cross_kv_int8=True, self_kv_int8=True, self_kv_int4=True)
     assert not tw.use_head_minor(cross_kv_int8=False, self_kv_int8=True)

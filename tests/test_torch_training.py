@@ -375,8 +375,14 @@ def test_unquantized_cache_and_greedy_match_jax_defaults(world):
                             adapter_idx=t(idx), lora_scale=2.0, cross_kv_int8=False,
                             self_kv_int8=False)
     np.testing.assert_array_equal(got_tok.numpy(), np.asarray(want_tok))
-    with pytest.raises(NotImplementedError):
-        tw.init_cache(tp, t(np.asarray(enc)), CFG, 10, cross_kv_int8=False, self_kv_int8=True)
+    # self_kv_int8 alone: an int8 self cache beside the unquantized cross
+    # cache, built as JAX builds it (tests/test_torch_mixed_cache.py).
+    want = jw.init_cache(jp, enc, CFG, max_len=10, self_kv_int8=True)
+    got = tw.init_cache(tp, t(np.asarray(enc)), CFG, 10, cross_kv_int8=False, self_kv_int8=True)
+    assert got.cross_k_scale is None and want.cross_k_scale is None
+    assert got.self_k.dtype == torch.int8 and got.self_k_scale.shape == want.self_k_scale.shape
+    np.testing.assert_allclose(got.cross_k.numpy(), np.asarray(want.cross_k), atol=1e-5, rtol=0)
+    assert not got.self_k.any() and not got.self_k_scale.any()
 
 
 def _small_trainer(**kw):
