@@ -1,0 +1,1 @@
+"""Part of the benchmark harness (see benchmarks/README.md)."""
