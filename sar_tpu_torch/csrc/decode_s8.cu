@@ -70,7 +70,7 @@
 //   - a probe build of the same kernel (non-null probe pointers) also
 //     writes every row's pw and each row's ps, for the tests that hold ps
 //     and the s8 probabilities to the kernel's own pw bit for bit.
-// The sizes are those of the sweep (sar_tpu_torch/scripts/sweep_s8.py) at
+// The sizes won a timed sweep of variants of this file built with -D, at
 // whisper-small B=8 on an H100 80GB HBM3 at 700 W, before the third
 // exchange: after the data, a call's critical path is the exchanges and
 // block barriers (~4.5 us of K7's ~13 us at K = 1), so fewer, longer slices that fit in one wave won
@@ -84,8 +84,8 @@
 
 namespace cg = cooperative_groups;
 
-// Design choices that the sweep (sar_tpu_torch/scripts/sweep_s8.py)
-// rebuilds with -D; these defaults are the ones it picked.
+// Design choices a build may override with -D; these defaults are the
+// sweep's picks.
 #ifndef SAR_S8_QK_MMA_FROM
 #define SAR_S8_QK_MMA_FROM 2
 #endif
@@ -104,9 +104,6 @@ namespace cg = cooperative_groups;
 #endif
 #ifndef SAR_S8_LOADS
 #define SAR_S8_LOADS 8
-#endif
-#ifndef SAR_S8_TRACE
-#define SAR_S8_TRACE 0
 #endif
 
 namespace {
@@ -169,29 +166,6 @@ __device__ __forceinline__ void transpose4(const uint32_t (&r)[4], uint32_t (&w)
 // 2) & 3), so that the P.V reads of four rows 4 apart hit other banks.
 __device__ __forceinline__ int ring_chunk(int c, int row) { return c ^ ((row >> 2) & 3); }
 
-// With SAR_S8_TRACE (the sweep's --trace builds only), thread 0 of each of
-// the first kTraceBlocks blocks records the global timer (ns) at the end of
-// each phase: start, scores (and v scales landed), stats posted, exchange
-// 1, global stats, max |pw| exchange, P.V, exchange 3, stored.
-constexpr int kTraceBlocks = 1024;
-constexpr int kTraceMarks = 9;
-#if SAR_S8_TRACE
-__device__ unsigned long long s8_trace[kTraceBlocks][kTraceMarks];
-#define S8_MARK(i)                                                                        \
-  do {                                                                                    \
-    const unsigned blk = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);  \
-    if (threadIdx.x == 0 && blk < kTraceBlocks) {                                         \
-      unsigned long long now;                                                             \
-      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));                             \
-      s8_trace[blk][i] = now;                                                             \
-    }                                                                                     \
-  } while (0)
-#else
-#define S8_MARK(i) \
-  do {             \
-  } while (0)
-#endif
-
 // Three blocks an SM must hold (the registers a thread may have): K7's 3 x
 // 96 blocks at whisper-small B=8 run in one wave.
 template <int K, int MASK>
@@ -240,7 +214,6 @@ s8_decode_kernel(const int8_t* __restrict__ qq,   // [B, K, D]
   if (solo && rank > 0) return;
   const int CE = solo ? 1 : C;  // the blocks that take part
   if (!solo) sar::cluster_arrive();  // paired with cluster_wait() before the first remote store
-  S8_MARK(0);
   const int lo = min(S, rank * slice), hi = min(S, lo + slice);
   const int rows = hi - lo;
   // Rows [0, nk) of the slice are read and scored, rows [0, nv) of v read;
@@ -356,7 +329,6 @@ s8_decode_kernel(const int8_t* __restrict__ qq,   // [B, K, D]
   }
   sar::cp_async_wait<NS - 1>();  // group 0 (the v scales) landed
   __syncthreads();
-  S8_MARK(1);
   if (!solo) sar::cluster_wait();  // every block of the cluster has started
 
   // Exchange 1: this block's max m and sum of exp(s - m) per beam. WPB
@@ -397,12 +369,10 @@ s8_decode_kernel(const int8_t* __restrict__ qq,   // [B, K, D]
         cluster.map_shared_rank(&stats[0][0], lane)[rank * K + k] = own;
     }
   }
-  S8_MARK(2);
   if (solo)
     __syncthreads();
   else
     cluster.sync();
-  S8_MARK(3);
   // The global max and sum per beam in rank order, the same in every
   // block: a block's rows have sum exp(s - M) = l_r * exp(m_r - M).
   if (tid < K) {
@@ -413,7 +383,6 @@ s8_decode_kernel(const int8_t* __restrict__ qq,   // [B, K, D]
     glob[tid] = make_float3(M, tot, 0.f);
   }
   __syncthreads();
-  S8_MARK(4);
 
   // Exchange 2: the slice's pw = (exp(s - M) / tot) * vs, kept in place of
   // its scores, and the block's max |pw| per beam, pushed into every block;
@@ -461,7 +430,6 @@ s8_decode_kernel(const int8_t* __restrict__ qq,   // [B, K, D]
     glob[tid].z = fmaxf(mx, 1e-8f) / 127.f;
   }
   __syncthreads();
-  S8_MARK(5);
 
   // The slice's pw quantized to s8 (zeros past it, to whole k-steps).
   float gps[K];
@@ -554,7 +522,6 @@ s8_decode_kernel(const int8_t* __restrict__ qq,   // [B, K, D]
       sar::cp_async_commit();
     }
   }
-  S8_MARK(6);
   const int col = 32 * half + 4 * g;
   if constexpr (PV_MMA) {
     // c[e] of tile `tile`: column 4g + 2 tile + (e >> 1), beam 2t + (e & 1).
@@ -587,7 +554,6 @@ s8_decode_kernel(const int8_t* __restrict__ qq,   // [B, K, D]
     __syncthreads();
   else
     cluster.sync();  // every partial is in rank 0; no block touches another after this
-  S8_MARK(7);
   if (rank == 0) {
     for (int i = tid; i < K * HD; i += NT) {
       int o = 0;
@@ -596,7 +562,6 @@ s8_decode_kernel(const int8_t* __restrict__ qq,   // [B, K, D]
           __float2bfloat16_rn((float)o * glob[i / HD].z);
     }
   }
-  S8_MARK(8);
 }
 
 bool smem_done[2][MAX_BEAMS + 1][sar::kMaxDevices] = {};
@@ -736,11 +701,3 @@ extern "C" int sar_s8_decode_probe(const void* qq, const void* qs, const void* k
 extern "C" int sar_s8_cluster_size(int S, int length_mask) {
   return cluster_size(S, length_mask ? SAR_S8_SELF_MIN_SLICE : SAR_S8_CROSS_MIN_SLICE);
 }
-
-#if SAR_S8_TRACE
-// The trace of the last launch: [kTraceBlocks][kTraceMarks] uint64 into `dst`
-// (host memory).
-extern "C" int sar_s8_trace(void* dst) {
-  return (int)cudaMemcpyFromSymbol(dst, s8_trace, sizeof(s8_trace));
-}
-#endif

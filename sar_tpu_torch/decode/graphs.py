@@ -50,6 +50,13 @@ graph is captured, not when it replays: the runner records each one's
 change over the capture, puts it back, and adds the change on every
 replay, so that the counts stay those of an eager run.
 
+`CAPTURE` counts, for the whole process, the graphs captured, their nodes
+and the seconds spent capturing and instantiating them. It moves only at a
+capture, is always on, and stays out of that rollback. While a profiler is
+active, the runner's `prep`, `greedy` and `beam` and each segment's run
+and host sync are spans (utils/profiling.py: `prep`, `decode`,
+`decode.segment`, `decode.sync`).
+
 `CudaGraphCapture` is the one place that captures: the CPU tests give the
 runner a stand-in with its two methods and check the bookkeeping (keys,
 refills, counter replays); only the real capture needs the card.
@@ -69,6 +76,11 @@ from sar_tpu_torch.decode.greedy import (extras_outputs, fill_extras,
                                          greedy_segment, make_extras)
 from sar_tpu_torch.models import whisper
 from sar_tpu_torch.models.config import WhisperConfig
+from sar_tpu_torch.utils import profiling
+
+# The process's CUDA-graph captures: graphs, their nodes, and the seconds of
+# capture and instantiation (CudaGraphCapture.capture adds to it).
+CAPTURE = {"graphs": 0, "nodes": 0, "seconds": 0.0}
 
 
 def resolve_capture(capture: bool | None, device: torch.device,
@@ -148,9 +160,13 @@ class CudaGraphCapture:
             body()
         graph.instantiate()
         torch.cuda.synchronize()
-        self.seconds += time.perf_counter() - t0
-        self.nodes += graph_nodes(graph)
+        seconds, nodes = time.perf_counter() - t0, graph_nodes(graph)
+        self.seconds += seconds
+        self.nodes += nodes
         self.graphs.append(graph)
+        CAPTURE["graphs"] += 1
+        CAPTURE["nodes"] += nodes
+        CAPTURE["seconds"] += seconds
         return graph.replay
 
 
@@ -180,21 +196,24 @@ class _Program:
     def run(self) -> None:
         """Run the segments in order until `done`."""
         for s, body in enumerate(self.bodies):
-            if self.seam is None:
-                body()
-            elif self.replays[s] is None:
-                self.seam.warm_up(body)
-                before = _read_counters()
-                try:
-                    self.replays[s] = self.seam.capture(body)
-                finally:
-                    after = _read_counters()
-                    _write_counters(before)
-                self.deltas[s] = [a - b for a, b in zip(after, before)]
-            else:
-                self.replays[s]()
-                _write_counters([c + d for c, d in zip(_read_counters(), self.deltas[s])])
-            if segments.host_flag(self.done()):
+            with profiling.span("decode.segment"):
+                if self.seam is None:
+                    body()
+                elif self.replays[s] is None:
+                    self.seam.warm_up(body)
+                    before = _read_counters()
+                    try:
+                        self.replays[s] = self.seam.capture(body)
+                    finally:
+                        after = _read_counters()
+                        _write_counters(before)
+                    self.deltas[s] = [a - b for a, b in zip(after, before)]
+                else:
+                    self.replays[s]()
+                    _write_counters([c + d for c, d in zip(_read_counters(), self.deltas[s])])
+            with profiling.span("decode.sync"):
+                done = segments.host_flag(self.done())
+            if done:
                 return
 
 
@@ -234,20 +253,21 @@ class DecodeRunner:
         B, S, _ = enc_out.shape
         kind = whisper.cache_kind(**cache_flags)
         key = (B, S, total, kind, self_batch, enc_out.dtype, enc_out.device)
-        if key != self._cache_key:
-            self._programs.clear()
-            self._cache = self._cache_key = None
-            with torch.inference_mode(False):
-                self._cache = whisper.empty_cache(
-                    self.cfg, B, S, total, kind=kind, self_batch=self_batch,
-                    dtype=enc_out.dtype, device=enc_out.device,
-                    heads=whisper.decoder_heads(self.params, self.cfg))
-            self._cache_key = key
-        return whisper.init_cache(self.params, enc_out, self.cfg, total,
-                                  lora=self.lora, adapter_idx=adapter_idx,
-                                  lora_scale=self.lora_scale,
-                                  self_batch=self_batch, kernels=self.kernels,
-                                  out=self._cache, tp=self.tp, **cache_flags)
+        with profiling.span("prep"):
+            if key != self._cache_key:
+                self._programs.clear()
+                self._cache = self._cache_key = None
+                with torch.inference_mode(False):
+                    self._cache = whisper.empty_cache(
+                        self.cfg, B, S, total, kind=kind, self_batch=self_batch,
+                        dtype=enc_out.dtype, device=enc_out.device,
+                        heads=whisper.decoder_heads(self.params, self.cfg))
+                self._cache_key = key
+            return whisper.init_cache(self.params, enc_out, self.cfg, total,
+                                      lora=self.lora, adapter_idx=adapter_idx,
+                                      lora_scale=self.lora_scale,
+                                      self_batch=self_batch, kernels=self.kernels,
+                                      out=self._cache, tp=self.tp, **cache_flags)
 
     def _program(self, key, build) -> _Program:
         prog = self._programs.get(key)
@@ -339,20 +359,21 @@ class DecodeRunner:
             return _Program([body(*g) for g in segments.grid(total, segment)],
                             finished.all, seam, (tokens, finished, idx, ex))
 
-        prog = self._program(key, build)
-        tokens, finished, idx, ex = prog.static
-        tokens.fill_(self.cfg.eos_token_id)
-        tokens[:, :P] = prompts
-        finished.zero_()
-        fill_extras(ex, plen=P if prompt_len is None else prompt_len,
-                    temperature=temperature, seed=seed or 0,
-                    no_speech_pos=no_speech_pos, max_gen_tokens=max_gen_tokens)
-        if routed:
-            idx.copy_(torch.as_tensor(adapter_idx, device=dev))
-        self._run(key, prog)
-        out = extras_outputs(tokens, ex)
-        return (tuple(x.clone() for x in out) if isinstance(out, tuple)
-                else out.clone())
+        with profiling.span("decode"):
+            prog = self._program(key, build)
+            tokens, finished, idx, ex = prog.static
+            tokens.fill_(self.cfg.eos_token_id)
+            tokens[:, :P] = prompts
+            finished.zero_()
+            fill_extras(ex, plen=P if prompt_len is None else prompt_len,
+                        temperature=temperature, seed=seed or 0,
+                        no_speech_pos=no_speech_pos, max_gen_tokens=max_gen_tokens)
+            if routed:
+                idx.copy_(torch.as_tensor(adapter_idx, device=dev))
+            self._run(key, prog)
+            out = extras_outputs(tokens, ex)
+            return (tuple(x.clone() for x in out) if isinstance(out, tuple)
+                    else out.clone())
 
     @torch.no_grad()
     def beam(self, cache: whisper.DecodeCache, prompts, *, num_beams: int,
@@ -413,14 +434,15 @@ class DecodeRunner:
             return _Program([body(*g) for g in segments.grid(total, segment)],
                             lambda: ~state.unsat.any(), seam, (state, idx))
 
-        prog = self._program(key, build)
-        state, idx = prog.static
-        for dst, src in zip(state, init_state(prompts, K, total, eos)):
-            dst.copy_(src)
-        if routed:
-            idx.copy_(torch.as_tensor(adapter_idx, device=dev))
-        self._run(key, prog)
-        return state.fin_seqs[:, 0].clone()
+        with profiling.span("decode"):
+            prog = self._program(key, build)
+            state, idx = prog.static
+            for dst, src in zip(state, init_state(prompts, K, total, eos)):
+                dst.copy_(src)
+            if routed:
+                idx.copy_(torch.as_tensor(adapter_idx, device=dev))
+            self._run(key, prog)
+            return state.fin_seqs[:, 0].clone()
 
     def graph_stats(self) -> dict:
         """Programs, graphs, graph nodes and capture seconds so far."""

@@ -54,6 +54,10 @@ replay the program the first one captured, whatever their language or
 task (the prompt is refilled per call). At most one is kept: other
 weights or settings drop it, its cache and its graphs first.
 
+While a profiler is active, `from_audio`'s frontend (stacking, padding,
+the copy and log-mel), `encode` and detokenization are spans
+(utils/profiling.py), beside the runner's `prep` and `decode`.
+
 The evaluator runs on the CUDA card unless `device` says otherwise (see
 sar_tpu_torch/device.py); params and the adapter on another device are
 moved to its device once, here. Results are text when a tokenizer is
@@ -82,6 +86,7 @@ from sar_tpu_torch.parallel import distributed as pdist
 from sar_tpu_torch.parallel import sharding
 from sar_tpu_torch.training.metrics import (analyze_errors, compute_metrics,
                                             compute_metrics_per_sample)
+from sar_tpu_torch.utils import profiling
 
 logger = logging.getLogger(__name__)
 
@@ -196,9 +201,10 @@ class ASREvaluator:
     @torch.no_grad()
     def encode(self, mel: torch.Tensor) -> torch.Tensor:
         """The (adapted) encoder over a batch of log-mel features."""
-        return whisper.encode(self.params, mel.to(self.device), self.cfg,
-                              lora=self.lora, lora_scale=self.lora_scale,
-                              flash=self.flash, tp=self.tp)
+        with profiling.span("encode"):
+            return whisper.encode(self.params, mel.to(self.device), self.cfg,
+                                  lora=self.lora, lora_scale=self.lora_scale,
+                                  flash=self.flash, tp=self.tp)
 
     @torch.no_grad()
     def prep(self, mel: torch.Tensor) -> whisper.DecodeCache:
@@ -245,8 +251,10 @@ class ASREvaluator:
                 prompts = pdist.put_global_batch(
                     torch.cat([prompts, prompts[-1:].expand(pad, -1)]), self.mesh,
                     device=self.device)
-        ids = transcribe_tokens(self.tokens(mel, prompts), self.cfg,
-                                prompt_len=int(self._prompt.shape[0]))
+        tokens = self.tokens(mel, prompts)
+        with profiling.span("detokenize"):
+            ids = transcribe_tokens(tokens, self.cfg,
+                                    prompt_len=int(self._prompt.shape[0]))
         if self.mesh is not None:
             ids = sharding.batch_gather_objects(ids, self.mesh)[:B]
         if self.tokenizer is None:
@@ -259,13 +267,14 @@ class ASREvaluator:
         window, log-mel on the device in the params' dtype, keep the
         encoder's `num_audio_frames` frames, then decode (with `prompts`
         [P] or [B, P] of the evaluator's prompt width, when given)."""
-        if isinstance(audio, (list, tuple)):
-            audio = mel_ops.stack_pad_audio(audio)
-        if not isinstance(audio, torch.Tensor):
-            audio = torch.from_numpy(np.asarray(audio, np.float32))
-        audio = audio.to(self.device, torch.float32)
-        feats = mel_ops.log_mel_spectrogram(
-            mel_ops.pad_or_trim(audio), self.cfg.num_mel_bins, dtype=self.dtype)
+        with profiling.span("frontend"):
+            if isinstance(audio, (list, tuple)):
+                audio = mel_ops.stack_pad_audio(audio)
+            if not isinstance(audio, torch.Tensor):
+                audio = torch.from_numpy(np.asarray(audio, np.float32))
+            audio = audio.to(self.device, torch.float32)
+            feats = mel_ops.log_mel_spectrogram(
+                mel_ops.pad_or_trim(audio), self.cfg.num_mel_bins, dtype=self.dtype)
         return self._transcribe_batch(feats[:, :, :self.cfg.num_audio_frames], prompts)
 
     def evaluate(self, dataloader, return_predictions: bool = False) -> dict:

@@ -25,6 +25,9 @@ card and exact attention on the CPU; "fq" passes through to `encode`,
 which keeps "hm" for a bank that adapts q/k/v (the usual q_proj/v_proj
 bank) and for the LID tap.
 
+While a profiler is active, `route` and `encode` are spans
+(utils/profiling.py), beside the runner's `prep` and `decode`.
+
 Teacher-forced `forward` takes the JAX router's three strategies: "hard"
 (each row through its LID-chosen adapter), "soft" (every adapter on the
 whole batch, the logits weighted by the LID probabilities and the loss
@@ -48,6 +51,7 @@ from sar_tpu_torch.models import classifier as clf
 from sar_tpu_torch.models import lora as lora_lib
 from sar_tpu_torch.models import whisper
 from sar_tpu_torch.models.config import WhisperConfig
+from sar_tpu_torch.utils import profiling
 
 
 class AdapterRouter:
@@ -108,7 +112,7 @@ class AdapterRouter:
     def route(self, input_features: torch.Tensor
               ) -> tuple[torch.Tensor, torch.Tensor]:
         """LID: (adapter_idx [B] int64, probs [B, A])."""
-        with torch.no_grad():
+        with torch.no_grad(), profiling.span("route"):
             feats = self.extract_encoder_features(input_features)
             return clf.predict(self.clf_params, self.clf_cfg, feats)
 
@@ -193,10 +197,11 @@ class AdapterRouter:
     def encode(self, input_features: torch.Tensor,
                adapter_idx: torch.Tensor) -> torch.Tensor:
         """The adapted encoder, adapter `adapter_idx[b]` for row b."""
-        return whisper.encode(self.base_params, input_features.to(self.device),
-                              self.cfg, lora=self._bank,
-                              adapter_idx=adapter_idx,
-                              lora_scale=self.lora_cfg.scale, flash=self.flash)
+        with profiling.span("encode"):
+            return whisper.encode(self.base_params, input_features.to(self.device),
+                                  self.cfg, lora=self._bank,
+                                  adapter_idx=adapter_idx,
+                                  lora_scale=self.lora_cfg.scale, flash=self.flash)
 
     @torch.no_grad()
     def cache(self, enc: torch.Tensor, adapter_idx: torch.Tensor,

@@ -21,6 +21,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from sar_tpu_torch.utils import profiling
+
 SAMPLE_RATE = 16_000
 N_FFT = 400
 HOP_LENGTH = 160
@@ -125,7 +127,13 @@ def log_mel_spectrogram(audio: torch.Tensor, num_mels: int = 80,
                         dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Batched log-mel features [B, num_mels, N_FRAMES] from audio
     [B, N_SAMPLES] (or [N_SAMPLES]) at 16 kHz, computed in fp32 on the
-    audio's device and returned in `dtype`."""
+    audio's device and returned in `dtype`. A span (`mel`) while a
+    profiler is active."""
+    with profiling.span("mel"):
+        return _log_mel(audio, num_mels).to(dtype)
+
+
+def _log_mel(audio: torch.Tensor, num_mels: int) -> torch.Tensor:
     if audio.dim() == 1:
         audio = audio[None]
     x = audio.float()
@@ -149,5 +157,4 @@ def log_mel_spectrogram(audio: torch.Tensor, num_mels: int = 80,
     # Per-clip dynamic range clamp to (max - 8), then (x + 4) / 4.
     clip_max = log_spec.amax(dim=(1, 2), keepdim=True)
     log_spec = torch.maximum(log_spec, clip_max - 8.0)
-    log_spec = (log_spec + 4.0) / 4.0
-    return log_spec.to(dtype)
+    return (log_spec + 4.0) / 4.0

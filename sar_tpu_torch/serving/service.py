@@ -35,10 +35,19 @@ service takes the router's. The worker captures with
 capture_error_mode "thread_local", while request threads run.
 
 A batch that fails hands its error to every request in it, and
-`stats()["errors"]` counts such batches. The worker runs under
-`torch.inference_mode()` itself (grad mode is per thread). The greedy
-service runs on the CUDA card unless `device` says otherwise; a routed one
-runs on the router's device, with the router's `flash` and `kernels`.
+`stats()["errors"]` counts such batches. `stats()` also gives, over the
+last 1000 requests (batches), the percentiles of the latency from submit
+to result, of the wait from submit to the start of the request's batch,
+and of a batch's wall, on time.monotonic()'s clock. While a profiler is
+active the worker records spans (utils/profiling.py): each batch as
+`serve.batch` (its trace id the batch's id, which its stages inherit),
+`serve.features`, the router's or evaluator's stages, `detokenize`, and
+each request's `serve.queue_wait` from its submit to its batch's start
+(its trace id the request's id, its parent the batch's span). The worker
+runs under `torch.inference_mode()` itself (grad mode is per thread). The
+greedy service runs on the CUDA card unless `device` says otherwise; a
+routed one runs on the router's device, with the router's `flash` and
+`kernels`.
 Results are text when a tokenizer is given, else token-id lists. A
 routed service decodes greedily: asking it for beams raises, as in the
 JAX package.
@@ -47,6 +56,7 @@ JAX package.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import logging
 import queue
 import threading
@@ -60,6 +70,7 @@ from sar_tpu_torch.decode.greedy import transcribe_tokens
 from sar_tpu_torch.evaluation.evaluator import (ASREvaluator,
                                                 quantized_decode_options)
 from sar_tpu_torch.ops import mel as mel_ops
+from sar_tpu_torch.utils import profiling
 
 logger = logging.getLogger(__name__)
 
@@ -69,7 +80,9 @@ class _Request:
     audio: np.ndarray
     language: str | None
     done: threading.Event
-    t_submit: float
+    t_submit: float                     # time.monotonic(): stats()
+    t_submit_ns: int                    # time.time_ns(): the spans' clock
+    id: int
     text: Any = None
     detected: str | None = None
     error: BaseException | None = None
@@ -149,7 +162,13 @@ class TranscriptionService:
         self._lock = threading.Lock()
         self._stats = {"requests": 0, "batches": 0, "errors": 0,
                        "rows_served": 0}
-        self._latencies: list[float] = []       # rolling, under _lock
+        # Rolling, under _lock: seconds from submit to result and to the
+        # batch's start per request, and each batch's wall.
+        self._latencies: list[float] = []
+        self._waits: list[float] = []
+        self._batch_walls: list[float] = []
+        self._ids = itertools.count()           # request ids
+        self._batches = 0                       # batch ids (the worker's)
         self._worker = threading.Thread(target=self._loop, daemon=True,
                                         name="sar-serving-worker")
         self._worker.start()
@@ -174,7 +193,8 @@ class TranscriptionService:
                 "— chunk long clips client-side")
         if language is not None and self.router is None:
             self.cfg.prompt_ids(language)   # raises for unknown languages
-        req = _Request(audio, language, threading.Event(), time.monotonic())
+        req = _Request(audio, language, threading.Event(), time.monotonic(),
+                       time.time_ns(), next(self._ids))
         self._q.put(req, block=block)
         with self._lock:
             self._stats["requests"] += 1
@@ -187,14 +207,17 @@ class TranscriptionService:
     def stats(self) -> dict[str, Any]:
         with self._lock:
             out = dict(self._stats)
-            lats = list(self._latencies)
+            rolls = {"latency_ms": list(self._latencies),
+                     "queue_wait_ms": list(self._waits),
+                     "batch_ms": list(self._batch_walls)}
         out["queue_depth"] = self._q.qsize()
         out["batch_size"] = self.batch_size
-        if lats:
-            lats.sort()
-            out["latency_ms_p50"] = round(lats[len(lats) // 2] * 1e3, 2)
-            out["latency_ms_p95"] = round(
-                lats[min(len(lats) - 1, int(len(lats) * 0.95))] * 1e3, 2)
+        for key, xs in rolls.items():
+            if xs:
+                xs.sort()
+                out[f"{key}_p50"] = round(xs[len(xs) // 2] * 1e3, 2)
+                out[f"{key}_p95"] = round(
+                    xs[min(len(xs) - 1, int(len(xs) * 0.95))] * 1e3, 2)
         return out
 
     def close(self, drain: bool = True) -> None:
@@ -246,12 +269,13 @@ class TranscriptionService:
 
     def _features(self, batch: list[_Request]) -> torch.Tensor:
         pad = self.batch_size - len(batch)
-        audio = mel_ops.stack_pad_audio(
-            [r.audio for r in batch] + [np.zeros(1, np.float32)] * pad)
-        feats = mel_ops.log_mel_spectrogram(
-            torch.from_numpy(audio).to(self.device), self.cfg.num_mel_bins,
-            dtype=self._dtype)
-        return feats[:, :, :self.cfg.num_audio_frames]
+        with profiling.span("serve.features"):
+            audio = mel_ops.stack_pad_audio(
+                [r.audio for r in batch] + [np.zeros(1, np.float32)] * pad)
+            feats = mel_ops.log_mel_spectrogram(
+                torch.from_numpy(audio).to(self.device), self.cfg.num_mel_bins,
+                dtype=self._dtype)
+            return feats[:, :, :self.cfg.num_audio_frames]
 
     def _run(self, batch: list[_Request]):
         """One batch -> (tokens [batch_size, total], detected languages)."""
@@ -272,26 +296,37 @@ class TranscriptionService:
         return self._ev.tokens(feats, prompts), [None] * n
 
     def _process(self, batch: list[_Request]) -> None:
-        try:
-            tokens, detected = self._run(batch)
-            ids = transcribe_tokens(tokens[:len(batch)], self.cfg,
-                                    prompt_len=self._prompt_len)
-            now = time.monotonic()
-            with self._lock:
-                self._stats["batches"] += 1
-                self._stats["rows_served"] += len(batch)
+        self._batches += 1
+        start = time.monotonic()
+        with profiling.span("serve.batch", trace_id=f"batch-{self._batches}") as sp:
+            if sp is not None:
                 for r in batch:
-                    self._latencies.append(now - r.t_submit)
-                del self._latencies[:-1000]
-            for req, row, det in zip(batch, ids, detected):
-                req.text = (self.tokenizer.decode(row)
-                            if self.tokenizer is not None else row)
-                req.detected = det
-                req.done.set()
-        except BaseException as e:      # noqa: BLE001 — fan the error out
-            logger.exception("serving batch failed")
-            with self._lock:
-                self._stats["errors"] += 1
-            for req in batch:
-                req.error = e
-                req.done.set()
+                    profiling.interval("serve.queue_wait", r.t_submit_ns, sp.start_ns,
+                                       trace_id=f"request-{r.id}", parent=sp.span_id)
+            try:
+                tokens, detected = self._run(batch)
+                with profiling.span("detokenize"):
+                    ids = transcribe_tokens(tokens[:len(batch)], self.cfg,
+                                            prompt_len=self._prompt_len)
+                now = time.monotonic()
+                with self._lock:
+                    self._stats["batches"] += 1
+                    self._stats["rows_served"] += len(batch)
+                    for r in batch:
+                        self._latencies.append(now - r.t_submit)
+                        self._waits.append(start - r.t_submit)
+                    self._batch_walls.append(now - start)
+                    for xs in (self._latencies, self._waits, self._batch_walls):
+                        del xs[:-1000]
+                for req, row, det in zip(batch, ids, detected):
+                    req.text = (self.tokenizer.decode(row)
+                                if self.tokenizer is not None else row)
+                    req.detected = det
+                    req.done.set()
+            except BaseException as e:      # noqa: BLE001 — fan the error out
+                logger.exception("serving batch failed")
+                with self._lock:
+                    self._stats["errors"] += 1
+                for req in batch:
+                    req.error = e
+                    req.done.set()
