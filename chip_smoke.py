@@ -48,12 +48,17 @@ eager evaluator's (capture=False) on one batch.
    decode) at the cross shape (H=12, S=1500), full and masked, with SDPA of one query row, both timed cold over
    K10_SETS k/v sets (the warm reading beside it), and two runs compared
    bit for bit. K9 and K10 have no caller in either package and launch on
-   no path.
+   no path. Last, K11 (self-attention over the classic int8 self cache)
+   against its plain version (_attention_int8 over the same slice) at
+   batch 8 and 128, a self cache of 228 rows read at position 200: error,
+   ms per call over a 12-layer sweep, byte bound and share, ptxas; then
+   its launches in a greedy loop at large-v3-turbo's decoder (random
+   weights and encoder output, batch 8, 16 new tokens): 4 per step.
 4. greedy end to end: random bf16 whisper-small (seeded), two batches of 8
    random 30 s clips through the port's ASREvaluator (mel ->
    encode(flash="hm") -> the int8 cache -> greedy, 64 new tokens), with the
-   launch counters zeroed before and read after (K3 = 12 per step run, the
-   steps and host syncs those the tokens predict); then the first batch
+   launch counters zeroed before and read after (K3 = 12 per step run, K11
+   = 12 per step run, the steps and host syncs those the tokens predict); then the first batch
    through the plain path, compared in lockstep (both paths fed the same
    tokens) and free running.
 5. routed end to end: the same model with a random 4-adapter bank (r=16,
@@ -62,14 +67,15 @@ eager evaluator's (capture=False) on one batch.
    from 4 threads to a TranscriptionService (batches of 8, 64 new tokens),
    then the service's routed program with adapters [0,1,2,3,0,1,2,3]
    with its phases fenced, all with the launch counters zeroed before and read after
-   (K1, K4, K3 > 0, K2 = 0); then the routed plain path (kernels=False,
+   (K1, K4, K3 > 0, K2 = 0; K11 = 12 per step run); then the routed plain path (kernels=False,
    flash=False) in lockstep and free running, and the LID overhead.
 6. beam evaluation end to end: 16 synthetic whisper-small items through
    the port's DataLoader and collator into ASREvaluator(num_beams=4,
    64 new tokens).evaluate after one warm-up batch, printing WER/CER (of
    random weights: the path, not the accuracy), RTFx and ms per
    token-step, with the launch counters zeroed before and read after
-   (K1, K2, K5 > 0; K3, K4 = 0); then the first batch through the plain
+   (K1, K2, K5 > 0; K3, K4 = 0; K11 = 0: the beams read the self cache
+   through the ancestry); then the first batch through the plain
    path in lockstep (both paths decode from one beam state, which the
    kernel path's selection advances) and free running.
 7. train end to end: ASRTrainer.train on random bf16 whisper-small with a
@@ -204,9 +210,10 @@ eager evaluator's (capture=False) on one batch.
 19. mixed: the six mixed-precision caches ((cross, self) precisions that
    differ: plain, int8, int4) at whisper-small, batch 8, 30 s clips, 64
    new tokens: per pair one encode (K1 12), the classic cache and the eager
-   greedy loop (no other kernel: plain torch reads both sides), then the
-   same through a DecodeRunner's CUDA graphs (captured first, then prep +
-   replay: no kernel), tokens equal, the classic steps and host syncs the
+   greedy loop (K11 12 per step on an int8 self side, no other kernel:
+   plain torch reads the rest), then the same through a DecodeRunner's
+   CUDA graphs (captured first, then prep + replay: K11 alone, as eager),
+   tokens equal, the classic steps and host syncs the
    tokens predict, ms per token-step and the cache's bytes; then 4 beams
    for (int8, plain) (ancestry) and (int8, int4) (physical reorder), eager
    against captured, tokens equal.
@@ -346,6 +353,12 @@ S8_KERNEL_WIDTHS = (1, S8_BEAM_WIDTH, 8)   # K7's widths checked and timed in ph
 # absolute and relative errors pass the K7 limits (its outputs reach ~3,
 # where one bf16 ulp is 1.6e-2).
 K9_LENGTHS = (1, 67, 448)
+# K11 at the evaluation cell's self cache (a 4-token prompt and 224 new
+# tokens: 228 rows), read at position K11_POS, at BATCH and K11_BIG_BATCH.
+K11_LEN, K11_POS, K11_BIG_BATCH = 228, 200, 128
+# And its launches per step at large-v3-turbo's decoder, over this many new
+# tokens.
+K11_TURBO, K11_TURBO_TOKENS = "whisper-large-turbo", 16
 K10_MASKED_LEN = 750
 # K10 and its SDPA yardstick are timed cold: one call per set over
 # K10_SETS independent k/v sets of the cross shape (5 x 36.9 MB, past the
@@ -800,7 +813,89 @@ def phase_kernels(cfg, device, batch):
                          extra={"cluster": C, "slice_rows": rows_per, **k7_extra[K],
                                 "other_widths": {W: {**v, **k7_extra[W]} for W, v in k7.items()
                                                  if W != K}}))
+    del kq, ks, vq, vs, got
+    rows.append(phase_k11(cfg, device, batch))
     return rows
+
+
+def phase_k11(cfg, device, batch) -> dict:
+    """K11 (self-attention over the classic int8 self cache) against its
+    plain version (_attention_int8 over the same slice) at whisper-small,
+    batch `batch` and K11_BIG_BATCH (the evaluation cell's), a self cache of
+    K11_LEN rows (224 new tokens after a 4-token prompt) read at position
+    K11_POS: every layer checked, each call timed over a 12-layer sweep (the
+    layers' caches exceed the 50 MB L2 at the larger batch, as in the decode
+    loop). Bound: the int8 rows 0..pos of K and V with their fp32 scales,
+    plus q and the output, over the HBM rate. Then K11's launches in a
+    greedy loop at K11_TURBO's decoder: one per layer of every step."""
+    import torch
+    from sar_tpu_torch.models.whisper import quantize_kv
+    from sar_tpu_torch.ops import decode_self_exact as dse
+
+    g = torch.Generator(device=device).manual_seed(SEED + 11)
+    L, H = cfg.decoder_layers, cfg.decoder_heads
+    hd = cfg.d_model // H
+    T, pos = K11_LEN, K11_POS
+    by_batch = {}
+    for B in (batch, K11_BIG_BATCH):
+        kq, ks = quantize_kv(torch.randn((L, B, H, T, hd), generator=g, device=device))
+        vq, vs = quantize_kv(torch.randn((L, B, H, T, hd), generator=g, device=device))
+        q = (torch.randn((B, H, 1, hd), generator=g, device=device) * hd ** -0.5).to(
+            torch.bfloat16)
+        abs_err, rel_err = 0.0, 0.0
+        for layer in range(L):
+            o = dse.self_decode_attention_exact(q, kq, ks, vq, vs, layer=layer, pos=pos, n=T)
+            r = dse.self_decode_reference_exact(q, kq, ks, vq, vs, layer=layer, pos=pos, n=T)
+            a, rr = _attn_errors(o, r)
+            abs_err, rel_err = max(abs_err, a), max(rel_err, rr)
+        torch.cuda.synchronize()
+
+        def sweep(fn):
+            return lambda: [fn(q, kq, ks, vq, vs, layer=layer, pos=pos, n=T)
+                            for layer in range(L)]
+        ms = time_cuda(sweep(dse.self_decode_attention_exact)) / L
+        plain_ms = time_cuda(sweep(dse.self_decode_reference_exact)) / L
+        nbytes = B * H * ((pos + 1) * 2 * (hd + 4) + 2 * hd * 2)
+        b_ms, b_by = bound(4.0 * B * H * (pos + 1) * hd, nbytes)
+        regs = ptxas_of("self_decode_exact_kernel")
+        print(f"K11 self_decode_attention_exact [B={B}, H={H}, T={T}, pos={pos}, all {L} "
+              f"layers] bf16 q, s8 self cache: max_abs_err {abs_err:.3e} max_rel_err "
+              f"{rel_err:.3e} (tol {ATTN_ABS_TOL}) | per call over a {L}-layer sweep: kernel "
+              f"{ms:.4f} ms plain {plain_ms:.4f} ms | {nbytes / 1e6:.2f} MB of int8 rows + "
+              f"scales -> {nbytes / 1e6 / ms:.1f} GB/s | bound {b_ms:.4f} ms ({b_by}) = "
+              f"{100 * b_ms / ms:.1f}% | ptxas {regs} | library: none (no PyTorch call takes "
+              f"int8 K/V with per-row scales)")
+        if abs_err > ATTN_ABS_TOL or rel_err > ATTN_REL_TOL:
+            fail(f"K11 (B={B}) disagrees with its plain version")
+        by_batch[B] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                           bound_by=b_by, share=b_ms / ms, gbps=nbytes / 1e6 / ms)
+        del kq, ks, vq, vs, q
+
+    # The dispatch at large-v3-turbo's decoder (4 layers, 20 heads): the
+    # greedy loop over its int8 head-minor cache, from a random encoder
+    # output, launches K11 once per layer of every step run.
+    from sar_tpu_torch.decode.greedy import greedy_decode_from_cache
+    from sar_tpu_torch.models import whisper
+    from sar_tpu_torch.models.config import get_config
+    tcfg = get_config(K11_TURBO)
+    tparams = whisper.cast_params(whisper.init_params(tcfg, g, device), torch.bfloat16)
+    enc = (torch.randn((batch, tcfg.max_source_positions, tcfg.d_model), generator=g,
+                       device=device) * 0.5).to(torch.bfloat16)
+    prompt = tcfg.prompt_ids("hindi")
+    cache = whisper.init_cache(tparams, enc, tcfg, len(prompt) + K11_TURBO_TOKENS, **INT8)
+    reset_counts()
+    greedy_decode_from_cache(tparams, cache, tcfg, prompt)
+    torch.cuda.synchronize()
+    c, steps = read_counts(), read_steps()["greedy"]
+    check_k11(f"{K11_TURBO} greedy, batch {batch}, {steps} steps", c,
+              tcfg.decoder_layers * steps)
+    del tparams, enc, cache
+    row = by_batch[batch]
+    return dict(name=K11_NAME, route="cuda", source="sar_tpu_torch/csrc/decode_self_exact.cu",
+                replaces="none: sar_tpu/models/whisper.py::_attention_int8 is plain jnp",
+                library_ms=None, **{k: v for k, v in row.items() if k not in ("share", "gbps")},
+                extra={"T": T, "pos": pos, "share": row["share"], "gbps": row["gbps"],
+                       "big_batch": {K11_BIG_BATCH: by_batch[K11_BIG_BATCH]}})
 
 
 # K6 at the three attentions of a whisper-small training step: (label, Tq,
@@ -1160,6 +1255,11 @@ OFF_PATH = ("encoder_attention_fused", "self_decode_attention", "decode_attentio
 KERNEL_NAMES = ("encoder_attention_hm", "fused_kv_init", "fused_kv_init_lora",
                 "cross_decode_attention_exact", "cross_decode_attention_exact_beam",
                 *K6_NAMES, *K7_NAMES, *OFF_PATH)
+# K11 (the int8 self-attention decode) is counted on every path and held
+# to its count by check_k11 in the greedy, routed, beam and mixed phases;
+# check_counts keeps to KERNEL_NAMES.
+K11_NAME = "self_decode_attention_exact"
+COUNTED_NAMES = (*KERNEL_NAMES, K11_NAME)
 INT8 = dict(cross_kv_int8=True, self_kv_int8=True)   # the int8 head-minor cache
 
 
@@ -1167,10 +1267,12 @@ def reset_counts():
     """Every kernel's launch counter, the decode steps by path and the
     decode loops' host syncs to 0."""
     from sar_tpu_torch.decode import segments
-    from sar_tpu_torch.ops import decode_cross, flash, flash_enc, kv_init
+    from sar_tpu_torch.ops import (decode_cross, decode_self_exact, flash, flash_enc,
+                                   kv_init)
     from sar_tpu_torch.ops.attic import attention, decode_self
     segments.STEPS.update(dict.fromkeys(segments.STEPS, 0))
     segments.HOST_SYNCS = 0
+    decode_self_exact.LAUNCHES = 0
     flash_enc.LAUNCHES = flash_enc.FUSED_LAUNCHES = 0
     kv_init.LAUNCHES = kv_init.LORA_LAUNCHES = 0
     decode_cross.LAUNCHES = decode_cross.BEAM_LAUNCHES = 0
@@ -1180,16 +1282,16 @@ def reset_counts():
 
 
 def read_counts() -> dict:
-    from sar_tpu_torch.ops import decode_cross, flash, flash_enc, kv_init
+    from sar_tpu_torch.ops import decode_cross, decode_self_exact, flash, flash_enc, kv_init
     from sar_tpu_torch.ops.attic import attention, decode_self
-    return dict(zip(KERNEL_NAMES, (flash_enc.LAUNCHES, kv_init.LAUNCHES,
+    return dict(zip(COUNTED_NAMES, (flash_enc.LAUNCHES, kv_init.LAUNCHES,
                                    kv_init.LORA_LAUNCHES, decode_cross.LAUNCHES,
                                    decode_cross.BEAM_LAUNCHES, flash.LAUNCHES,
                                    flash.DQ_LAUNCHES, flash.DKV_LAUNCHES,
                                    decode_cross.S8_LAUNCHES,
                                    decode_cross.S8_BEAM_LAUNCHES,
                                    flash_enc.FUSED_LAUNCHES, decode_self.LAUNCHES,
-                                   attention.LAUNCHES)))
+                                   attention.LAUNCHES, decode_self_exact.LAUNCHES)))
 
 
 def read_steps() -> dict:
@@ -1208,6 +1310,14 @@ def check_counts(path: str, counts: dict, want_zero: tuple) -> None:
     extra = [k for k in want_zero if counts[k] != 0]
     if extra:
         fail(f"the {path} path launched {', '.join(extra)}, which is not on it")
+
+
+def check_k11(path: str, counts: dict, want: int) -> None:
+    """K11 launched `want` times on `path`: once per layer of every step
+    over a classic int8 self side without scores_int8 or ancestry, else 0."""
+    print(f"{path}: K11 {K11_NAME} launched {counts[K11_NAME]} times (the design: {want})")
+    if counts[K11_NAME] != want:
+        fail(f"{path}: K11 launched {counts[K11_NAME]} times, not {want}")
 
 
 def check_steps(path: str, counts: dict, steps: dict, want_steps: int, want_syncs: int,
@@ -1309,6 +1419,7 @@ def phase_e2e(cfg, params, n_params, device, batch, n_batches, max_new_tokens,
                                               *K7_NAMES, *OFF_PATH))
     check_steps("greedy", counts, run_steps, sum(o[1] for o in outs), syncs,
                 "cross_decode_attention_exact", cfg.decoder_layers)
+    check_k11("greedy", counts, cfg.decoder_layers * run_steps["greedy"])
     # The captured loop against the eager one on the replayed batch 0.
     eager = ASREvaluator(cfg, params, language=language, max_new_tokens=max_new_tokens,
                          device=device, capture=False)
@@ -1460,6 +1571,7 @@ def phase_routed(cfg, params, device, batch, max_new_tokens, profile=False):
         fail(f"routed: K3 {counts['cross_decode_attention_exact']} for "
              f"{run_steps['greedy']} steps, {run_steps['host_syncs']} host syncs for "
              f"{st['batches'] + 1} batches")
+    check_k11("routed", counts, cfg.decoder_layers * run_steps["greedy"])
     eager = AdapterRouter(cfg, params, bank, lcfg, router.clf_params, ccfg, device=device,
                           capture=False)
     check_captured_equals_eager("routed", tok_k, eager.decode(eager.encode(feats, idx), idx,
@@ -1574,6 +1686,7 @@ def phase_beam(cfg, params, device, batch, max_new_tokens, profile=False):
                                             *K7_NAMES, *OFF_PATH))
     if counts["cross_decode_attention_exact_beam"] != steps[0] * cfg.decoder_layers:
         fail("K5 was not launched once per layer of every beam decode step")
+    check_k11("beam (the self cache read through the ancestry)", counts, 0)
 
     # The first batch fenced: encoder, then beam_decode (cache + loop).
     def fenced(fn):
@@ -1758,6 +1871,7 @@ def phase_s8(cfg, params, device, batch, n_batches, max_new_tokens, profile=Fals
           f"{json.dumps(c_greedy)}")
     check_counts("s8 greedy", c_greedy,
                  want_zero=tuple(k for k in others if k != "cross_decode_attention"))
+    check_k11("s8 greedy (scores_int8)", c_greedy, 0)
     if c_greedy["cross_decode_attention"] != L * n_steps:
         fail(f"s8 greedy: K7 launched {c_greedy['cross_decode_attention']} times in "
              f"{n_steps} decode steps, not {L} per step")
@@ -1826,6 +1940,7 @@ def phase_s8(cfg, params, device, batch, n_batches, max_new_tokens, profile=Fals
           f"{json.dumps(c_beam)}")
     check_counts("s8 beam", c_beam,
                  want_zero=tuple(k for k in others if k != "cross_decode_attention_beam"))
+    check_k11("s8 beam (scores_int8)", c_beam, 0)
     if c_beam["cross_decode_attention_beam"] != L * n_beam:
         fail(f"s8 beam: K7 launched {c_beam['cross_decode_attention_beam']} times in "
              f"{n_beam} decode steps, not {L} per step")
@@ -1893,7 +2008,7 @@ def phase_s8(cfg, params, device, batch, n_batches, max_new_tokens, profile=Fals
           f"{(tok4 == tok_x).all(1).float().mean().item():.4f}, tokens equal "
           f"{(tok4[:, P:] == tok_x[:, P:]).float().mean().item():.4f} | launches "
           f"{json.dumps(c_int4)}")
-    return {k: c_greedy[k] + c_beam[k] + c_int4[k] for k in KERNEL_NAMES}
+    return {k: c_greedy[k] + c_beam[k] + c_int4[k] for k in COUNTED_NAMES}
 
 
 def _cross_reference_fp64(q, kq, ks, vq, vs, *, layer, n_heads, out_dtype=None):
@@ -2373,7 +2488,7 @@ def phase_graphs(cfg, params, device, batch, profile=False):
     feats = [mel_ops.log_mel_spectrogram(a, cfg.num_mel_bins, dtype=torch.bfloat16)[
         :, :, :cfg.num_audio_frames] for a in audio]
     L, K = cfg.decoder_layers, BEAM_WIDTH
-    total_counts = dict.fromkeys(KERNEL_NAMES, 0)
+    total_counts = dict.fromkeys(COUNTED_NAMES, 0)
     t_phase = time.perf_counter()
 
     def decode(ev, f):
@@ -2446,7 +2561,7 @@ def phase_graphs(cfg, params, device, batch, profile=False):
                      f"predict {want_run} steps")
         if c_e != c_c or c_c[kernel] != L * runs["captured"][0][3]:
             fail(f"graphs {label}: captured launches {c_c}, eager {c_e}")
-        for k in KERNEL_NAMES:
+        for k in COUNTED_NAMES:
             total_counts[k] += sum(r[5][k] for r in runs["captured"])
         if profile and beams == 1 and new == GRAPH_TOKENS[0]:
             for name, ev in (("captured", cap), ("eager", eager)):
@@ -2516,7 +2631,7 @@ def phase_bench(cfg, device):
             ("train", ["--train", "--train_accum", "2"]),
             ("routed", ["--routed", "--routed_lid_layer", str(LID_LAYER)]),
             ("serving", ["--serving", "--serving_requests", str(BENCH_SERVING_REQUESTS)])]
-    total = dict.fromkeys(KERNEL_NAMES, 0)
+    total = dict.fromkeys(COUNTED_NAMES, 0)
     t_phase = time.perf_counter()
     for name, extra in rows:
         torch.cuda.synchronize()
@@ -3042,7 +3157,7 @@ def phase_transcribe(cfg, params, device, work):
           f"{native.ACTIVE_PATH}) -> {windows} windows of 30 s")
     if windows != 3 or len(audio) != TRANSCRIBE_SECONDS * 16000:
         fail(f"transcribe: {len(audio)} samples, {windows} windows")
-    total = dict.fromkeys(KERNEL_NAMES, 0)
+    total = dict.fromkeys(COUNTED_NAMES, 0)
     temps = fallback.DEFAULT_TEMPERATURES
 
     def counted(fn):
@@ -3329,7 +3444,7 @@ def phase_stream(cfg, params, device):
              * 0.1).astype(np.float32)
     step = STREAM_CHUNK_SECONDS * sr
     chunks = [audio[s:s + step] for s in range(0, len(audio), step)]
-    total = dict.fromkeys(KERNEL_NAMES, 0)
+    total = dict.fromkeys(COUNTED_NAMES, 0)
     E, L = cfg.encoder_layers, cfg.decoder_layers
     for kv_int8 in (False, True):
         label = f"stream ({'int8' if kv_int8 else 'default'} cache)"
@@ -3468,7 +3583,7 @@ def phase_serve(cfg, params, device, work):
 
     work = Path(work)
     tok = CharTokenizer(cfg)
-    total = dict.fromkeys(KERNEL_NAMES, 0)
+    total = dict.fromkeys(COUNTED_NAMES, 0)
     E, L = cfg.encoder_layers, cfg.decoder_layers
     langs = list(TARGET_LANGUAGES)
     bodies = [_wav_bytes(SERVE_SECONDS, 16000, 1, SEED + 20 + i) for i in range(SERVE_CLIENTS)]
@@ -3598,7 +3713,7 @@ def phase_mesh(cfg, params, device):
               f"{sharding.mesh_device(mesh)}, axes {pdist.axis_sizes(mesh)} (two ranks "
               f"cannot share the one card under NCCL: world > 1 runs in the CPU tests "
               f"over gloo, tests/test_torch_parallel.py)")
-        total = dict.fromkeys(KERNEL_NAMES, 0)
+        total = dict.fromkeys(COUNTED_NAMES, 0)
 
         def add(c):
             for k in total:
@@ -3768,11 +3883,12 @@ def phase_mixed(cfg, params, device, batch, max_new_tokens):
     30 s clips (the greedy cell's), `max_new_tokens`: for each of the six
     (cross, self) pairs whose sides differ (MIXED_PAIRS), one encode (K1)
     and the cache, then the eager greedy loop (greedy_decode_from_cache)
-    with the counters zeroed before and read after (K1 12, no other
-    kernel: the classic layout reads both sides in plain torch; the classic
-    steps and host syncs those the tokens predict), then the same through
-    one DecodeRunner with CUDA graphs (its capture pass first, uncounted;
-    then prep + replay: no kernel, the same steps), tokens equal; ms per
+    with the counters zeroed before and read after (K1 12, K11 12 per step
+    on an int8 self side, no other kernel: the classic layout reads the
+    rest in plain torch; the classic steps and host syncs those the tokens
+    predict), then the same through one DecodeRunner with CUDA graphs (its
+    capture pass first, uncounted; then prep + replay: K11 as eager, the
+    same steps), tokens equal; ms per
     token-step of each and the cache's bytes. Then beams of BEAM_WIDTH for
     MIXED_BEAM_PAIRS (ancestry and physical reorder), one encode (K1 12)
     and eager beam_decode against the runner's captured beam, tokens equal.
@@ -3794,7 +3910,7 @@ def phase_mixed(cfg, params, device, batch, max_new_tokens):
     total = min(P + max_new_tokens, cfg.max_target_positions)
     K = BEAM_WIDTH
     card = card_line()
-    total_counts = dict.fromkeys(KERNEL_NAMES, 0)
+    total_counts = dict.fromkeys(COUNTED_NAMES, 0)
     runner = DecodeRunner(params, cfg, capture=CudaGraphCapture)
 
     def fenced(fn):
@@ -3804,22 +3920,24 @@ def phase_mixed(cfg, params, device, batch, max_new_tokens):
         torch.cuda.synchronize()
         return out, time.perf_counter() - t
 
-    def counted(label, fn, want_k1):
+    def counted(label, fn, want_k1, k11_per_step=0):
         """fn() with the counters zeroed before and read after: K1 at
-        `want_k1`, no other kernel."""
+        `want_k1`, K11 at `k11_per_step` per classic step run, no other
+        kernel."""
         torch.cuda.synchronize()
         reset_counts()
         out = fn()
         torch.cuda.synchronize()
         c, st = read_counts(), read_steps()
-        for k in KERNEL_NAMES:
+        for k in COUNTED_NAMES:
             total_counts[k] += c[k]
         if c["encoder_attention_hm"] != want_k1 or any(
-                v for k, v in c.items() if k != "encoder_attention_hm"):
+                v for k, v in c.items() if k not in ("encoder_attention_hm", K11_NAME)):
             fail(f"{label}: launches {json.dumps({k: v for k, v in c.items() if v})}, the "
-                 f"design says K1 = {want_k1} and no other kernel")
+                 f"design says K1 = {want_k1} and no other kernel but K11")
         if any(st[k] for k in ("greedy", "beam", "s8")):
             fail(f"{label}: steps {st}: a mixed cache's steps are classic ones")
+        check_k11(label, c, k11_per_step * st["classic"])
         return out, st
 
     for pair, flags in MIXED_PAIRS.items():
@@ -3833,7 +3951,11 @@ def phase_mixed(cfg, params, device, batch, max_new_tokens):
             return enc, cache, fenced(lambda: greedy_decode_from_cache(params, cache, cfg,
                                                                        prompt))
 
-        (enc, cache, (tok_e, s_e)), st_e = counted(f"{label} eager", eager, cfg.encoder_layers)
+        # An int8 self side goes through K11 (12 per step); an int4 or
+        # plain one through plain torch.
+        k11 = cfg.decoder_layers if pair[1] == "int8" else 0
+        (enc, cache, (tok_e, s_e)), st_e = counted(f"{label} eager", eager, cfg.encoder_layers,
+                                                   k11)
         nbytes = sum(x.numel() * x.element_size() for x in cache if x is not None)
         cross_b = sum(x.numel() * x.element_size() for x in
                       (cache.cross_k, cache.cross_v, cache.cross_k_scale, cache.cross_v_scale)
@@ -3845,7 +3967,7 @@ def phase_mixed(cfg, params, device, batch, max_new_tokens):
             return fenced(lambda: runner.greedy(cache, prompt))
 
         replay()                                                     # the capture pass
-        (tok_c, s_c), st_c = counted(f"{label} captured", replay, 0)
+        (tok_c, s_c), st_c = counted(f"{label} captured", replay, 0, k11)
         check_captured_equals_eager(label, tok_c, tok_e)
         needed, run = decode_steps(tok_e, cfg, P)
         for name, st in (("eager", st_e), ("captured", st_c)):

@@ -103,12 +103,14 @@ def resolve_capture(capture: bool | None, device: torch.device,
 def _counters() -> list[tuple[dict, str]]:
     """Every (namespace, name) of an integer counter that a decode body
     moves in Python: the kernels' launch counters and the step counters."""
-    from sar_tpu_torch.ops import decode_cross, flash, flash_enc, kv_init
+    from sar_tpu_torch.ops import (decode_cross, decode_self_exact, flash,
+                                   flash_enc, kv_init)
     from sar_tpu_torch.ops.attic import attention, decode_self
     launches = {flash_enc: ("LAUNCHES", "FUSED_LAUNCHES"),
                 kv_init: ("LAUNCHES", "LORA_LAUNCHES"),
                 decode_cross: ("LAUNCHES", "BEAM_LAUNCHES", "S8_LAUNCHES",
                                "S8_BEAM_LAUNCHES"),
+                decode_self_exact: ("LAUNCHES",),
                 flash: ("LAUNCHES", "DQ_LAUNCHES", "DKV_LAUNCHES"),
                 decode_self: ("LAUNCHES",), attention: ("LAUNCHES",)}
     return ([(vars(m), n) for m, names in launches.items() for n in names]

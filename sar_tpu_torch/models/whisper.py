@@ -77,6 +77,7 @@ from sar_tpu_torch.ops.decode_cross import (cross_decode_attention,
                                             cross_decode_reference,
                                             cross_decode_reference_exact,
                                             int_einsum)
+from sar_tpu_torch.ops.decode_self_exact import self_decode_attention_exact
 from sar_tpu_torch.ops.flash_enc import (encoder_attention_fused,
                                          encoder_attention_fused_reference,
                                          encoder_attention_hm,
@@ -1319,11 +1320,14 @@ def decode_step(params: Params, tokens: torch.Tensor, pos: int,
     reads each side as its own): a side without scales by plain
     `attention`, an int4 side (told apart by its hd/2 axis) by
     `_attention_int4`, a classic int8 side by `_attention_int8`
-    (`_attention_int8_mxu` with `scores_int8`). The cross path over the int8
-    head-minor cache (4-d slabs) goes through a decode kernel
-    (ops/decode_cross.py): K3/K5, or K7 with `scores_int8`; `kernels=False`
-    runs the kernels' plain versions on any device. `scores_int8` needs both
-    sides int8; `ancestry` takes no int4 self side.
+    (`_attention_int8_mxu` with `scores_int8`). The int8 self side, without
+    `scores_int8` or `ancestry` and with kernels=True, goes through
+    ops/decode_self_exact.py (kernel K11 on the card, `_attention_int8` on
+    the CPU). The cross path over the int8 head-minor cache (4-d slabs)
+    goes through a decode kernel (ops/decode_cross.py): K3/K5, or K7 with
+    `scores_int8`; `kernels=False` runs the kernels' plain versions on any
+    device. `scores_int8` needs both sides int8; `ancestry` takes no int4
+    self side.
     `lora` adapts the decoder hooks it holds (self_q/k/v/o, cross_q/o;
     cross_k/v live in the cache), per row when `adapter_idx` is given.
 
@@ -1377,6 +1381,7 @@ def decode_step(params: Params, tokens: torch.Tensor, pos: int,
     cross = cross_decode_attention_exact if kernels else cross_decode_reference_exact
     self_attn = (_attention_int4 if self_int4 else
                  _attention_int8_mxu if scores_int8 else _attention_int8)
+    self_kernel = kernels and not (self_plain or self_int4 or scores_int8)
     quant = quantize_kv4 if self_int4 else quantize_kv
     dec_lora = lora.get("decoder") if lora else None
     ctx = lora_ctx(dec_lora, adapter_idx, lora_scale, dtype)
@@ -1410,6 +1415,10 @@ def decode_step(params: Params, tokens: torch.Tensor, pos: int,
             if ancestry is not None:
                 a = _self_attention_beam(split_heads(q, H), sk, sv, sks, svs,
                                          ancestry, pos, beam_width)
+            elif self_kernel:
+                a = self_decode_attention_exact(
+                    split_heads(q, H), cache.self_k, cache.self_k_scale,
+                    cache.self_v, cache.self_v_scale, layer=l, pos=pos, n=n)
             else:
                 a = self_attn(split_heads(q, H), sk, sks, sv, svs, mask=pos_mask)
         x = x + _row_proj(merge_heads(a), p["self_o"], lo.get("self_o"), ctx, tp=tp)

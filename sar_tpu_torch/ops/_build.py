@@ -93,6 +93,9 @@ SIGNATURES = {
                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # S, length_mask (K9's split if not 0) -> the cluster size K7/K9 launch
     "sar_s8_cluster_size": [_I, _I],
+    # q, kq, ks, vq, vs, out, L, B, H, T, hd, layer, pos, device, stream
+    "sar_self_decode_exact": [_P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

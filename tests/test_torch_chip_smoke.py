@@ -40,7 +40,7 @@ def test_build_key_covers_every_source():
     from sar_tpu_torch.ops import _build
     names = {p.name for p in _build.sources()}
     assert {"flash_enc.cu", "kv_init.cu", "decode_cross.cu", "decode_s8.cu",
-            "flash_attn.cu", "decode_attention.cu",
+            "flash_attn.cu", "decode_attention.cu", "decode_self_exact.cu",
             "common.cuh", "mma.cuh", "cluster.cuh"} <= names
     assert _build.source_hash() == _build.source_hash()
     assert set(_build.SIGNATURES) == {"sar_encoder_attention_hm",
@@ -52,7 +52,8 @@ def test_build_key_covers_every_source():
                                       "sar_cross_decode_s8", "sar_s8_cluster_size",
                                       "sar_flash_attn_fwd", "sar_flash_attn_bwd_dkv",
                                       "sar_flash_attn_bwd_dq", "sar_self_decode_s8",
-                                      "sar_decode_attention", "sar_s8_decode_probe"}
+                                      "sar_decode_attention", "sar_s8_decode_probe",
+                                      "sar_self_decode_exact"}
     for name in _build.SIGNATURES:
         assert f'extern "C" int {name}(' in "".join(
             p.read_text() for p in _build.sources())
