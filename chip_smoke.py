@@ -54,6 +54,17 @@ eager evaluator's (capture=False) on one batch.
    ms per call over a 12-layer sweep, byte bound and share, ptxas; then
    its launches in a greedy loop at large-v3-turbo's decoder (random
    weights and encoder output, batch 8, 16 new tokens): 4 per step.
+   Then K12 (the E-Branchformer's depthwise time convolution with its
+   zero padding, bias and gate or residual fused) and K13 (LayerNorm of
+   bf16 rows) at OWSM v4 medium's encoder shapes, batch 128, T 768 with
+   749 valid frames: K12 over the cgMLP's gate half (C 2048, gated by a
+   view of the [.., 4096] activation) and the merge (C 2048, residual),
+   the pad rows NaN; K13 at D 1024 over the padded rows and over the first
+   749 frames read in place, and at D 2048 over the second half of a
+   [.., 4096] activation; each value within one bf16 step of the plain
+   version's, ms, the plain version's ms, a library call computing the
+   same (F.conv1d(groups=C) in bf16 with its epilogue; F.layer_norm in
+   bf16) and the bound (operations over the fp32 rate, bytes over HBM).
 4. greedy end to end: random bf16 whisper-small (seeded), two batches of 8
    random 30 s clips through the port's ASREvaluator (mel ->
    encode(flash="hm") -> the int8 cache -> greedy, 64 new tokens), with the
@@ -217,7 +228,18 @@ eager evaluator's (capture=False) on one batch.
    tokens predict, ms per token-step and the cache's bytes; then 4 beams
    for (int8, plain) (ancestry) and (int8, int4) (physical reorder), eager
    against captured, tokens equal.
-20. result: one JSON line with every kernel's numbers, then the last line
+20. owsm: OWSM v4 medium at its published widths (seeded random bf16
+   weights of benchmarks/weights_owsm.py in the port's serving form)
+   through ASREvaluator.from_audio as the owsm.eval.short cell runs it
+   (ESPnet log-mel, the E-Branchformer encoder, the int8 cache, flash
+   "auto", the captured greedy loop): OWSM_BATCHES batches of OWSM_BATCH
+   seeded clips of 2-10 s, a language per row, 48 new tokens, after a
+   warm-up batch, with the launch counters zeroed before and read after
+   (per batch K12 2 per block, K13 6 per block + 1, K1 1 per block, K2 1;
+   K3 and K11 one per decoder layer of every step run; no other kernel),
+   the steps and host syncs the tokens predict, RTFx; then the captured
+   ids against an eager evaluator's on batch 0.
+21. result: one JSON line with every kernel's numbers, then the last line
    {"ok": true, "device": {...}}.
 
 With --kernels-only, it runs phases 1-3 and prints the kernel table
@@ -268,6 +290,7 @@ PROFILE_STEPS = 10
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
+PEAK_FP32_FLOPS = 67e12      # the CUDA cores' fp32 rate: K12 and K13 sum there
 TIMING_RUNS = 20
 SPIN_CYCLES = 50_000_000  # ~25 ms at the H100's clock: longer than any fn's host dispatch
 # Tolerances, kernel vs its plain version on the same bf16 inputs. K1/K3:
@@ -360,6 +383,16 @@ K11_LEN, K11_POS, K11_BIG_BATCH = 228, 200, 128
 # tokens.
 K11_TURBO, K11_TURBO_TOKENS = "whisper-large-turbo", 16
 K10_MASKED_LEN = 750
+# K12 and K13 at OWSM_MODEL's encoder, batch OWSM_KERNEL_BATCH (the
+# owsm.eval.short cell's). Both sum in fp32, in another order than their
+# plain versions, and round once to bf16, which can put the two on either
+# side of a rounding boundary: a value may sit one bf16 step (2^-7 of it)
+# plus BF16_STEP_FLOOR from the plain version's, and no further.
+OWSM_MODEL, OWSM_KERNEL_BATCH = "owsm-v4-medium", 128
+BF16_STEP, BF16_STEP_FLOOR = 2.0 ** -7, 1e-5
+# The owsm phase: OWSM_BATCHES batches of OWSM_BATCH clips of
+# OWSM_SECONDS, OWSM_NEW_TOKENS new tokens (the cell's).
+OWSM_BATCH, OWSM_BATCHES, OWSM_NEW_TOKENS, OWSM_SECONDS = 16, 2, 48, (2.0, 10.0)
 # K10 and its SDPA yardstick are timed cold: one call per set over
 # K10_SETS independent k/v sets of the cross shape (5 x 36.9 MB, past the
 # H100's 50 MB L2), so no call finds its k/v in L2. The warm reading (one
@@ -898,6 +931,116 @@ def phase_k11(cfg, device, batch) -> dict:
                        "big_batch": {K11_BIG_BATCH: by_batch[K11_BIG_BATCH]}})
 
 
+def _step_errors(got, want) -> tuple[float, int]:
+    """(max |got - want|, the values further apart than one bf16 step of
+    the plain version's value plus BF16_STEP_FLOOR) over finite outputs."""
+    got, want = got.float(), want.float()
+    if not bool(got.isfinite().all()):
+        return float("inf"), got.numel()
+    d = (got - want).abs()
+    return d.max().item(), int((d > BF16_STEP * want.abs() + BF16_STEP_FLOOR).sum())
+
+
+def phase_k12_k13(device) -> list:
+    """K12 and K13 against their plain versions at OWSM_MODEL's encoder
+    shapes, batch OWSM_KERNEL_BATCH, T padded to 768 with 749 valid frames
+    (the module docstring's phase 3): errors, ms, the plain version's ms,
+    the library call's ms and the bound. Both kernels' bounds count the
+    valid frames, as benchmarks/counts/owsm.py does."""
+    import torch
+    import torch.nn.functional as F
+
+    from sar_tpu_torch.models.config import get_config
+    from sar_tpu_torch.models.whisper import cross_pad_len
+    from sar_tpu_torch.ops import dwconv
+    from sar_tpu_torch.ops import layer_norm as ln_ops
+
+    cfg = get_config(OWSM_MODEL)
+    g = torch.Generator(device=device).manual_seed(SEED + 12)
+    bf16 = torch.bfloat16
+    B, S, D = OWSM_KERNEL_BATCH, cfg.max_source_positions, cfg.d_model
+    T = cross_pad_len(S)
+    rows = []
+
+    def randn(*shape, std=1.0, mean=0.0):
+        return (torch.randn(shape, generator=g, device=device) * std + mean).to(bf16)
+
+    k12 = {}
+    for case, C, K, gated in (("cgmlp gate", cfg.cgmlp_dim // 2, cfg.cgmlp_kernel, True),
+                              ("merge", 2 * D, cfg.merge_kernel, False)):
+        x = randn(B, T, C)
+        x[:, S:] = float("nan")                 # pad rows: read as zeros, never summed
+        w, b = randn(C, 1, K, std=0.2), randn(C, std=0.1)
+        gate = randn(B, T, 2 * C)[..., :C] if gated else None
+        kw = dict(t_valid=S, gate=gate, residual=not gated)
+        got = dwconv.depthwise_conv_time(x, w, b, **kw)
+        want = dwconv.depthwise_conv_time_reference(x, w, b, **kw)
+        torch.cuda.synchronize()
+        abs_err, apart = _step_errors(got[:, :S], want[:, :S])
+
+        def library(x=x, w=w, b=b, gate=gate, C=C, K=K):
+            """F.conv1d(groups=C) in bf16 over the masked input on the
+            [B, C, T] layout, then the epilogue in bf16."""
+            xm = torch.where(torch.arange(T, device=device)[None, :, None] < S, x, 0.0)
+            y = F.conv1d(xm.transpose(1, 2), w, b, padding=K // 2, groups=C).transpose(1, 2)
+            return y * gate if gate is not None else y + xm
+        ms = time_cuda(lambda: dwconv.depthwise_conv_time(x, w, b, **kw))
+        plain_ms = time_cuda(lambda: dwconv.depthwise_conv_time_reference(x, w, b, **kw))
+        lib_ms = time_cuda(library)
+        values = float(B) * S * C
+        b_ms, b_by = bound(values * (2.0 * K + 2.0),
+                           2.0 * values * (3 if gated else 2) + 2.0 * C * (K + 1),
+                           PEAK_FP32_FLOPS)
+        print(f"K12 depthwise_conv_time {case} [B={B}, T={T}, t_valid={S}, C={C}, K={K}] bf16: "
+              f"max_abs_err {abs_err:.3e}, {apart} values over one bf16 step | kernel {ms:.4f} "
+              f"ms plain {plain_ms:.4f} ms library {lib_ms:.4f} ms | bound {b_ms:.4f} ms "
+              f"({b_by}) = {100 * b_ms / ms:.1f}% | ptxas {ptxas_of('dwconv_time_kernel')}")
+        if apart:
+            fail(f"K12 ({case}) disagrees with its plain version")
+        k12[case] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=lib_ms)
+        del x, w, b, gate, got, want
+    rows.append(dict(name="depthwise_conv_time", route="cuda",
+                     source="sar_tpu_torch/csrc/dwconv_time.cu",
+                     replaces="none: the JAX package has no E-Branchformer", **k12["merge"],
+                     extra={"cgmlp gate": k12["cgmlp gate"]}))
+
+    k13 = {}
+    for case, width, D_ln, view in (("d1024 padded", D, D, lambda u: u),
+                                    ("d1024 valid frames", D, D, lambda u: u[:, :S]),
+                                    ("cgmlp gate d2048", cfg.cgmlp_dim, cfg.cgmlp_dim // 2,
+                                     lambda u: u[..., cfg.cgmlp_dim // 2:])):
+        x = view(randn(B, T, width, std=3.0, mean=0.5))
+        scale = 1.0 + 0.1 * torch.randn((D_ln,), generator=g, device=device)
+        bias = 0.1 * torch.randn((D_ln,), generator=g, device=device)
+        eps = cfg.ln_eps
+        got = ln_ops.layer_norm(x, scale, bias, eps)
+        want = ln_ops.layer_norm_reference(x, scale, bias, eps)
+        torch.cuda.synchronize()
+        abs_err, apart = _step_errors(got, want)
+        ms = time_cuda(lambda: ln_ops.layer_norm(x, scale, bias, eps))
+        plain_ms = time_cuda(lambda: ln_ops.layer_norm_reference(x, scale, bias, eps))
+        s16, b16 = scale.to(bf16), bias.to(bf16)
+        lib_ms = time_cuda(lambda: F.layer_norm(x, (D_ln,), s16, b16, eps))
+        n = float(x.shape[0] * x.shape[1])
+        b_ms, b_by = bound(8.0 * n * D_ln, 4.0 * n * D_ln + 8.0 * D_ln, PEAK_FP32_FLOPS)
+        print(f"K13 layer_norm {case} [{x.shape[0]}, {x.shape[1]}, {D_ln}] bf16 rows {width} "
+              f"wide, fp32 scale and bias: max_abs_err {abs_err:.3e}, {apart} values over one "
+              f"bf16 step | kernel {ms:.4f} ms plain {plain_ms:.4f} ms library (F.layer_norm, "
+              f"bf16) {lib_ms:.4f} ms | bound {b_ms:.4f} ms ({b_by}) = {100 * b_ms / ms:.1f}% | "
+              f"ptxas {ptxas_of('layer_norm_rows_kernel')}")
+        if apart:
+            fail(f"K13 ({case}) disagrees with its plain version")
+        k13[case] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=lib_ms)
+        del x, got, want
+    rows.append(dict(name="layer_norm", route="cuda", source="sar_tpu_torch/csrc/layer_norm.cu",
+                     replaces="none: the JAX package has no E-Branchformer",
+                     **k13["d1024 padded"],
+                     extra={k: v for k, v in k13.items() if k != "d1024 padded"}))
+    return rows
+
+
 # K6 at the three attentions of a whisper-small training step: (label, Tq,
 # Tk, causal). The decoder's T is the CLI's label length.
 K6_SHAPES = (("encoder", 1500, 1500, False), ("decoder self", TRAIN_LABEL_LEN,
@@ -1259,7 +1402,10 @@ KERNEL_NAMES = ("encoder_attention_hm", "fused_kv_init", "fused_kv_init_lora",
 # to its count by check_k11 in the greedy, routed, beam and mixed phases;
 # check_counts keeps to KERNEL_NAMES.
 K11_NAME = "self_decode_attention_exact"
-COUNTED_NAMES = (*KERNEL_NAMES, K11_NAME)
+# K12 and K13 run in OWSM's encoder only: counted on every path, held to
+# their counts in the owsm phase.
+OWSM_NAMES = ("depthwise_conv_time", "layer_norm")
+COUNTED_NAMES = (*KERNEL_NAMES, K11_NAME, *OWSM_NAMES)
 INT8 = dict(cross_kv_int8=True, self_kv_int8=True)   # the int8 head-minor cache
 
 
@@ -1267,12 +1413,12 @@ def reset_counts():
     """Every kernel's launch counter, the decode steps by path and the
     decode loops' host syncs to 0."""
     from sar_tpu_torch.decode import segments
-    from sar_tpu_torch.ops import (decode_cross, decode_self_exact, flash, flash_enc,
-                                   kv_init)
+    from sar_tpu_torch.ops import (decode_cross, decode_self_exact, dwconv, flash, flash_enc,
+                                   kv_init, layer_norm)
     from sar_tpu_torch.ops.attic import attention, decode_self
     segments.STEPS.update(dict.fromkeys(segments.STEPS, 0))
     segments.HOST_SYNCS = 0
-    decode_self_exact.LAUNCHES = 0
+    decode_self_exact.LAUNCHES = dwconv.LAUNCHES = layer_norm.LAUNCHES = 0
     flash_enc.LAUNCHES = flash_enc.FUSED_LAUNCHES = 0
     kv_init.LAUNCHES = kv_init.LORA_LAUNCHES = 0
     decode_cross.LAUNCHES = decode_cross.BEAM_LAUNCHES = 0
@@ -1282,7 +1428,8 @@ def reset_counts():
 
 
 def read_counts() -> dict:
-    from sar_tpu_torch.ops import decode_cross, decode_self_exact, flash, flash_enc, kv_init
+    from sar_tpu_torch.ops import (decode_cross, decode_self_exact, dwconv, flash, flash_enc,
+                                   kv_init, layer_norm)
     from sar_tpu_torch.ops.attic import attention, decode_self
     return dict(zip(COUNTED_NAMES, (flash_enc.LAUNCHES, kv_init.LAUNCHES,
                                    kv_init.LORA_LAUNCHES, decode_cross.LAUNCHES,
@@ -1291,7 +1438,8 @@ def read_counts() -> dict:
                                    decode_cross.S8_LAUNCHES,
                                    decode_cross.S8_BEAM_LAUNCHES,
                                    flash_enc.FUSED_LAUNCHES, decode_self.LAUNCHES,
-                                   attention.LAUNCHES, decode_self_exact.LAUNCHES)))
+                                   attention.LAUNCHES, decode_self_exact.LAUNCHES,
+                                   dwconv.LAUNCHES, layer_norm.LAUNCHES)))
 
 
 def read_steps() -> dict:
@@ -4010,6 +4158,87 @@ def phase_mixed(cfg, params, device, batch, max_new_tokens):
     return total_counts
 
 
+def phase_owsm(device) -> dict:
+    """OWSM_MODEL through ASREvaluator.from_audio at its published widths
+    (the module docstring's phase 20)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from benchmarks import weights_owsm
+    from sar_tpu_torch.evaluation import ASREvaluator
+    from sar_tpu_torch.models import ebranchformer, whisper
+    from sar_tpu_torch.models.config import get_config
+
+    cfg = get_config(OWSM_MODEL)
+    t0 = time.perf_counter()
+    params = whisper.cast_params(ebranchformer.port_params(
+        weights_owsm.make(dataclasses.asdict(cfg), SEED, device), cfg), torch.bfloat16)
+    rng = np.random.default_rng(SEED + 20)
+    batches = []
+    for i in range(1 + OWSM_BATCHES):
+        secs = rng.uniform(*OWSM_SECONDS, OWSM_BATCH)
+        clips = [(rng.standard_normal(int(16000 * s)) * 0.1).astype(np.float32) for s in secs]
+        langs = [cfg.languages[(i * OWSM_BATCH + r) % len(cfg.languages)]
+                 for r in range(OWSM_BATCH)]
+        prompts = torch.tensor([cfg.prompt_ids(code) for code in langs], device=device)
+        batches.append((clips, prompts, float(secs.sum())))
+    ev = ASREvaluator(cfg, params, None, language="hindi", max_new_tokens=OWSM_NEW_TOKENS,
+                      kv_int8=True, flash="auto", device=device)
+    if ev.flash != "hm" or not ev.capture:
+        fail(f"the OWSM evaluator took flash={ev.flash!r}, capture={ev.capture}: "
+             f"want the kernel encoder and the captured loop")
+    P, total = len(cfg.prompt_ids("hindi")), ev.total
+    tokens = []
+    run_tokens = ev.tokens
+
+    def recorded(mel, prompts=None):
+        tokens.append(run_tokens(mel, prompts))
+        return tokens[-1]
+    ev.tokens = recorded
+    ev.from_audio(*batches[0][:2])            # warm-up: capture, cuBLAS, cuDNN, allocator
+    torch.cuda.synchronize()
+    print(f"owsm setup: {cfg.name} random bf16 weights "
+          f"({whisper.param_count(params) / 1e6:.1f} M params) + the warm-up batch of "
+          f"{OWSM_BATCH} clips, {time.perf_counter() - t0:.1f} s")
+    tokens.clear()
+    reset_counts()
+    outs, wall, audio_s = [], 0.0, 0.0
+    for clips, prompts, secs in batches[1:]:
+        t = time.perf_counter()
+        outs.append(ev.from_audio(clips, prompts))
+        torch.cuda.synchronize()
+        wall += time.perf_counter() - t
+        audio_s += secs
+    counts, run_steps = read_counts(), read_steps()
+    steps = [decode_steps(tk, cfg, P)[1] for tk in tokens]
+    syncs = sum(segments_run(total, st) for st in steps)
+    print(f"owsm (captured): {OWSM_BATCHES} x {OWSM_BATCH} clips, {audio_s:.1f} audio-s in "
+          f"{wall:.3f} s -> RTFx {audio_s / wall:.1f} | steps {json.dumps(run_steps)} | "
+          f"launches {json.dumps(counts)}")
+    Le, Ld, n = cfg.encoder_layers, cfg.decoder_layers, OWSM_BATCHES
+    want = {"depthwise_conv_time": 2 * Le * n, "layer_norm": (6 * Le + 1) * n,
+            "encoder_attention_hm": Le * n, "fused_kv_init": n}
+    print(f"owsm: K12, K13, K1, K2 launched "
+          f"{[counts[k] for k in want]} times (the design: {list(want.values())})")
+    if any(counts[k] != v for k, v in want.items()):
+        fail(f"owsm: launches {[counts[k] for k in want]}, the design {list(want.values())}")
+    check_counts("owsm", counts, want_zero=tuple(
+        k for k in KERNEL_NAMES if k not in (*want, "cross_decode_attention_exact")))
+    check_steps("owsm", counts, run_steps, sum(steps), syncs, "cross_decode_attention_exact", Ld)
+    check_k11("owsm", counts, Ld * run_steps["greedy"])
+    eager = ASREvaluator(cfg, params, None, language="hindi", max_new_tokens=OWSM_NEW_TOKENS,
+                         kv_int8=True, flash="auto", device=device, capture=False)
+    same = eager.from_audio(*batches[1][:2]) == outs[0]
+    print(f"owsm: captured ids {'equal' if same else 'DIFFER FROM'} the eager loop's "
+          f"(batch of {OWSM_BATCH})")
+    if not same:
+        fail("owsm: the captured decode's ids differ from the eager loop's")
+    del ev, eager, params
+    return counts
+
+
 def path_phases(cfg, params, n_params, device, work, profile=False) -> list:
     """The phases that drive a path, in order, as (name, run) pairs; `work`
     is a scratch directory (the lid phase's head, which the route phase
@@ -4033,7 +4262,8 @@ def path_phases(cfg, params, n_params, device, work, profile=False) -> list:
             ("stream", lambda: phase_stream(cfg, params, device)),
             ("serve", lambda: phase_serve(cfg, params, device, work)),
             ("mesh", lambda: phase_mesh(cfg, params, device)),
-            ("mixed", lambda: phase_mixed(cfg, params, device, BATCH, MAX_NEW_TOKENS))]
+            ("mixed", lambda: phase_mixed(cfg, params, device, BATCH, MAX_NEW_TOKENS)),
+            ("owsm", lambda: phase_owsm(device))]
 
 
 def main() -> int:
@@ -4045,7 +4275,7 @@ def main() -> int:
     params, n_params = make_model(cfg, device)
     t0 = time.perf_counter()
     rows = (phase_kernels(cfg, device, BATCH) + phase_k6(cfg, device, BATCH)
-            + phase_kernels_k8_k10(cfg, params, device, BATCH))
+            + phase_kernels_k8_k10(cfg, params, device, BATCH) + phase_k12_k13(device))
     print(f"phase kernels: {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shapes", "extra")

@@ -81,6 +81,7 @@ from sar_tpu_torch.device import resolve_device, tree_to
 from sar_tpu_torch.evaluation.fallback import FallbackTranscriber
 from sar_tpu_torch.models import whisper
 from sar_tpu_torch.models.config import WhisperConfig
+from sar_tpu_torch.ops import fbank as fbank_ops
 from sar_tpu_torch.ops import mel as mel_ops
 from sar_tpu_torch.parallel import distributed as pdist
 from sar_tpu_torch.parallel import sharding
@@ -148,7 +149,7 @@ class ASREvaluator:
         self.params = tree_to(params, self.device)
         if mesh is not None:
             self.params = sharding.shard_params(self.params, mesh, cfg)
-        self.dtype = self.params["encoder"]["conv1"]["w"].dtype
+        self.dtype = self.params["decoder"]["token_embed"].dtype
         # Cast once to the compute dtype: lora_delta casts to it anyway.
         self.lora = (tree_to(lora, self.device, self.dtype)
                      if lora is not None else None)
@@ -264,17 +265,23 @@ class ASREvaluator:
     def from_audio(self, audio, prompts=None) -> list:
         """Raw 16 kHz audio ([B, N] array/tensor, or a list of 1-D
         waveforms) -> per-clip token ids (or text): pad/trim to the 30 s
-        window, log-mel on the device in the params' dtype, keep the
-        encoder's `num_audio_frames` frames, then decode (with `prompts`
+        window, the config's frontend on the device in the params' dtype
+        (Whisper's log-mel, or ESPnet's normalised log-mel of OWSM with the
+        params' "mvn" statistics), keep the encoder's `num_audio_frames`
+        frames, then decode (with `prompts`
         [P] or [B, P] of the evaluator's prompt width, when given)."""
         with profiling.span("frontend"):
             if isinstance(audio, (list, tuple)):
                 audio = mel_ops.stack_pad_audio(audio)
             if not isinstance(audio, torch.Tensor):
                 audio = torch.from_numpy(np.asarray(audio, np.float32))
-            audio = audio.to(self.device, torch.float32)
-            feats = mel_ops.log_mel_spectrogram(
-                mel_ops.pad_or_trim(audio), self.cfg.num_mel_bins, dtype=self.dtype)
+            audio = mel_ops.pad_or_trim(audio.to(self.device, torch.float32))
+            if self.cfg.frontend == "espnet":
+                feats = fbank_ops.fbank(audio, self.params["mvn"], self.cfg.num_mel_bins,
+                                        dtype=self.dtype)
+            else:
+                feats = mel_ops.log_mel_spectrogram(audio, self.cfg.num_mel_bins,
+                                                    dtype=self.dtype)
         return self._transcribe_batch(feats[:, :, :self.cfg.num_audio_frames], prompts)
 
     def evaluate(self, dataloader, return_predictions: bool = False) -> dict:

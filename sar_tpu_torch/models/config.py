@@ -48,12 +48,40 @@ class WhisperConfig:
     # word-timestamp aligner falls back to its upper-half-layers heuristic.
     alignment_heads: tuple[tuple[int, int], ...] | None = None
 
+    # The architecture's family, where it is not Whisper's (the port's own
+    # fields; the JAX package's config has none of them; untied logits are
+    # the params' `decoder.out`, see whisper.logits_weight). "ebranchformer":
+    # OWSM's ESPnet encoder (models/ebranchformer.py) of `cgmlp_dim`-wide
+    # convolutional gating MLPs with depthwise time convolutions of
+    # `cgmlp_kernel` taps, merged with the attention branch through one of
+    # `merge_kernel` taps, behind a conv2d subsampling of ESPnet's log-mel
+    # (frontend "espnet", ops/fbank.py: 3001 frames of 30 s).
+    encoder_kind: str = "whisper"          # "whisper" | "ebranchformer"
+    cgmlp_dim: int = 0
+    cgmlp_kernel: int = 0
+    merge_kernel: int = 0
+    frontend: str = "whisper"              # "whisper" | "espnet"
+    decoder_act: str = "gelu"              # the decoder FFN's: "gelu" | "relu"
+    ln_eps: float = 1e-5
+    # The two-letter codes of the language tokens in id order from
+    # lang_token_offset, where they are not WHISPER_LANGUAGES (OWSM's).
+    languages: tuple[str, ...] | None = None
+
     def __post_init__(self):
         if self.alignment_heads is not None:
             # Coerce JSON lists to tuples: the config doubles as a static
             # (hashable) jit argument.
             object.__setattr__(self, "alignment_heads",
                                tuple(tuple(p) for p in self.alignment_heads))
+        if self.languages is not None:
+            object.__setattr__(self, "languages", tuple(self.languages))
+        if self.encoder_kind not in ("whisper", "ebranchformer"):
+            raise ValueError(f"encoder_kind {self.encoder_kind!r}: want "
+                             f"'whisper' or 'ebranchformer'")
+        if self.frontend not in ("whisper", "espnet"):
+            raise ValueError(f"frontend {self.frontend!r}: want 'whisper' or 'espnet'")
+        if self.decoder_act not in ("gelu", "relu"):
+            raise ValueError(f"decoder_act {self.decoder_act!r}: want 'gelu' or 'relu'")
 
     @property
     def head_dim(self) -> int:
@@ -75,7 +103,10 @@ class WhisperConfig:
 
     @property
     def num_audio_frames(self) -> int:
-        """Mel frames fed to the encoder (30 s @ hop 160)."""
+        """Feature frames fed to the encoder (30 s @ hop 160): Whisper's
+        3000, or ESPnet's centred 480000 // 160 + 1 = 3001."""
+        if self.frontend == "espnet":
+            return 480_000 // 160 + 1
         return self.max_source_positions * 2
 
     def task_token_id(self, task: str) -> int:
@@ -86,7 +117,7 @@ class WhisperConfig:
 
     def lang_token_id(self, language: str) -> int:
         code = LANGUAGE_CODES.get(language, language)
-        return self.lang_token_offset + WHISPER_LANGUAGES.index(code)
+        return self.lang_token_offset + (self.languages or WHISPER_LANGUAGES).index(code)
 
     def prompt_ids(self, language: str, task: str = "transcribe",
                    no_timestamps: bool = True) -> list[int]:
@@ -160,6 +191,47 @@ MODEL_CONFIGS: dict[str, WhisperConfig] = {
         translate_token_id=104, transcribe_token_id=105,
         no_timestamps_token_id=106, pad_token_id=3),
 }
+
+# OWSM's language tokens as the port numbers them: the two-letter codes of
+# the languages the repository's traffic names, in the order of their
+# ISO 639-3 tokens in ESPnet's sorted token list (<ara>, <deu>, <eng>, ...).
+# The real list (tokens.txt) holds more languages and other ids; with no
+# checkpoint in the repository these ids, like the task tokens and
+# <sos/eos> below, are assumed.
+OWSM_LANGUAGES = ("ar", "de", "en", "fr", "hi", "it", "ja", "ko", "pa", "pl",
+                  "pt", "ru", "es", "te", "tr", "zh")
+
+
+def _owsm(name, d, layers, heads, ffn, cgmlp, vocab, frames, positions,
+          kernels, special):
+    """An OWSM (ESPnet E-Branchformer encoder + Transformer decoder)
+    config: `special` = (<sos/eos>, first language token, <asr>, <st_eng>,
+    <notimestamps>)."""
+    sos_eos, lang, asr, st, nt = special
+    return WhisperConfig(
+        name=name, vocab_size=vocab, num_mel_bins=80, d_model=d,
+        encoder_layers=layers, encoder_heads=heads, decoder_layers=layers,
+        decoder_heads=heads, ffn_dim=ffn, max_source_positions=frames,
+        max_target_positions=positions, eos_token_id=sos_eos,
+        sot_token_id=sos_eos, lang_token_offset=lang, translate_token_id=st,
+        transcribe_token_id=asr, no_timestamps_token_id=nt,
+        pad_token_id=sos_eos, encoder_kind="ebranchformer", cgmlp_dim=cgmlp,
+        cgmlp_kernel=kernels[0], merge_kernel=kernels[1], frontend="espnet",
+        decoder_act="relu", ln_eps=1e-12,
+        languages=OWSM_LANGUAGES)
+
+
+# OWSM v4 medium (espnet/owsm_v4_medium_1B; the architecture of OWSM v3.1
+# medium, Peng et al. 2024, Table 1): 18 + 18 layers of 1024, 16 heads,
+# FFN and cgMLP 4096, both time convolutions of 31 taps, 50k BPE units;
+# 749 encoder frames from 30 s (conv2d subsampling x4 of 3001). Its tiny
+# sibling for the CPU tests keeps the 30 s window.
+MODEL_CONFIGS["owsm-v4-medium"] = _owsm(
+    "owsm-v4-medium", 1024, 18, 16, 4096, 4096, 50_000, 749, 448, (31, 31),
+    (49_999, 4, 155, 156, 157))
+MODEL_CONFIGS["owsm-test"] = _owsm(
+    "owsm-test", 64, 2, 4, 128, 128, 256, 749, 32, (31, 7),
+    (255, 4, 100, 101, 102))
 
 # HF hub ids, for the weight converter (parity with
 # reference src/models/base.py:16-24).

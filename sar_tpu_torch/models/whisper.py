@@ -11,7 +11,10 @@ models/convert.py bridges both ways.
 Numerics kept from the reference: LayerNorm in fp32 (population variance,
 eps 1e-5), matmuls in the params' dtype, exact GELU, q = (h.Wq + bq) *
 hd^-0.5, no bias on the k projections, softmax in fp32, logits in fp32 from
-the compute-dtype operands.
+the compute-dtype operands. An OWSM config (`encoder_kind`
+"ebranchformer") runs models/ebranchformer.py's encoder and this decoder
+with the config's FFN activation (ReLU), LayerNorm eps (1e-12) and untied
+logits (an output layer with a bias, `decoder.out`).
 
 Covered: `encode(flash=False|True|"hm"|"fq")`, `decode_train`, `forward`,
 `shift_tokens_right` and `cross_entropy_loss` (training: flash=True is the
@@ -85,27 +88,22 @@ from sar_tpu_torch.ops.flash_enc import (encoder_attention_fused,
                                          fused_qkv_supported)
 from sar_tpu_torch.ops.kv_init import (fused_kv_init, fused_kv_init_reference,
                                       quantize_rows)
+from sar_tpu_torch.ops.layer_norm import layer_norm_reference as layer_norm
 from sar_tpu_torch.parallel.sharding import (ModelGroup, model_gather,
                                              model_sum, split_range)
 
 Params = dict[str, Any]
 
-LN_KEYS = ("attn_ln", "mlp_ln", "self_ln", "cross_ln", "ln")
+# Groups kept in fp32 by cast_params: the LayerNorms (Whisper's, and the
+# E-Branchformer's of models/ebranchformer.py) and the frontend's feature
+# statistics (ops/fbank.py).
+LN_KEYS = ("attn_ln", "mlp_ln", "self_ln", "cross_ln", "ln", "ff1_ln", "ff2_ln",
+           "cgmlp_ln", "cgmlp_gate_ln", "final_ln", "mvn")
 
 
 # ---------------------------------------------------------------------------
 # Primitive ops
 # ---------------------------------------------------------------------------
-
-def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-               eps: float = 1e-5) -> torch.Tensor:
-    dtype = x.dtype
-    x32 = x.float()
-    mean = x32.mean(-1, keepdim=True)
-    var = x32.var(-1, keepdim=True, correction=0)
-    y = (x32 - mean) * torch.rsqrt(var + eps)
-    return (y * scale.float() + bias.float()).to(dtype)
-
 
 def linear(x: torch.Tensor, p: Params) -> torch.Tensor:
     y = torch.matmul(x, p["w"])
@@ -339,7 +337,12 @@ def init_params(cfg: WhisperConfig, generator: torch.Generator,
     """Random-init fp32 parameters with the reference's shapes and scheme
     (N(0, 0.02) weights, zero biases, unit LayerNorm, sinusoidal encoder
     positions), drawn from `generator` on its own device, then moved to
-    `device` (default: the generator's)."""
+    `device` (default: the generator's). Whisper's layout only: an OWSM
+    config's weights come in their published form through
+    `ebranchformer.port_params`."""
+    if cfg.encoder_kind != "whisper":
+        raise ValueError(f"init_params makes Whisper's layout, not {cfg.name}'s "
+                         f"({cfg.encoder_kind}): see ebranchformer.port_params")
     g = generator
     d, f = cfg.d_model, cfg.ffn_dim
     Le, Ld = cfg.encoder_layers, cfg.decoder_layers
@@ -407,25 +410,31 @@ def tree_leaves(tree) -> list:
 
 def param_count(params: Params) -> int:
     """Parameters of a tree, without the port's fp32 logits copy of the
-    token embedding (`cast_params`)."""
+    token embedding or of the output layer (`cast_params`)."""
     return sum(param_count(v) if isinstance(v, dict) else v.numel()
-               for k, v in params.items() if k != "token_embed_f32")
+               for k, v in params.items() if k not in ("token_embed_f32", "out_f32"))
 
 
 def cast_params(params: Params, dtype: torch.dtype) -> Params:
     """Cast matmul-heavy weights to `dtype`, keep LayerNorm params fp32.
 
     Below fp32 it also keeps `decoder.token_embed_f32`, an fp32 copy of the
-    (cast) token embedding made once here: the logits are fp32 products of
-    compute-dtype operands, as in the reference, and a compute-dtype GEMM
-    would round them (and tie argmaxes on random weights)."""
+    (cast) token embedding made once here (or, for untied logits,
+    `decoder.out_f32`, one of the output layer's weight): the logits are
+    fp32 products of compute-dtype operands, as in the reference, and a
+    compute-dtype GEMM would round them (and tie argmaxes on random
+    weights)."""
     def cast(tree, in_ln=False):
         if isinstance(tree, dict):
             return {k: cast(v, in_ln or k in LN_KEYS) for k, v in tree.items()}
         return tree if in_ln else tree.to(dtype)
     out = cast(params)
     if dtype != torch.float32:
-        out["decoder"]["token_embed_f32"] = out["decoder"]["token_embed"].float()
+        dec = out["decoder"]
+        if "out" in dec:
+            dec["out_f32"] = dec["out"]["w"].float()
+        else:
+            dec["token_embed_f32"] = dec["token_embed"].float()
     return out
 
 
@@ -468,13 +477,14 @@ def _enc_layer_apply(x, p, num_heads, flash=False, t_valid=None, lora=None,
     return x + _row_linear(h, p["fc2"], tp)
 
 
-def _enc_attention(x, p, num_heads, flash, t_valid, lo, ctx, kernels, tp=None):
-    """The unfused attention half of an encoder layer: LN, the (adapted)
-    projections, then K1 ("hm" and "fq"), K6 (True) or exact attention.
-    `num_heads` are the heads of the projections' width (a rank's share
-    under `tp`)."""
+def _enc_attention(x, p, num_heads, flash, t_valid, lo, ctx, kernels, tp=None,
+                   eps: float = 1e-5, norm=layer_norm):
+    """The unfused attention half of an encoder layer: LN (`norm`, of
+    `eps`), the (adapted) projections, then K1 ("hm" and "fq"), K6 (True)
+    or exact attention. `num_heads` are the heads of the projections'
+    width (a rank's share under `tp`)."""
     scaling = (p["q"]["w"].shape[-1] // num_heads) ** -0.5
-    h = layer_norm(x, p["attn_ln"]["scale"], p["attn_ln"]["bias"])
+    h = norm(x, p["attn_ln"]["scale"], p["attn_ln"]["bias"], eps)
     q = _proj(h, p["q"], lo.get("q"), ctx, 0, tp) * scaling
     k = _proj(h, p["k"], lo.get("k"), ctx, 1, tp)
     v = _proj(h, p["v"], lo.get("v"), ctx, 2, tp)
@@ -606,7 +616,15 @@ def encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig, *,
     (`encoder_layers`); "fq" is "hm" there (the fused projections take the
     whole width). `dropout_rows` (lo, hi, n): mel holds rows [lo, hi) of a
     global batch of n, whose dropout masks are drawn (a data-parallel
-    shard)."""
+    shard). A config whose `encoder_kind` is "ebranchformer" (OWSM) runs
+    models/ebranchformer.py's encoder with the same arguments."""
+    if cfg.encoder_kind == "ebranchformer":
+        from sar_tpu_torch.models import ebranchformer
+        return ebranchformer.encode(
+            params, mel, cfg, lora=lora, adapter_idx=adapter_idx,
+            lora_scale=lora_scale, lora_dropout=lora_dropout,
+            dropout_seed=dropout_seed, remat=remat, flash=flash,
+            kernels=kernels, tp=tp, dropout_rows=dropout_rows)
     enc = params["encoder"]
     x = encoder_front(enc, mel, tp)
     enc_lora = lora.get("encoder") if lora else None
@@ -629,13 +647,18 @@ def encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig, *,
 # Decoder (teacher-forced)
 # ---------------------------------------------------------------------------
 
+def decoder_act(cfg: WhisperConfig):
+    """The decoder FFN's activation: Whisper's exact GELU or OWSM's ReLU."""
+    return F.relu if cfg.decoder_act == "relu" else F.gelu
+
+
 def _dec_layer_apply(x, enc_out, p, lora, ctx, num_heads, causal_mask,
-                     flash=False, tp=None):
+                     flash=False, tp=None, act=F.gelu, eps: float = 1e-5):
     scaling = (p["self_q"]["w"].shape[-1] // num_heads) ** -0.5
     lo = lora or {}
     H = num_heads
     # Self-attention (causal).
-    h = layer_norm(x, p["self_ln"]["scale"], p["self_ln"]["bias"])
+    h = layer_norm(x, p["self_ln"]["scale"], p["self_ln"]["bias"], eps)
     q = _proj(h, p["self_q"], lo.get("self_q"), ctx, 0, tp) * scaling
     k = _proj(h, p["self_k"], lo.get("self_k"), ctx, 1, tp)
     v = _proj(h, p["self_v"], lo.get("self_v"), ctx, 2, tp)
@@ -643,7 +666,7 @@ def _dec_layer_apply(x, enc_out, p, lora, ctx, num_heads, causal_mask,
              causal_mask, causal=True, flash=flash)
     x = x + _row_proj(merge_heads(a), p["self_o"], lo.get("self_o"), ctx, 3, tp)
     # Cross-attention.
-    h = layer_norm(x, p["cross_ln"]["scale"], p["cross_ln"]["bias"])
+    h = layer_norm(x, p["cross_ln"]["scale"], p["cross_ln"]["bias"], eps)
     q = _proj(h, p["cross_q"], lo.get("cross_q"), ctx, 4, tp) * scaling
     k = _proj(enc_out, p["cross_k"], lo.get("cross_k"), ctx, 5, tp)
     v = _proj(enc_out, p["cross_v"], lo.get("cross_v"), ctx, 6, tp)
@@ -651,8 +674,8 @@ def _dec_layer_apply(x, enc_out, p, lora, ctx, num_heads, causal_mask,
              flash=flash)
     x = x + _row_proj(merge_heads(a), p["cross_o"], lo.get("cross_o"), ctx, 7, tp)
     # MLP.
-    h = layer_norm(x, p["mlp_ln"]["scale"], p["mlp_ln"]["bias"])
-    h = F.gelu(linear(h, p["fc1"]))
+    h = layer_norm(x, p["mlp_ln"]["scale"], p["mlp_ln"]["bias"], eps)
+    h = act(linear(h, p["fc1"]))
     return x + _row_linear(h, p["fc2"], tp)
 
 
@@ -665,10 +688,13 @@ def decoder_heads(params: Params, cfg: WhisperConfig) -> int:
 
 def _logits(x: torch.Tensor, dec: Params, cfg: WhisperConfig,
             tp: ModelGroup | None) -> torch.Tensor:
-    """fp32 logits of the final hidden states x [..., d]; under `tp` each
-    rank's vocabulary range, gathered over "model"."""
-    return model_gather(torch.matmul(x.float(), logits_weight(dec).T), tp, -1,
-                        cfg.vocab_size)
+    """fp32 logits of the final hidden states x [..., d] (plus the output
+    layer's bias where the logits are untied); under `tp` each rank's
+    vocabulary range, gathered over "model"."""
+    y = torch.matmul(x.float(), logits_weight(dec).T)
+    if "out" in dec:
+        y = y + dec["out"]["b"].float()
+    return model_gather(y, tp, -1, cfg.vocab_size)
 
 
 def decode_train(params: Params, enc_out: torch.Tensor, tokens: torch.Tensor,
@@ -696,15 +722,17 @@ def decode_train(params: Params, enc_out: torch.Tensor, tokens: torch.Tensor,
                    dropout_seed, dropout_rows)
     heads = decoder_heads(params, cfg)
 
+    act = decoder_act(cfg)
+
     def body(x, l):
         return _dec_layer_apply(x, enc_out, _layer(dec["layers"], l),
                                 _layer(dec_lora, l) if dec_lora else None,
                                 _layer_ctx(ctx, l), heads, causal,
-                                flash=flash, tp=tp)
+                                flash=flash, tp=tp, act=act, eps=cfg.ln_eps)
     body = _remat(body, remat)
     for l in range(cfg.decoder_layers):
         x = body(x, l)
-    x = layer_norm(x, dec["ln"]["scale"], dec["ln"]["bias"])
+    x = layer_norm(x, dec["ln"]["scale"], dec["ln"]["bias"], cfg.ln_eps)
     return _logits(x, dec, cfg, tp)
 
 
@@ -766,18 +794,19 @@ def decode_cross_attn(params: Params, enc_out: torch.Tensor,
         if h0 <= h < h0 + H:
             by_layer.setdefault(l, []).append((idx, h - h0))
     captured: list[torch.Tensor | None] = [None] * len(heads)
+    act, eps = decoder_act(cfg), cfg.ln_eps
     for l in range(cfg.decoder_layers):
         p = _layer(dec["layers"], l)
         lo = _layer(dec_lora, l) if dec_lora else {}
         # Self-attention (causal), as _dec_layer_apply.
-        h_ = layer_norm(x, p["self_ln"]["scale"], p["self_ln"]["bias"])
+        h_ = layer_norm(x, p["self_ln"]["scale"], p["self_ln"]["bias"], eps)
         q = _proj(h_, p["self_q"], lo.get("self_q"), ctx, 0, tp) * scaling
         k = _proj(h_, p["self_k"], lo.get("self_k"), ctx, 1, tp)
         v = _proj(h_, p["self_v"], lo.get("self_v"), ctx, 2, tp)
         a = attention(split_heads(q, H), split_heads(k, H), split_heads(v, H), causal)
         x = x + _row_proj(merge_heads(a), p["self_o"], lo.get("self_o"), ctx, 3, tp)
         # Cross-attention, the selected heads' probabilities kept.
-        h_ = layer_norm(x, p["cross_ln"]["scale"], p["cross_ln"]["bias"])
+        h_ = layer_norm(x, p["cross_ln"]["scale"], p["cross_ln"]["bias"], eps)
         q = _proj(h_, p["cross_q"], lo.get("cross_q"), ctx, 4, tp) * scaling
         k = _proj(enc_out, p["cross_k"], lo.get("cross_k"), ctx, 5, tp)
         v = _proj(enc_out, p["cross_v"], lo.get("cross_v"), ctx, 6, tp)
@@ -790,8 +819,8 @@ def decode_cross_attn(params: Params, enc_out: torch.Tensor,
         del probs
         x = x + _row_proj(merge_heads(a), p["cross_o"], lo.get("cross_o"), ctx, 7, tp)
         # MLP.
-        h_ = layer_norm(x, p["mlp_ln"]["scale"], p["mlp_ln"]["bias"])
-        x = x + _row_linear(F.gelu(linear(h_, p["fc1"])), p["fc2"], tp)
+        h_ = layer_norm(x, p["mlp_ln"]["scale"], p["mlp_ln"]["bias"], eps)
+        x = x + _row_linear(act(linear(h_, p["fc1"])), p["fc2"], tp)
     if tp is not None:
         zero = torch.zeros((x.shape[0], T, enc_out.shape[1]), device=x.device)
         maps = model_sum(torch.stack([zero if m is None else m for m in captured],
@@ -800,7 +829,7 @@ def decode_cross_attn(params: Params, enc_out: torch.Tensor,
         maps = torch.stack(captured, dim=1)
     if not with_token_probs:
         return maps
-    xf = layer_norm(x, dec["ln"]["scale"], dec["ln"]["bias"])
+    xf = layer_norm(x, dec["ln"]["scale"], dec["ln"]["bias"], eps)
     logits = _logits(xf, dec, cfg, tp)
     nxt = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
     chosen = torch.gather(logits, -1, nxt[..., None])[..., 0]
@@ -1287,7 +1316,12 @@ def _self_attention_beam(qh, sk, sv, sks, svs, anc, pos: int,
 
 
 def logits_weight(dec: Params) -> torch.Tensor:
-    """fp32 token embedding for the logits (see cast_params)."""
+    """The fp32 [V, d] weight of the logits (see cast_params): the token
+    embedding, or, where the logits are untied (an output layer "out" of
+    [d, V] with a bias, which `_logits` adds), that layer's transpose."""
+    if "out" in dec:
+        w = dec["out"]["w"]
+        return (w if w.dtype == torch.float32 else dec["out_f32"]).T
     emb = dec["token_embed"]
     return emb if emb.dtype == torch.float32 else dec["token_embed_f32"]
 
@@ -1385,12 +1419,13 @@ def decode_step(params: Params, tokens: torch.Tensor, pos: int,
     quant = quantize_kv4 if self_int4 else quantize_kv
     dec_lora = lora.get("decoder") if lora else None
     ctx = lora_ctx(dec_lora, adapter_idx, lora_scale, dtype)
+    act, eps = decoder_act(cfg), cfg.ln_eps
 
     for l in range(cache.self_k.shape[0]):
         p = _layer(dec["layers"], l)
         lo = _layer(dec_lora, l) if dec_lora else {}
         # Self-attention against the cache (row `pos` written first).
-        h = layer_norm(x, p["self_ln"]["scale"], p["self_ln"]["bias"])
+        h = layer_norm(x, p["self_ln"]["scale"], p["self_ln"]["bias"], eps)
         q = _proj(h, p["self_q"], lo.get("self_q"), ctx, tp=tp) * scaling
         k = split_heads(_proj(h, p["self_k"], lo.get("self_k"), ctx, tp=tp), H)
         v = split_heads(_proj(h, p["self_v"], lo.get("self_v"), ctx, tp=tp), H)
@@ -1426,7 +1461,7 @@ def decode_step(params: Params, tokens: torch.Tensor, pos: int,
         # int8 over the quantized classic slabs, or over the head-minor int8
         # slabs of layer l (K3/K5 exact, K7 with scores_int8); beam queries
         # are folded per sample ([B/K, K, ...]) when beam_width > 1.
-        h = layer_norm(x, p["cross_ln"]["scale"], p["cross_ln"]["bias"])
+        h = layer_norm(x, p["cross_ln"]["scale"], p["cross_ln"]["bias"], eps)
         q = _proj(h, p["cross_q"], lo.get("cross_q"), ctx, tp=tp) * scaling
         if cross_plain:
             # The K beam queries of a sample ride its one cross slab as K
@@ -1454,8 +1489,8 @@ def decode_step(params: Params, tokens: torch.Tensor, pos: int,
         x = x + _row_proj(o.reshape(B, 1, -1), p["cross_o"], lo.get("cross_o"),
                           ctx, tp=tp)
         # MLP.
-        h = layer_norm(x, p["mlp_ln"]["scale"], p["mlp_ln"]["bias"])
-        h = F.gelu(linear(h, p["fc1"]))
+        h = layer_norm(x, p["mlp_ln"]["scale"], p["mlp_ln"]["bias"], eps)
+        h = act(linear(h, p["fc1"]))
         x = x + _row_linear(h, p["fc2"], tp)
-    x = layer_norm(x, dec["ln"]["scale"], dec["ln"]["bias"])
+    x = layer_norm(x, dec["ln"]["scale"], dec["ln"]["bias"], eps)
     return _logits(x[:, 0], dec, cfg, tp), cache

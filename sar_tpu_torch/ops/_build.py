@@ -39,6 +39,7 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LP = ctypes.POINTER(ctypes.c_longlong)   # a host array of int64 strides
+_LL = ctypes.c_longlong
 # C entry point -> argtypes (pointers and the stream as c_void_p, ints c_int).
 SIGNATURES = {
     # q, k, v, o, lse, strides (q, k, v, o), B, H, Tq, Tk, causal, device,
@@ -96,6 +97,12 @@ SIGNATURES = {
     # q, kq, ks, vq, vs, out, L, B, H, T, hd, layer, pos, device, stream
     "sar_self_decode_exact": [_P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, w, bias, gate (or NULL), y, B, T, C, K, t_valid, gate row stride,
+    # residual, device, stream
+    "sar_dwconv_time": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, scale, bias, y, B, T, D, x's batch and row strides, eps, device,
+    # stream
+    "sar_layer_norm_rows": [_P, _P, _P, _P, _I, _I, _I, _LL, _LL, _F, _I, _P],
 }
 
 _lock = threading.Lock()

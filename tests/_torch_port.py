@@ -9,11 +9,38 @@ numpy-made data and JAX-made weights to both packages. JAX runs on the CPU
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 
 import numpy as np
 import torch
 
 torch.set_num_threads(1)
+
+
+def whisper_fields_equal(a, b) -> bool:
+    """The JAX package's config `a` and the port's `b` equal on every field
+    of a, and b's port-only fields (those of the architecture family, which
+    the JAX package's config lacks) at their Whisper defaults."""
+    from sar_tpu_torch.models.config import WhisperConfig
+    ours, theirs = dataclasses.asdict(b), dataclasses.asdict(a)
+    defaults = {f.name: f.default for f in dataclasses.fields(WhisperConfig)
+                if f.name not in theirs}
+    return ({k: ours[k] for k in theirs} == theirs
+            and {k: ours[k] for k in defaults} == defaults)
+
+
+def port_config(cfg):
+    """The port's WhisperConfig of the JAX package's config `cfg`: its
+    fields, and the port's architecture-family fields at their Whisper
+    defaults. Both packages take it."""
+    from sar_tpu_torch.models.config import WhisperConfig
+    return WhisperConfig(**dataclasses.asdict(cfg))
+
+
+def get_config(name: str):
+    """The JAX package's config of model `name`, as `port_config` gives it."""
+    from sar_tpu.models.config import get_config as jax_config
+    return port_config(jax_config(name))
 
 
 def to_numpy(tree):

@@ -11,11 +11,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from _torch_port import jax_whisper, t
+from _torch_port import get_config, jax_whisper, t
 
 from sar_tpu.decode import align as jalign
 from sar_tpu.models import whisper as jw
-from sar_tpu.models.config import get_config
 from sar_tpu_torch.decode import align as talign
 from sar_tpu_torch.decode import greedy_decode
 from sar_tpu_torch.utils import native as tnative

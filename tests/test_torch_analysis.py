@@ -15,12 +15,12 @@ import numpy as np
 import pytest
 import torch
 from _hf_tiny import make_tiny_model, peft_wrap, randomize_peft_lora, tiny_hf_config
+from _torch_port import get_config
 
 from sar_tpu import analysis as janalysis
 from sar_tpu.analysis import adapters as jadapters
 from sar_tpu.models import convert as jconvert
 from sar_tpu.models import lora as jlora
-from sar_tpu.models.config import get_config
 from sar_tpu_torch import analysis as tanalysis
 from sar_tpu_torch.analysis import adapters as tadapters
 from sar_tpu_torch.models import convert as tconvert

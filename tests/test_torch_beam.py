@@ -11,11 +11,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_port import jax_whisper, random_bank, t
+from _torch_port import get_config, jax_whisper, random_bank, t
 
 from sar_tpu.decode.beam import beam_decode as jax_beam
 from sar_tpu.models import whisper as jw
-from sar_tpu.models.config import get_config
 from sar_tpu_torch.decode import beam as tbeam
 from sar_tpu_torch.decode import beam_decode, greedy_decode
 from sar_tpu_torch.models import whisper as tw

@@ -12,11 +12,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from _torch_port import jax_whisper, t
+from _torch_port import get_config, jax_whisper, t
 
 from sar_tpu.decode.beam import beam_decode as jax_beam
 from sar_tpu.models import whisper as jw
-from sar_tpu.models.config import get_config
 from sar_tpu_torch.decode import beam_decode
 
 CFG = get_config("whisper-test")

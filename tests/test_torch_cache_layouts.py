@@ -17,7 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_port import jax_whisper, t
+from _torch_port import get_config, jax_whisper, t
 
 from sar_tpu.data.collate import create_collator as jax_collator
 from sar_tpu.data.loader import DataLoader as JaxLoader
@@ -26,7 +26,6 @@ from sar_tpu.decode.beam import beam_decode as jax_beam
 from sar_tpu.decode.greedy import greedy_decode as jax_greedy
 from sar_tpu.evaluation.evaluator import ASREvaluator as JaxEvaluator
 from sar_tpu.models import whisper as jw
-from sar_tpu.models.config import get_config
 from sar_tpu_torch.data import (CharTokenizer, DataLoader, SyntheticASRDataset,
                                 create_collator)
 from sar_tpu_torch.decode import beam_decode, greedy_decode

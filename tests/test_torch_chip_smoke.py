@@ -41,7 +41,8 @@ def test_build_key_covers_every_source():
     names = {p.name for p in _build.sources()}
     assert {"flash_enc.cu", "kv_init.cu", "decode_cross.cu", "decode_s8.cu",
             "flash_attn.cu", "decode_attention.cu", "decode_self_exact.cu",
-            "common.cuh", "mma.cuh", "cluster.cuh"} <= names
+            "dwconv_time.cu", "layer_norm.cu", "common.cuh", "mma.cuh",
+            "cluster.cuh"} <= names
     assert _build.source_hash() == _build.source_hash()
     assert set(_build.SIGNATURES) == {"sar_encoder_attention_hm",
                                       "sar_encoder_attention_fused",
@@ -53,7 +54,8 @@ def test_build_key_covers_every_source():
                                       "sar_flash_attn_fwd", "sar_flash_attn_bwd_dkv",
                                       "sar_flash_attn_bwd_dq", "sar_self_decode_s8",
                                       "sar_decode_attention", "sar_s8_decode_probe",
-                                      "sar_self_decode_exact"}
+                                      "sar_self_decode_exact", "sar_dwconv_time",
+                                      "sar_layer_norm_rows"}
     for name in _build.SIGNATURES:
         assert f'extern "C" int {name}(' in "".join(
             p.read_text() for p in _build.sources())
@@ -112,8 +114,8 @@ def test_phase_list_ends_with_the_phase2_clis_and_imports_no_jax():
     """chip_smoke.py drives the LID sweep and routed inference CLIs after
     the lid phase (whose head the route phase reads), then single-file
     transcription, streaming and the HTTP server (whose routed server reads
-    the route phase's adapters), then the device-mesh phase and the
-    mixed-precision caches, and neither
+    the route phase's adapters), then the device-mesh phase, the
+    mixed-precision caches and OWSM, and neither
     importing it nor building its phase list pulls in jax or sar_tpu."""
     code = ("import sys, chip_smoke\n"
             "names = [n for n, _ in chip_smoke.path_phases(None, None, 0, None, 'w')]\n"
@@ -125,7 +127,7 @@ def test_phase_list_ends_with_the_phase2_clis_and_imports_no_jax():
     names, bad = out.stdout.strip().splitlines()
     assert names == str(["greedy", "routed", "beam", "train", "s8", "fq", "bench", "graphs",
                          "lid", "sweep", "route", "transcribe", "stream", "serve",
-                         "mesh", "mixed"])
+                         "mesh", "mixed", "owsm"])
     assert bad == "[]"
 
 

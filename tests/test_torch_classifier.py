@@ -12,11 +12,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_port import t, to_numpy
+from _torch_port import get_config, t, to_numpy
 
 from sar_tpu.models import classifier as jclf
 from sar_tpu.models import whisper as jw
-from sar_tpu.models.config import get_config
 from sar_tpu_torch.models import classifier as tclf
 from sar_tpu_torch.models.convert import from_jax_params
 

@@ -12,13 +12,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_port import jax_whisper, random_bank, t
+from _torch_port import get_config, jax_whisper, random_bank, t
 
 from sar_tpu.decode.beam import beam_decode as jax_beam
 from sar_tpu.decode.greedy import greedy_decode as jax_greedy
 from sar_tpu.models import lora as jlora
 from sar_tpu.models import whisper as jw
-from sar_tpu.models.config import get_config
 from sar_tpu.models.whisper_lora import WhisperLoRA as JaxWhisperLoRA
 from sar_tpu_torch.decode import beam_decode, greedy_decode
 from sar_tpu_torch.models import lora as tlora

@@ -26,14 +26,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_port import jax_whisper, t
+from _torch_port import get_config, jax_whisper, t
 
 from sar_tpu.decode.beam import beam_decode as jax_beam
 from sar_tpu.decode.greedy import greedy_decode as jax_greedy
 from sar_tpu.decode.greedy import greedy_decode_from_cache as jax_greedy_cache
 from sar_tpu.decode.timestamps import apply_timestamp_rules as jax_rules
 from sar_tpu.models import whisper as jw
-from sar_tpu.models.config import get_config
 from sar_tpu_torch.decode import beam_decode, graphs, greedy_decode
 from sar_tpu_torch.decode.greedy import (greedy_decode_from_cache, gumbel_argmax,
                                          step_uniforms)

@@ -11,13 +11,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_port import jax_whisper, random_bank, t
+from _torch_port import get_config, jax_whisper, random_bank, t
 from jax.experimental.pallas import tpu as pltpu
 
 from sar_tpu.evaluation.evaluator import ASREvaluator as JaxEvaluator
 from sar_tpu.models import classifier as jclf
 from sar_tpu.models import whisper as jw
-from sar_tpu.models.config import get_config
 from sar_tpu_torch.evaluation import ASREvaluator
 from sar_tpu_torch.models import classifier as tclf
 from sar_tpu_torch.models import whisper as tw

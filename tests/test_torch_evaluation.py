@@ -15,7 +15,7 @@ import jax
 import numpy as np
 import pytest
 import torch
-from _torch_port import jax_whisper, random_bank
+from _torch_port import get_config, jax_whisper, random_bank
 from test_torch_decode_graphs import StandInSeam
 
 from sar_tpu.data.collate import LIDCollator as JaxLIDCollator
@@ -25,7 +25,6 @@ from sar_tpu.data.loader import DataLoader as JaxLoader
 from sar_tpu.data.synthetic import SyntheticASRDataset as JaxSynthetic
 from sar_tpu.evaluation.evaluator import ASREvaluator as JaxEvaluator
 from sar_tpu.models import lora as jlora
-from sar_tpu.models.config import get_config
 from sar_tpu.training import metrics as jmetrics
 from sar_tpu_torch.data import (CharTokenizer, DataLoader, LIDCollator,
                                 SyntheticASRDataset, create_collator,

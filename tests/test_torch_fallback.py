@@ -27,10 +27,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_port import jax_whisper
+from _torch_port import get_config, jax_whisper
 
 from sar_tpu.evaluation import fallback as jfb
-from sar_tpu.models.config import get_config
 from sar_tpu_torch.evaluation import fallback as tfb
 from sar_tpu_torch.models import whisper as tw
 

@@ -17,10 +17,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_port import random_bank, t, to_numpy
+from _torch_port import get_config, random_bank, t, to_numpy
 
 from sar_tpu.models import whisper as jw
-from sar_tpu.models.config import get_config
 from sar_tpu.ops.kv_init import fused_kv_init as jax_kv_init
 from sar_tpu_torch.models import whisper as tw
 from sar_tpu_torch.models.convert import from_jax_params

@@ -17,13 +17,12 @@ import jax
 import numpy as np
 import pytest
 import torch
-from _torch_port import jax_whisper, t, to_numpy
+from _torch_port import get_config, jax_whisper, t, to_numpy
 
 from sar_tpu.data.collate import LIDCollator as JaxLIDCollator
 from sar_tpu.data.loader import DataLoader as JaxDataLoader
 from sar_tpu.data.synthetic import SyntheticASRDataset as JaxSynthetic
 from sar_tpu.models import classifier as jclf
-from sar_tpu.models.config import get_config
 from sar_tpu.training import lid_trainer as jlid
 from sar_tpu_torch.data import DataLoader, LIDCollator, SyntheticASRDataset
 from sar_tpu_torch.models import classifier as tclf

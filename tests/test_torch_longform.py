@@ -18,12 +18,11 @@ fp32, the JAX weights bridged over and scaled x5; its 30 s window is
 import numpy as np
 import pytest
 import torch
-from _torch_port import jax_whisper
+from _torch_port import get_config, jax_whisper
 
 from sar_tpu.data.tokenizer import CharTokenizer as JaxCharTokenizer
 from sar_tpu.evaluation import fallback as jfb
 from sar_tpu.evaluation import longform as jlf
-from sar_tpu.models.config import get_config
 from sar_tpu_torch.evaluation import fallback as tfb
 from sar_tpu_torch.evaluation import longform as tlf
 

@@ -10,12 +10,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_port import jax_whisper, random_bank, t
+from _torch_port import get_config, jax_whisper, random_bank, t
 
 from sar_tpu.models import convert as jconvert
 from sar_tpu.models import lora as jlora
 from sar_tpu.models import whisper as jw
-from sar_tpu.models.config import get_config
 from sar_tpu_torch.models import convert as tconvert
 from sar_tpu_torch.models import lora as tlora
 from sar_tpu_torch.models import whisper as tw

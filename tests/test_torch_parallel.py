@@ -25,7 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_port import jax_whisper, random_bank, t, to_numpy
+from _torch_port import get_config, jax_whisper, random_bank, t, to_numpy
 
 from sar_tpu.data.collate import LIDCollator as JaxLIDCollator
 from sar_tpu.data.collate import create_collator as jax_collator
@@ -37,7 +37,6 @@ from sar_tpu.evaluation.evaluator import ASREvaluator as JaxEvaluator
 from sar_tpu.models import classifier as jclf
 from sar_tpu.models import lora as jlora
 from sar_tpu.models import whisper as jw
-from sar_tpu.models.config import get_config
 from sar_tpu.training import ASRTrainer as JaxTrainer
 from sar_tpu.training import TrainingArgs as JaxArgs
 from sar_tpu.training import lid_trainer as jlid

@@ -40,12 +40,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_port import to_numpy
+from _torch_port import get_config, to_numpy
 
 from sar_tpu.models import classifier as jclf
 from sar_tpu.models import lora as jlora
 from sar_tpu.models import whisper as jw
-from sar_tpu.models.config import get_config
 from sar_tpu.models.router import AdapterRouter as JaxRouter
 from sar_tpu_torch.data import CharTokenizer
 from sar_tpu_torch.models import classifier as tclf

@@ -13,7 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_port import jax_whisper, random_bank, t, to_numpy
+from _torch_port import get_config, jax_whisper, random_bank, t, to_numpy
 
 from sar_tpu.data.tokenizer import CharTokenizer as JaxCharTokenizer
 from sar_tpu.decode.greedy import greedy_decode as jax_greedy
@@ -23,7 +23,7 @@ from sar_tpu.models import classifier as jclf
 from sar_tpu.models import lora as jlora
 from sar_tpu.models import router as jrouter
 from sar_tpu.models import whisper as jw
-from sar_tpu.models.config import TARGET_LANGUAGES, get_config
+from sar_tpu.models.config import TARGET_LANGUAGES
 from sar_tpu.ops import mel as jmel
 from sar_tpu_torch.data import CharTokenizer
 from sar_tpu_torch.evaluation import ASREvaluator

@@ -32,9 +32,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
-from _torch_port import jax_whisper, random_bank
+from _torch_port import get_config, jax_whisper, random_bank
 
-from sar_tpu.models.config import get_config
 from sar_tpu_torch.models import classifier as tclf
 from sar_tpu_torch.models import lora as tlora
 from sar_tpu_torch.scripts import serve as port_serve

@@ -15,10 +15,9 @@ import jax
 import numpy as np
 import pytest
 import torch
-from _torch_port import jax_whisper, random_bank, to_numpy
+from _torch_port import get_config, jax_whisper, random_bank, to_numpy
 
 from sar_tpu.models import classifier as jclf
-from sar_tpu.models.config import get_config
 from sar_tpu_torch.decode import transcribe_tokens
 from sar_tpu_torch.evaluation import ASREvaluator
 from sar_tpu_torch.models import classifier as tclf

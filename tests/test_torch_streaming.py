@@ -20,13 +20,12 @@ import jax
 import numpy as np
 import pytest
 import torch
-from _torch_port import jax_whisper
+from _torch_port import get_config, jax_whisper
 from test_torch_decode_graphs import StandInSeam
 
 from sar_tpu.data.tokenizer import CharTokenizer as JaxCharTokenizer
 from sar_tpu.evaluation.streaming import StreamingTranscriber as JaxStreaming
 from sar_tpu.evaluation.streaming import common_prefix_len as jax_common_prefix_len
-from sar_tpu.models.config import get_config
 from sar_tpu_torch.data import CharTokenizer
 from sar_tpu_torch.decode import greedy_decode, segments, transcribe_tokens
 from sar_tpu_torch.evaluation.streaming import StreamingTranscriber, common_prefix_len

@@ -24,7 +24,7 @@ import numpy as np
 import optax
 import pytest
 import torch
-from _torch_port import jax_whisper, random_bank, t, to_numpy
+from _torch_port import get_config, jax_whisper, random_bank, t, to_numpy
 from jax.experimental.pallas import tpu as pltpu
 
 from sar_tpu.data.collate import create_collator as jax_collator
@@ -34,7 +34,6 @@ from sar_tpu.data.tokenizer import CharTokenizer as JaxCharTokenizer
 from sar_tpu.decode.greedy import greedy_decode as jax_greedy
 from sar_tpu.models import lora as jlora
 from sar_tpu.models import whisper as jw
-from sar_tpu.models.config import get_config
 from sar_tpu.training import ASRTrainer as JaxTrainer
 from sar_tpu.training import Callback as JaxCallback
 from sar_tpu.training import TrainingArgs as JaxArgs

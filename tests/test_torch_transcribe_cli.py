@@ -23,11 +23,10 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-from _torch_port import jax_whisper, random_bank
+from _torch_port import get_config, jax_whisper, random_bank
 
 from sar_tpu.evaluation import writers as jwriters
 from sar_tpu.models import lora as jlora
-from sar_tpu.models.config import get_config
 from sar_tpu_torch.data import CharTokenizer
 from sar_tpu_torch.evaluation import writers as twriters
 from sar_tpu_torch.scripts import transcribe as port_cli

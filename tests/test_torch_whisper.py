@@ -9,14 +9,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_port import jax_whisper, t
+from _torch_port import get_config, jax_whisper, t
 
 from sar_tpu.data.tokenizer import CharTokenizer as JaxCharTokenizer
 from sar_tpu.decode.greedy import greedy_decode as jax_greedy
 from sar_tpu.decode.greedy import transcribe_tokens as jax_transcribe_tokens
 from sar_tpu.evaluation.evaluator import ASREvaluator as JaxEvaluator
 from sar_tpu.models import whisper as jw
-from sar_tpu.models.config import get_config
 from sar_tpu.ops import mel as jmel
 from sar_tpu_torch.data import CharTokenizer
 from sar_tpu_torch.decode import greedy_decode, transcribe_tokens
