@@ -54,6 +54,17 @@ eager evaluator's (capture=False) on one batch.
    ms per call over a 12-layer sweep, byte bound and share, ptxas; then
    its launches in a greedy loop at large-v3-turbo's decoder (random
    weights and encoder output, batch 8, 16 new tokens): 4 per step.
+   K3 at the evaluation cells' batch 128 (phase_k3_large): the
+   attribution line (K3 at whisper-small against probes of its loads
+   alone, its loads with its cluster barriers, the same bytes as whole
+   rows, and whole rows with an I2F or the byte trick per int8 value,
+   all built from K3_PROBE_SRC); at whisper-small's and OWSM v4 medium's
+   cross shapes both of K3's forms (cluster, large-batch) and the wrapper
+   against the plain version, each form bit-stable, ms per call over a
+   layer sweep, GB/s, the bound and the plain version's ms; then the
+   captured greedy loop at whisper-small batch 128 (16 new tokens,
+   captured then replayed): K3 12 per step run, all in the large-batch
+   form.
    Then K12 (the E-Branchformer's depthwise time convolution with its
    zero padding, bias and gate or residual fused) and K13 (LayerNorm of
    bf16 rows) at OWSM v4 medium's encoder shapes, batch 128, T 768 with
@@ -68,7 +79,8 @@ eager evaluator's (capture=False) on one batch.
 4. greedy end to end: random bf16 whisper-small (seeded), two batches of 8
    random 30 s clips through the port's ASREvaluator (mel ->
    encode(flash="hm") -> the int8 cache -> greedy, 64 new tokens), with the
-   launch counters zeroed before and read after (K3 = 12 per step run, K11
+   launch counters zeroed before and read after (K3 = 12 per step run, none
+   in its large-batch form at batch 8, K11
    = 12 per step run, the steps and host syncs those the tokens predict); then the first batch
    through the plain path, compared in lockstep (both paths fed the same
    tokens) and free running.
@@ -236,7 +248,8 @@ eager evaluator's (capture=False) on one batch.
    seeded clips of 2-10 s, a language per row, 48 new tokens, after a
    warm-up batch, with the launch counters zeroed before and read after
    (per batch K12 2 per block, K13 6 per block + 1, K1 1 per block, K2 1;
-   K3 and K11 one per decoder layer of every step run; no other kernel),
+   K3 and K11 one per decoder layer of every step run, K3 in the form the
+   rule takes at batch OWSM_BATCH; no other kernel),
    the steps and host syncs the tokens predict, RTFx; then the captured
    ids against an eager evaluator's on batch 0.
 21. result: one JSON line with every kernel's numbers, then the last line
@@ -383,6 +396,12 @@ K11_LEN, K11_POS, K11_BIG_BATCH = 228, 200, 128
 # tokens.
 K11_TURBO, K11_TURBO_TOKENS = "whisper-large-turbo", 16
 K10_MASKED_LEN = 750
+# K3 at the evaluation cells' batch, where it takes its large-batch form:
+# label -> (heads, valid rows, S_pad, layers) of whisper-small's cross
+# cache and OWSM v4 medium's; the captured greedy loop at that batch runs
+# K3_BIG_TOKENS new tokens.
+K3_BIG_BATCH, K3_BIG_TOKENS = 128, 16
+K3_BIG_SHAPES = {"whisper-small": (12, 1500, 1536, 12), "owsm-v4-medium": (16, 749, 768, 18)}
 # K12 and K13 at OWSM_MODEL's encoder, batch OWSM_KERNEL_BATCH (the
 # owsm.eval.short cell's). Both sum in fp32, in another order than their
 # plain versions, and round once to bf16, which can put the two on either
@@ -760,12 +779,13 @@ def phase_kernels(cfg, device, batch):
           f"{slab_mb / ms:.1f} GB/s | bound {b_ms:.4f} ms ({b_by})")
     if abs_err > ATTN_ABS_TOL or rel_err > ATTN_REL_TOL:
         fail("K3 disagrees with its plain version")
+    big = phase_k3_large(cfg, device)
     rows.append(dict(name="cross_decode_attention_exact", route="cuda",
                      source="sar_tpu_torch/csrc/decode_cross.cu",
                      replaces="sar_tpu/ops/decode_cross.py:219",
                      max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
                      bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                     extra={"gbps": slab_mb / ms}))
+                     extra={"gbps": slab_mb / ms, "big_batch": big}))
 
     # K5: the beam-folded twin, q [B, K, D] over the same slabs; the beam
     # phase's width, then Whisper's usual one. Checked on every layer and
@@ -1047,6 +1067,373 @@ K6_SHAPES = (("encoder", 1500, 1500, False), ("decoder self", TRAIN_LABEL_LEN,
                                                TRAIN_LABEL_LEN, True),
              ("cross", TRAIN_LABEL_LEN, 1500, False))
 K6_REPLACES = "sar_tpu/ops/flash.py:52 flash_mha -> jax pallas/ops/tpu/flash_attention.py:"
+
+
+# K3's attribution probes (built here with nvcc, outside the package: no
+# path calls them). Each reads layer `layer` of the int8 head-minor cache
+# kq/vq [L, B, S, D] with its scales ks/vs [L, B, H, S] and xors what it
+# read into one word per warp, so the loads cannot be dropped:
+#   probe_pattern<false>: K3's loads and nothing else, on K3's grid (C, H,
+#     B): a block's k rows 8 bytes a lane, U rows a lane in flight, with
+#     their scales, and its v rows by cp.async 16 bytes a lane into a ring
+#     of 64-row stages, all issued before any is used;
+#   probe_pattern<true>: the same in clusters of C with K3's two cluster
+#     barriers (after the k rows, after the v rows);
+#   probe_rows: the same bytes as whole contiguous rows, 16 bytes a lane,
+#     four loads a lane in flight, on 8 blocks per SM;
+#   probe_convert<0|1>: probe_rows' k and v slabs with every int8 value
+#     turned into fp32 and summed with an fma, by I2F (0, as K3 does) or by
+#     the exact byte trick (1: PRMT the biased byte under 2^23's exponent,
+#     subtract 2^23 + 128).
+K3_PROBE_SRC = r"""
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+namespace cg = cooperative_groups;
+
+constexpr int HD = 64, NT = 256, TPR = 8, RG = NT / TPR, U = 8, STAGE_ROWS = 64, NS = 8;
+
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+      (uint32_t)__cvta_generic_to_shared(dst)), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+      (uint32_t)__cvta_generic_to_shared(dst)), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+__device__ __forceinline__ void put(unsigned* out, unsigned x) {
+#pragma unroll
+  for (int o = 16; o; o >>= 1) x ^= __shfl_xor_sync(0xffffffffu, x, o);
+  const size_t block = ((size_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+  if ((threadIdx.x & 31) == 0) out[block * (blockDim.x / 32) + threadIdx.x / 32] = x;
+}
+
+template <bool BARRIERS>
+__global__ void __launch_bounds__(NT, 4) probe_pattern(
+    const int8_t* __restrict__ kq, const float* __restrict__ ks, const int8_t* __restrict__ vq,
+    const float* __restrict__ vs, unsigned* out, int B, int S, int D, int H, int layer,
+    int slice) {
+  __shared__ __align__(16) int8_t ring[NS * STAGE_ROWS * HD];
+  __shared__ float vsc[2048];
+  const int tid = threadIdx.x, part = tid % TPR, rg = tid / TPR;
+  const int rank = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int lo = min(S, rank * slice), hi = min(S, lo + slice), n = hi - lo;
+  const size_t plane = (size_t)layer * B + b;
+  const int8_t* kb = kq + plane * S * D + h * HD;
+  const int8_t* vb = vq + plane * S * D + h * HD;
+  const float* ksb = ks + (plane * H + h) * S;
+  const float* vsb = vs + (plane * H + h) * S;
+  unsigned x = 0;
+  uint2 raw[U];
+  float kscale[U];
+  auto load_k = [&](int s0) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int s = s0 + u * RG + rg;
+      raw[u] = s < hi ? __ldg(reinterpret_cast<const uint2*>(kb + (size_t)s * D + part * 8))
+                      : make_uint2(0, 0);
+      kscale[u] = s < hi ? __ldg(ksb + s) : 0.f;
+    }
+  };
+  auto load_v = [&](int j) {
+    const int r = j * STAGE_ROWS + tid / 4;
+    cp16(ring + ((j % NS) * STAGE_ROWS + tid / 4) * HD + (tid % 4) * 16,
+         vb + (size_t)(lo + (r < n ? r : 0)) * D + (tid % 4) * 16, r < n);
+  };
+  const int v_stages = (n + STAGE_ROWS - 1) / STAGE_ROWS;
+  load_k(lo);
+  for (int i = tid; i < n; i += NT) cp4(vsc + i, vsb + lo + i, true);
+  for (int j = 0; j < NS && j < v_stages; ++j) load_v(j);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  for (int s0 = lo; s0 < hi; s0 += U * RG) {
+    if (s0 != lo) load_k(s0);
+#pragma unroll
+    for (int u = 0; u < U; ++u) x ^= raw[u].x ^ raw[u].y ^ __float_as_uint(kscale[u]);
+  }
+  if (BARRIERS) cg::this_cluster().sync();
+  for (int j = 0; j < v_stages; j += NS) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+    for (int i = tid; i < min(NS, v_stages - j) * STAGE_ROWS * HD / 16; i += NT)
+      x ^= reinterpret_cast<const uint4*>(ring)[i].x;
+    __syncthreads();
+    for (int jj = j + NS; jj < j + 2 * NS && jj < v_stages; ++jj) load_v(jj);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  for (int i = tid; i < n; i += NT) x ^= __float_as_uint(vsc[i]);
+  if (BARRIERS) cg::this_cluster().sync();
+  put(out, x);
+}
+
+__global__ void __launch_bounds__(NT) probe_rows(
+    const uint4* __restrict__ k, const uint4* __restrict__ v, const uint4* __restrict__ ksl,
+    const uint4* __restrict__ vsl, unsigned* out, size_t n_kv, size_t n_s) {
+  unsigned x = 0;
+  const size_t stride = (size_t)gridDim.x * NT, first = (size_t)blockIdx.x * NT + threadIdx.x;
+  const uint4* src[4] = {k, v, ksl, vsl};
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const size_t n = a < 2 ? n_kv : n_s;
+    for (size_t i = first; i < n; i += 4 * stride) {
+      uint4 r[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) r[j] = i + j * stride < n ? __ldg(src[a] + i + j * stride)
+                                                            : make_uint4(0, 0, 0, 0);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) x ^= r[j].x ^ r[j].y ^ r[j].z ^ r[j].w;
+    }
+  }
+  put(out, x);
+}
+
+template <int MODE>
+__device__ __forceinline__ float s8_at(uint32_t w, int i) {
+  if (MODE == 0) return (float)(int8_t)(w >> (8 * i));
+  const uint32_t u = w ^ 0x80808080u;
+  return __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 | i)) - 8388736.f;
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(NT) probe_convert(
+    const uint4* __restrict__ k, const uint4* __restrict__ v, unsigned* out, size_t n_kv) {
+  float acc = 0.f, w[16];
+#pragma unroll
+  for (int e = 0; e < 16; ++e) w[e] = 1.f + 0.01f * (float)((threadIdx.x + e) & 7);
+  const size_t stride = (size_t)gridDim.x * NT, first = (size_t)blockIdx.x * NT + threadIdx.x;
+  const uint4* src[2] = {k, v};
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    for (size_t i = first; i < n_kv; i += 4 * stride) {
+      uint4 r[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) r[j] = i + j * stride < n_kv ? __ldg(src[a] + i + j * stride)
+                                                               : make_uint4(0, 0, 0, 0);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t ww[4] = {r[j].x, r[j].y, r[j].z, r[j].w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc = fmaf(w[4 * q + e], s8_at<MODE>(ww[q], e), acc);
+      }
+    }
+  }
+  put(out, __float_as_uint(acc));
+}
+
+extern "C" int k3_probe(int kind, const void* kq, const void* ks, const void* vq,
+                        const void* vs, void* out, int L, int B, int S, int D, int H,
+                        int layer, int cluster, int slice, int blocks, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t plane = (size_t)B * S * D, splane = (size_t)B * H * S;
+  const int8_t* k8 = static_cast<const int8_t*>(kq) + (size_t)layer * plane;
+  const int8_t* v8 = static_cast<const int8_t*>(vq) + (size_t)layer * plane;
+  const float* ksl = static_cast<const float*>(ks) + (size_t)layer * splane;
+  const float* vsl = static_cast<const float*>(vs) + (size_t)layer * splane;
+  unsigned* o = static_cast<unsigned*>(out);
+  if (kind == 0 || kind == 1) {
+    cudaLaunchConfig_t config = {};
+    config.gridDim = dim3(cluster, H, B);
+    config.blockDim = dim3(NT);
+    config.stream = st;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = kind == 1 ? cluster : 1;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    config.attrs = attr;
+    config.numAttrs = 1;
+    const cudaError_t err = kind == 1
+        ? cudaLaunchKernelEx(&config, probe_pattern<true>, static_cast<const int8_t*>(kq),
+                             static_cast<const float*>(ks), static_cast<const int8_t*>(vq),
+                             static_cast<const float*>(vs), o, B, S, D, H, layer, slice)
+        : cudaLaunchKernelEx(&config, probe_pattern<false>, static_cast<const int8_t*>(kq),
+                             static_cast<const float*>(ks), static_cast<const int8_t*>(vq),
+                             static_cast<const float*>(vs), o, B, S, D, H, layer, slice);
+    if (err != cudaSuccess) return (int)err;
+  } else if (kind == 2) {
+    probe_rows<<<blocks, NT, 0, st>>>(reinterpret_cast<const uint4*>(k8),
+                                      reinterpret_cast<const uint4*>(v8),
+                                      reinterpret_cast<const uint4*>(ksl),
+                                      reinterpret_cast<const uint4*>(vsl), o, plane / 16,
+                                      splane * 4 / 16);
+  } else if (kind == 3 || kind == 4) {
+    auto kernel = kind == 3 ? probe_convert<0> : probe_convert<1>;
+    kernel<<<blocks, NT, 0, st>>>(reinterpret_cast<const uint4*>(k8),
+                                  reinterpret_cast<const uint4*>(v8), o, plane / 16);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+"""
+K3_PROBES = ("K3's loads alone", "K3's loads + its cluster barriers", "whole contiguous rows",
+             "rows + I2F per value", "rows + byte trick per value")
+
+
+def build_k3_probes(work: Path):
+    """nvcc K3_PROBE_SRC into a shared library in `work` and load it."""
+    import ctypes
+    from sar_tpu_torch.ops import _build
+    src, lib = work / "k3_probe.cu", work / "libk3_probe.so"
+    src.write_text(K3_PROBE_SRC)
+    subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(lib), str(src)],
+                   check=True, capture_output=True, text=True, timeout=600)
+    probe = ctypes.CDLL(str(lib)).k3_probe
+    probe.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + \
+        [ctypes.c_void_p]
+    probe.restype = ctypes.c_int
+    return probe
+
+
+def k3_attribution(device, B: int, H: int, S_pad: int, L: int, work: Path) -> dict:
+    """K3 at [B, H, S_pad] over an L-layer int8 cache (scale 0 past 1500
+    rows, as whisper's padding), in its cluster form and, where the rule
+    takes it, its large-batch form, against the K3_PROBES, each per call
+    over an L-layer sweep, as the decode loop calls it; prints one line
+    and returns {name: ms} with the bytes and the cluster form's I2F
+    conversions."""
+    import torch
+    from sar_tpu_torch.ops import _build, decode_cross
+    g = torch.Generator(device=device).manual_seed(SEED + 3)
+    D = H * 64
+    kq = torch.randint(-127, 128, (L, B, S_pad, D), generator=g, device=device, dtype=torch.int8)
+    vq = torch.randint(-127, 128, (L, B, S_pad, D), generator=g, device=device, dtype=torch.int8)
+    ks = torch.rand((L, B, H, S_pad), generator=g, device=device) * 0.01 + 1e-4
+    vs = torch.rand((L, B, H, S_pad), generator=g, device=device) * 0.01 + 1e-4
+    ks[..., min(S_pad, 1500):] = 0
+    q = (torch.randn((B, D), generator=g, device=device) * 0.125).to(torch.bfloat16)
+    probe = build_k3_probes(work)
+    C, slice_rows = decode_cross.cluster_split(S_pad)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    out = torch.zeros(max(C * H * B, 8 * sms) * 8, dtype=torch.int32, device=device)
+    forms = {"K3 (cluster form)": 0}
+    if decode_cross.stream_heads(B, H, S_pad, _build.sm_count(device)):
+        forms["K3 (large-batch form)"] = 1
+    ms = {name: time_cuda(lambda form=form: [decode_cross.cross_decode_exact_form(
+        q, kq, ks, vq, vs, layer=layer, n_heads=H, form=form) for layer in range(L)]) / L
+        for name, form in forms.items()}
+    for kind, name in enumerate(K3_PROBES):
+        def run(kind=kind):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            for layer in range(L):
+                code = probe(kind, kq.data_ptr(), ks.data_ptr(), vq.data_ptr(), vs.data_ptr(),
+                             out.data_ptr(), L, B, S_pad, D, H, layer, C, slice_rows, 8 * sms,
+                             stream)
+                if code:
+                    fail(f"K3 probe {name}: cudaError {code}")
+        ms[name] = time_cuda(run) / L
+    nbytes = 2 * B * S_pad * D + 2 * 4 * B * H * S_pad
+    conv = 2 * B * S_pad * D
+    parts = " | ".join(f"{n} {t:.4f} ms = {nbytes / 1e6 / t:.0f} GB/s" for n, t in ms.items())
+    print(f"K3 attribution [B={B}, H={H}, S_pad={S_pad}, D={D}, all {L} layers, "
+          f"{nbytes / 1e6:.1f} MB a call, bound {1e3 * nbytes / PEAK_HBM_BYTES:.4f} ms]: {parts}"
+          f" | the cluster form converts {conv / 1e6:.0f} M int8 values a call by I2F: at 16 a clock per SM "
+          f"that is {1e3 * conv / (16 * sms * 1.98e9):.4f} ms at 1.98 GHz")
+    del kq, vq, ks, vs
+    return dict(ms=ms, bytes=nbytes, conversions=conv)
+
+
+def phase_k3_large(cfg, device) -> dict:
+    """K3 at the evaluation cells' batch: the attribution line at
+    whisper-small B=K3_BIG_BATCH; then at whisper-small's and at OWSM v4
+    medium's cross shapes (K3_BIG_SHAPES) both forms (the cluster form and
+    the large-batch form, through decode_cross.cross_decode_exact_form) and
+    the wrapper against the plain version on the first and last layer, two
+    runs of each form bit for bit, each timed per call over an L-layer
+    sweep beside the plain version, with GB/s and the bound (the valid
+    rows' int8 and scales, q and the output, over the HBM rate); last,
+    the captured greedy loop at whisper-small B=K3_BIG_BATCH (random
+    weights and encoder output, K3_BIG_TOKENS new tokens, the first batch
+    captured, the second replayed): K3 12 per step run, every launch in
+    the large-batch form. -> the readings, for the K3 row's extra."""
+    import torch
+    from sar_tpu_torch.decode.graphs import CudaGraphCapture, DecodeRunner
+    from sar_tpu_torch.models import whisper
+    from sar_tpu_torch.ops import _build, decode_cross
+
+    g = torch.Generator(device=device).manual_seed(SEED + 24)
+    sms = _build.sm_count(device)
+    scratch = Path(__file__).resolve().parent / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch, prefix="k3_probe_") as work:
+        attribution = k3_attribution(device, K3_BIG_BATCH, cfg.decoder_heads,
+                                     whisper.cross_pad_len(cfg.max_source_positions),
+                                     cfg.decoder_layers, Path(work))
+    readings = {"attribution": attribution}
+    for label, (H, S, S_pad, L) in K3_BIG_SHAPES.items():
+        B, D = K3_BIG_BATCH, H * 64
+        kq = torch.randint(-127, 128, (L, B, S_pad, D), generator=g, device=device,
+                           dtype=torch.int8)
+        vq = torch.randint(-127, 128, (L, B, S_pad, D), generator=g, device=device,
+                           dtype=torch.int8)
+        ks = torch.rand((L, B, H, S_pad), generator=g, device=device) * 0.01 + 1e-4
+        vs = torch.rand((L, B, H, S_pad), generator=g, device=device) * 0.01 + 1e-4
+        ks[..., S:] = 0
+        vs[..., S:] = 0
+        q = (torch.randn((B, D), generator=g, device=device) * 0.125).to(torch.bfloat16)
+        G = decode_cross.stream_heads(B, H, S_pad, sms)
+        if G == 0 or decode_cross.launched_form(B, H, S_pad, device) != G:
+            fail(f"K3 at {label} B={B}: the rule takes form {G}, the library "
+                 f"{decode_cross.launched_form(B, H, S_pad, device)}; want the large-batch form")
+        err = 0.0
+        for layer in (0, L - 1):
+            want = decode_cross.cross_decode_reference_exact(q, kq, ks, vq, vs, layer=layer,
+                                                             n_heads=H)
+            got = decode_cross.cross_decode_attention_exact(q, kq, ks, vq, vs, layer=layer,
+                                                            n_heads=H)
+            for form in (0, 1):
+                one, again = (decode_cross.cross_decode_exact_form(
+                    q, kq, ks, vq, vs, layer=layer, n_heads=H, form=form) for _ in range(2))
+                a, rr = _attn_errors(one, want)
+                if a > ATTN_ABS_TOL or rr > ATTN_REL_TOL or not torch.equal(one, again):
+                    fail(f"K3 form {form} at {label} B={B}: max_abs_err {a:.3e}, "
+                         f"bits equal {torch.equal(one, again)}")
+                err = max(err, a)
+            if not torch.equal(got, one):
+                fail(f"K3 at {label} B={B}: the wrapper's output is not its large-batch form's")
+        torch.cuda.synchronize()
+
+        def sweep(fn, **kw):
+            return lambda: [fn(q, kq, ks, vq, vs, layer=layer, n_heads=H, **kw)
+                            for layer in range(L)]
+        ms = {form: time_cuda(sweep(decode_cross.cross_decode_exact_form, form=form)) / L
+              for form in (0, 1)}
+        plain_ms = time_cuda(sweep(decode_cross.cross_decode_reference_exact)) / L
+        nbytes = 2 * B * S_pad * D + 8 * B * H * S_pad
+        b_ms, b_by = bound(4.0 * B * S * D, 2 * B * S * D + 8 * B * H * S + 4 * B * D)
+        print(f"K3 at {label} [B={B}, H={H}, S_pad={S_pad} ({S} valid), D={D}, all {L} layers]: "
+              f"max_abs_err {err:.3e} (tol {ATTN_ABS_TOL}), each form bit-stable | per call: "
+              f"cluster form {ms[0]:.4f} ms = {nbytes / 1e6 / ms[0]:.0f} GB/s "
+              f"({100 * b_ms / ms[0]:.1f}% of bound), large-batch form {ms[1]:.4f} ms = "
+              f"{nbytes / 1e6 / ms[1]:.0f} GB/s ({100 * b_ms / ms[1]:.1f}%), plain "
+              f"{plain_ms:.4f} ms | bound {b_ms:.4f} ms ({b_by}) | ptxas "
+              f"{ptxas_of('cross_decode_exact_kernel_stream')}")
+        readings[label] = dict(max_abs_err=err, cluster_ms=ms[0], stream_ms=ms[1],
+                               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                               gbps=nbytes / 1e6 / ms[1])
+        del kq, vq, ks, vs
+
+    # The captured greedy loop at the evaluation batch.
+    params = whisper.cast_params(whisper.init_params(cfg, g, device), torch.bfloat16)
+    enc = (torch.randn((K3_BIG_BATCH, cfg.max_source_positions, cfg.d_model), generator=g,
+                       device=device) * 0.5).to(torch.bfloat16)
+    prompt = cfg.prompt_ids("hindi")
+    total = len(prompt) + K3_BIG_TOKENS
+    run = DecodeRunner(params, cfg, capture=CudaGraphCapture)
+    for label in ("captured", "replayed"):
+        reset_counts()
+        run.greedy(run.prep(enc, total, **INT8), prompt)
+        torch.cuda.synchronize()
+        counts, steps = read_counts(), read_steps()["greedy"]
+        if counts["cross_decode_attention_exact"] != cfg.decoder_layers * steps:
+            fail(f"K3 at B={K3_BIG_BATCH} ({label}): {counts['cross_decode_attention_exact']} "
+                 f"launches for {steps} steps")
+        check_k3_form(f"K3 greedy loop ({label}, {steps} steps)", counts, K3_BIG_BATCH,
+                      cfg.decoder_heads, whisper.cross_pad_len(cfg.max_source_positions))
+    readings["loop_launches"] = counts["cross_decode_attention_exact"]
+    del params, enc, run
+    return readings
 
 
 def phase_k6(cfg, device, batch):
@@ -1405,7 +1792,10 @@ K11_NAME = "self_decode_attention_exact"
 # K12 and K13 run in OWSM's encoder only: counted on every path, held to
 # their counts in the owsm phase.
 OWSM_NAMES = ("depthwise_conv_time", "layer_norm")
-COUNTED_NAMES = (*KERNEL_NAMES, K11_NAME, *OWSM_NAMES)
+# K3's launches in its large-batch form (decode_cross.STREAM_LAUNCHES):
+# counted on every path, held by check_k3_form to the rule's count.
+K3_STREAM_NAME = "cross_decode_attention_exact_stream"
+COUNTED_NAMES = (*KERNEL_NAMES, K11_NAME, *OWSM_NAMES, K3_STREAM_NAME)
 INT8 = dict(cross_kv_int8=True, self_kv_int8=True)   # the int8 head-minor cache
 
 
@@ -1421,7 +1811,7 @@ def reset_counts():
     decode_self_exact.LAUNCHES = dwconv.LAUNCHES = layer_norm.LAUNCHES = 0
     flash_enc.LAUNCHES = flash_enc.FUSED_LAUNCHES = 0
     kv_init.LAUNCHES = kv_init.LORA_LAUNCHES = 0
-    decode_cross.LAUNCHES = decode_cross.BEAM_LAUNCHES = 0
+    decode_cross.LAUNCHES = decode_cross.BEAM_LAUNCHES = decode_cross.STREAM_LAUNCHES = 0
     decode_cross.S8_LAUNCHES = decode_cross.S8_BEAM_LAUNCHES = 0
     flash.LAUNCHES = flash.DQ_LAUNCHES = flash.DKV_LAUNCHES = 0
     decode_self.LAUNCHES = attention.LAUNCHES = 0
@@ -1439,7 +1829,8 @@ def read_counts() -> dict:
                                    decode_cross.S8_BEAM_LAUNCHES,
                                    flash_enc.FUSED_LAUNCHES, decode_self.LAUNCHES,
                                    attention.LAUNCHES, decode_self_exact.LAUNCHES,
-                                   dwconv.LAUNCHES, layer_norm.LAUNCHES)))
+                                   dwconv.LAUNCHES, layer_norm.LAUNCHES,
+                                   decode_cross.STREAM_LAUNCHES)))
 
 
 def read_steps() -> dict:
@@ -1458,6 +1849,21 @@ def check_counts(path: str, counts: dict, want_zero: tuple) -> None:
     extra = [k for k in want_zero if counts[k] != 0]
     if extra:
         fail(f"the {path} path launched {', '.join(extra)}, which is not on it")
+
+
+def check_k3_form(path: str, counts: dict, B: int, H: int, S_pad: int) -> None:
+    """K3's launches in its large-batch form: all of them where the rule
+    (decode_cross.stream_heads) takes it at [B, H, S_pad] on this card,
+    else none."""
+    import torch
+    from sar_tpu_torch.ops import _build, decode_cross
+    k3 = counts["cross_decode_attention_exact"]
+    large = decode_cross.stream_heads(B, H, S_pad, _build.sm_count(torch.device("cuda", 0))) > 0
+    print(f"{path}: K3 launched {k3} times at B={B}, H={H}, S_pad={S_pad}, "
+          f"{counts[K3_STREAM_NAME]} in its large-batch form (the rule: {k3 if large else 0})")
+    if counts[K3_STREAM_NAME] != (k3 if large else 0):
+        fail(f"{path}: K3's large-batch form launched {counts[K3_STREAM_NAME]} times, "
+             f"the rule {k3 if large else 0}")
 
 
 def check_k11(path: str, counts: dict, want: int) -> None:
@@ -1568,6 +1974,8 @@ def phase_e2e(cfg, params, n_params, device, batch, n_batches, max_new_tokens,
     check_steps("greedy", counts, run_steps, sum(o[1] for o in outs), syncs,
                 "cross_decode_attention_exact", cfg.decoder_layers)
     check_k11("greedy", counts, cfg.decoder_layers * run_steps["greedy"])
+    check_k3_form("greedy", counts, batch, cfg.decoder_heads,
+                  whisper.cross_pad_len(cfg.max_source_positions))
     # The captured loop against the eager one on the replayed batch 0.
     eager = ASREvaluator(cfg, params, language=language, max_new_tokens=max_new_tokens,
                          device=device, capture=False)
@@ -4228,6 +4636,8 @@ def phase_owsm(device) -> dict:
         k for k in KERNEL_NAMES if k not in (*want, "cross_decode_attention_exact")))
     check_steps("owsm", counts, run_steps, sum(steps), syncs, "cross_decode_attention_exact", Ld)
     check_k11("owsm", counts, Ld * run_steps["greedy"])
+    check_k3_form("owsm", counts, OWSM_BATCH, cfg.decoder_heads,
+                  whisper.cross_pad_len(cfg.max_source_positions))
     eager = ASREvaluator(cfg, params, None, language="hindi", max_new_tokens=OWSM_NEW_TOKENS,
                          kv_int8=True, flash="auto", device=device, capture=False)
     same = eager.from_audio(*batches[1][:2]) == outs[0]

@@ -108,8 +108,8 @@ def _counters() -> list[tuple[dict, str]]:
     from sar_tpu_torch.ops.attic import attention, decode_self
     launches = {flash_enc: ("LAUNCHES", "FUSED_LAUNCHES"),
                 kv_init: ("LAUNCHES", "LORA_LAUNCHES"),
-                decode_cross: ("LAUNCHES", "BEAM_LAUNCHES", "S8_LAUNCHES",
-                               "S8_BEAM_LAUNCHES"),
+                decode_cross: ("LAUNCHES", "STREAM_LAUNCHES", "BEAM_LAUNCHES",
+                               "S8_LAUNCHES", "S8_BEAM_LAUNCHES"),
                 decode_self_exact: ("LAUNCHES",),
                 flash: ("LAUNCHES", "DQ_LAUNCHES", "DKV_LAUNCHES"),
                 decode_self: ("LAUNCHES",), attention: ("LAUNCHES",)}

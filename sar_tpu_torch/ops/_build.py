@@ -79,6 +79,13 @@ SIGNATURES = {
     # q, kq, ks, vq, vs, out, L, B, S_pad, D, n_heads, layer, device, stream
     "sar_cross_decode_exact": [_P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _I, _P],
+    # q, kq, ks, vq, vs, out, L, B, S_pad, D, n_heads, layer, form, device,
+    # stream
+    "sar_cross_decode_exact_form": [_P, _P, _P, _P, _P, _P,
+                                    _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # B, n_heads, S_pad, device -> the heads per item of K3's large-batch
+    # form, or 0 for its cluster form
+    "sar_cross_decode_form": [_I, _I, _I, _I],
     # q, kq, ks, vq, vs, out, L, B, K, S_pad, D, n_heads, layer, device,
     # stream
     "sar_cross_decode_exact_beam": [_P, _P, _P, _P, _P, _P,
@@ -206,6 +213,17 @@ def check(code: int, name: str) -> None:
 
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+_SM_COUNTS: dict[int, int] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The SMs of a CUDA device (read once per device)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _SM_COUNTS:
+        _SM_COUNTS[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _SM_COUNTS[index]
 
 
 def require(cond: bool, msg: str) -> None:

@@ -27,8 +27,11 @@ widths 2..8 (K7 also 1), and write bf16; the layer is an offset into the
 stacked cache (nothing is sliced or copied per step). K3 and K5 are one
 kernel (`cross_decode_exact_kernel<K>`, K = 1 for K3) that splits S_pad
 over a thread-block cluster of `cluster_split(S_pad)` blocks per (head,
-sample); K7 shares its kernel body with K9 (`s8_decode_kernel<K, mask>`)
-and splits S_pad over `s8_cluster_split(S_pad)` blocks.
+sample); at large batch (`stream_heads`) K3 takes its large-batch form
+instead (`cross_decode_exact_kernel_stream`: a block per SM streaming
+items of one sample and STREAM_HEADS heads, no cluster). K7 shares its
+kernel body with K9 (`s8_decode_kernel<K, mask>`) and splits S_pad over
+`s8_cluster_split(S_pad)` blocks.
 """
 
 from __future__ import annotations
@@ -53,8 +56,23 @@ RING_STAGES = 8
 # the kernel's static arrays.
 MAX_SHARED_BYTES = 232_448 - 48 * 1024
 
+# K3's large-batch form (csrc/decode_cross.cu): one block per SM walks over
+# items of one sample and STREAM_HEADS heads, streaming the item's
+# contiguous k rows, then its v rows, in tiles of STREAM_ROWS rows through
+# a ring of STREAM_STAGES stages that a producer warp fills for
+# STREAM_WARPS consumer warps. K3 takes it where the (head, sample) pairs
+# fill the card STREAM_PAIRS_PER_SM times over (`stream_heads`).
+STREAM_HEADS = 4
+STREAM_ROWS = 64
+STREAM_STAGES = 8
+STREAM_WARPS = 8
+STREAM_PAIRS_PER_SM = 2
+MAX_STREAM_SHARED_BYTES = 232_448
+H100_SMS = 132
+
 S8_BEAM_WIDTHS = range(1, 9)          # K7's template instances
 LAUNCHES = 0          # K3 launches by cross_decode_attention_exact (CUDA, q [B, D])
+STREAM_LAUNCHES = 0   # those of them in the large-batch form
 BEAM_LAUNCHES = 0     # K5 launches (CUDA, beam-folded q [B, K, D])
 S8_LAUNCHES = 0       # K7 launches by cross_decode_attention (CUDA, qq [B, D])
 S8_BEAM_LAUNCHES = 0  # K7 launches (CUDA, beam-folded qq [B, K, D])
@@ -91,7 +109,7 @@ def cross_decode_attention_exact(q, kq, ks, vq, vs, *, layer: int,
     if q.device.type == "cpu":
         return cross_decode_reference_exact(q, kq, ks, vq, vs, layer=layer,
                                             n_heads=n_heads)
-    global LAUNCHES, BEAM_LAUNCHES
+    global LAUNCHES, BEAM_LAUNCHES, STREAM_LAUNCHES
     folded = q.dim() == 3
     name = ("cross_decode_attention_exact (beam-folded, K5)" if folded
             else "cross_decode_attention_exact")
@@ -120,7 +138,32 @@ def cross_decode_attention_exact(q, kq, ks, vq, vs, *, layer: int,
     else:
         _build.check(lib.sar_cross_decode_exact(*args, *tail), name)
         LAUNCHES += 1
+        STREAM_LAUNCHES += int(stream_heads(B, n_heads, S, _build.sm_count(q.device)) > 0)
     return out
+
+
+def cross_decode_exact_form(q, kq, ks, vq, vs, *, layer: int, n_heads: int,
+                            form: int) -> torch.Tensor:
+    """K3 (q [B, D] on CUDA) in the form asked for, whatever the shape: 0
+    the cluster form, 1 the large-batch form. For timing both forms at one
+    shape and for the tests; it counts no launch, and no path calls it."""
+    name = "cross_decode_exact_form"
+    _build.require(q.device.type == "cuda" and q.dim() == 2,
+                   f"{name}: want a CUDA query [B, D]")
+    B, K, L, S, D = _check_slabs(name, q, dict(q=q, kq=kq, ks=ks, vq=vq, vs=vs),
+                                 dict(q=torch.bfloat16), n_heads, layer)
+    out = torch.empty_like(q)
+    _build.check(_build.load().sar_cross_decode_exact_form(
+        q.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(), vs.data_ptr(),
+        out.data_ptr(), L, B, S, D, n_heads, layer, form, q.device.index,
+        _build.stream_of(q)), name)
+    return out
+
+
+def launched_form(B: int, n_heads: int, S: int, device) -> int:
+    """The form the library launches for K3 at [B, n_heads, S_pad] on
+    `device` (a CUDA device): `stream_heads` as the C source computes it."""
+    return _build.load().sar_cross_decode_form(B, n_heads, S, torch.device(device).index or 0)
 
 
 def _check_slabs(name: str, q: torch.Tensor, tensors: dict, q_dtypes: dict,
@@ -162,6 +205,42 @@ def cluster_split(S: int) -> tuple[int, int]:
     [r * rows, min(S_pad, (r + 1) * rows)) with rows = ceil(S_pad / C)."""
     C = min(MAX_CLUSTER, -(-S // MIN_SLICE))
     return C, -(-S // C)
+
+
+def stream_shared_bytes(S: int) -> int:
+    """The large-batch form's dynamic shared memory per block: the ring
+    (each stage STREAM_ROWS int8 rows of STREAM_HEADS heads, then their
+    fp32 scales), the item's fp32 scores [STREAM_HEADS, S_pad], the
+    warps' fp32 P.V partials [STREAM_WARPS, STREAM_HEADS * 64], their
+    statistics (a float a warp, padded to 8 bytes) and an mbarrier pair a
+    stage."""
+    G, W, stages = STREAM_HEADS, STREAM_WARPS, STREAM_STAGES
+    stage = G * (STREAM_ROWS * KERNEL_HEAD_DIM + STREAM_ROWS * 4)
+    return (stages * stage + 4 * G * S + 4 * W * G * KERNEL_HEAD_DIM
+            + 4 * (W + W % 2) + 16 * stages)
+
+
+def stream_heads(B: int, H: int, S: int, sms: int = H100_SMS) -> int:
+    """K3's form at [B, H, S_pad] on a card of `sms` SMs: STREAM_HEADS,
+    the large-batch form's heads per item, where H divides into items of
+    that many heads, the B * H (head, sample) pairs are at least
+    STREAM_PAIRS_PER_SM per SM, and an item's scores fit beside the ring;
+    else 0, the cluster form (`cluster_split`). K5 and K7 always take
+    their clusters."""
+    fits = stream_shared_bytes(S) <= MAX_STREAM_SHARED_BYTES
+    take = H % STREAM_HEADS == 0 and B * H >= STREAM_PAIRS_PER_SM * sms and fits
+    return STREAM_HEADS if take else 0
+
+
+def stream_items(B: int, H: int, sms: int = H100_SMS) -> list[list[tuple[int, range]]]:
+    """The large-batch form's work: min(items, sms) blocks, block k taking
+    items k, k + blocks, ...; item i is sample i // (H / G) with heads
+    G * (i % (H / G)) .. + G. -> per block, its (sample, heads) in order."""
+    G = STREAM_HEADS
+    items = B * (H // G)
+    blocks = min(items, sms)
+    return [[(i // (H // G), range(G * (i % (H // G)), G * (i % (H // G)) + G))
+             for i in range(k, items, blocks)] for k in range(blocks)]
 
 
 def beam_shared_bytes(K: int, S: int) -> int:

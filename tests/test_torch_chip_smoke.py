@@ -50,6 +50,8 @@ def test_build_key_covers_every_source():
                                       "sar_fused_kv_init", "sar_fused_kv_init_lora",
                                       "sar_cross_decode_exact",
                                       "sar_cross_decode_exact_beam",
+                                      "sar_cross_decode_exact_form",
+                                      "sar_cross_decode_form",
                                       "sar_cross_decode_s8", "sar_s8_cluster_size",
                                       "sar_flash_attn_fwd", "sar_flash_attn_bwd_dkv",
                                       "sar_flash_attn_bwd_dq", "sar_self_decode_s8",

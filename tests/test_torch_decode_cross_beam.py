@@ -114,6 +114,72 @@ def test_split_constants_match_the_kernel():
     assert 232_448 - 48 * 1024 == decode_cross.MAX_SHARED_BYTES
 
 
+def test_stream_constants_match_the_kernel():
+    """K3's large-batch form: the Python mirror's constants are the C
+    source's."""
+    c = _constants("decode_cross.cu")
+    assert c["SR"] == decode_cross.STREAM_ROWS
+    assert c["STREAM_HEADS"] == decode_cross.STREAM_HEADS
+    assert c["STREAM_STAGES"] == decode_cross.STREAM_STAGES
+    assert c["STREAM_WARPS"] == decode_cross.STREAM_WARPS
+    assert c["STREAM_PAIRS_PER_SM"] == decode_cross.STREAM_PAIRS_PER_SM
+    assert c["kMaxStreamSmem"] == decode_cross.MAX_STREAM_SHARED_BYTES
+
+
+# The accepted cells' shapes take the large-batch form (small.eval.long,
+# turbo.eval.short, owsm.eval.short); the routed service's batches of at
+# most 8 keep the cluster form, as do whisper-tiny's 6 heads (no items of
+# 4) and an S_pad whose scores no longer fit beside the ring.
+@pytest.mark.parametrize("B,H,S_,want", [(128, 12, 1536, 4), (64, 20, 1536, 4),
+                                         (128, 16, 768, 4), (8, 12, 1536, 0),
+                                         (4, 12, 1536, 0), (1, 12, 1536, 0),
+                                         (128, 6, 1536, 0), (128, 12, 5248, 4),
+                                         (128, 12, 5312, 0)])
+def test_stream_form_picks(B, H, S_, want):
+    assert decode_cross.stream_heads(B, H, S_) == want
+
+
+@pytest.mark.parametrize("H", [12, 16, 20])
+def test_stream_form_crossover(H):
+    """The form changes where B * H reaches STREAM_PAIRS_PER_SM per SM, on
+    the H100's 132 SMs and on a card of half as many."""
+    for sms in (decode_cross.H100_SMS, decode_cross.H100_SMS // 2):
+        edge = -(-decode_cross.STREAM_PAIRS_PER_SM * sms // H)
+        assert decode_cross.stream_heads(edge, H, 1536, sms) == decode_cross.STREAM_HEADS
+        assert decode_cross.stream_heads(edge - 1, H, 1536, sms) == 0
+
+
+def test_stream_shared_bytes():
+    """Eight stages of 64 rows x 4 heads (16 KB of int8 and 1 KB of
+    scales), the item's 4 x S_pad scores, 8 warps' 4 x 64 partials."""
+    G, W = decode_cross.STREAM_HEADS, decode_cross.STREAM_WARPS
+    stage = G * 64 * (64 + 4)
+    for S_ in (768, 1536):
+        assert decode_cross.stream_shared_bytes(S_) == \
+            16 * 8 + 8 * stage + 4 * G * S_ + 4 * W * G * 64 + 4 * W
+    assert decode_cross.stream_shared_bytes(1536) == 172_192
+    assert decode_cross.stream_shared_bytes(5248) <= decode_cross.MAX_STREAM_SHARED_BYTES
+    assert decode_cross.stream_shared_bytes(5312) > decode_cross.MAX_STREAM_SHARED_BYTES
+
+
+@pytest.mark.parametrize("H", [4, 12, 16, 20])
+@pytest.mark.parametrize("sms", [decode_cross.H100_SMS, 7])
+def test_stream_items_cover_every_pair_once(H, sms):
+    """Around the crossover and far past it, the large-batch form's blocks
+    take every (sample, head) exactly once, min(items, SMs) blocks whose
+    item counts differ by at most one."""
+    G = decode_cross.STREAM_HEADS
+    edge = -(-decode_cross.STREAM_PAIRS_PER_SM * sms // H)
+    for B in sorted({1, 2, max(1, edge - 1), edge, edge + 1, 2 * edge + 3, 128}):
+        blocks = decode_cross.stream_items(B, H, sms)
+        items = B * H // G
+        assert len(blocks) == min(items, sms)
+        pairs = [(b, h) for block in blocks for b, heads in block for h in heads]
+        assert sorted(pairs) == [(b, h) for b in range(B) for h in range(H)]
+        counts = [len(block) for block in blocks]
+        assert min(counts) >= 1 and max(counts) - min(counts) <= 1
+
+
 @pytest.mark.parametrize("S_,want", [(64, (1, 64)), (128, (1, 128)), (512, (2, 256)),
                                      (1536, (6, 256)), (2048, (8, 256)), (33408, (8, 4176))])
 def test_cluster_split_picks(S_, want):

@@ -164,10 +164,12 @@ def test_one_host_sync_per_segment(model, segment):
 
 class StandInSeam:
     """The capture seam's stand-in: warm_up runs the body; capture counts
-    itself, moves K3's launch counter by LAUNCHES_PER_CAPTURE as the
-    wrappers do while their launches are recorded, and returns the body as
-    the "replay" (run eagerly on the CPU)."""
+    itself, moves K3's launch counter by LAUNCHES_PER_CAPTURE (and its
+    large-batch form's by STREAM_PER_CAPTURE) as the wrappers do while
+    their launches are recorded, and returns the body as the "replay" (run
+    eagerly on the CPU)."""
     LAUNCHES_PER_CAPTURE = 7
+    STREAM_PER_CAPTURE = 5
 
     def __init__(self):
         self.captured = 0
@@ -178,6 +180,7 @@ class StandInSeam:
     def capture(self, body):
         self.captured += 1
         decode_cross.LAUNCHES += self.LAUNCHES_PER_CAPTURE
+        decode_cross.STREAM_LAUNCHES += self.STREAM_PER_CAPTURE
         return body
 
 
@@ -230,6 +233,7 @@ def test_runner_counter_replay_is_exact(model):
     run = _runner(tp, seams)
     n_seg = len(segments.grid(total, 2))
     launches, steps = decode_cross.LAUNCHES, segments.STEPS["greedy"]
+    stream = decode_cross.STREAM_LAUNCHES
     N = 3
     for _ in range(N):
         run.greedy(run.prep(t(enc), total, **INT8), PROMPT, segment=2,
@@ -238,6 +242,8 @@ def test_runner_counter_replay_is_exact(model):
     # The first batch ran eagerly (its captures' counts put back), the
     # others replayed: 7 per replayed segment.
     assert decode_cross.LAUNCHES - launches == (N - 1) * n_seg * StandInSeam.LAUNCHES_PER_CAPTURE
+    assert decode_cross.STREAM_LAUNCHES - stream == \
+        (N - 1) * n_seg * StandInSeam.STREAM_PER_CAPTURE
     assert segments.STEPS["greedy"] - steps == N * (total - 1)
 
 

@@ -129,8 +129,8 @@ def _runners(cfg, params, **kw):
 def _counts():
     from sar_tpu_torch.decode import segments
     from sar_tpu_torch.ops import decode_cross
-    return (decode_cross.LAUNCHES, decode_cross.BEAM_LAUNCHES, decode_cross.S8_LAUNCHES,
-            decode_cross.S8_BEAM_LAUNCHES, *segments.STEPS.values())
+    return (decode_cross.LAUNCHES, decode_cross.STREAM_LAUNCHES, decode_cross.BEAM_LAUNCHES,
+            decode_cross.S8_LAUNCHES, decode_cross.S8_BEAM_LAUNCHES, *segments.STEPS.values())
 
 
 def _run_both(run_captured, run_eager, encs):

@@ -151,11 +151,32 @@ def test_kv_init_lora_wrapper_refuses_what_the_kernel_does_not_take(dev):
             kv_init.fused_kv_init(x, w, w, bv, n_heads=2, t_valid=50, va=va, vb=vb)
 
 
-@pytest.mark.parametrize("H", [4, 20])
-def test_cross_decode_kernel(dev, H):
+def _k3_counts():
+    from sar_tpu_torch.ops import decode_cross
+    return decode_cross.LAUNCHES, decode_cross.STREAM_LAUNCHES, decode_cross.BEAM_LAUNCHES
+
+
+def _k3_form(dev, B, H, S_pad):
+    """The form K3 takes here (the heads of a large-batch item, or 0 for
+    the cluster form), the Python mirror held to the library's."""
+    from sar_tpu_torch.ops import _build, decode_cross
+    G = decode_cross.stream_heads(B, H, S_pad, _build.sm_count(dev))
+    assert decode_cross.launched_form(B, H, S_pad, dev) == G
+    return G
+
+
+# K3 on both sides of the crossover to its large-batch form: B=3 (the
+# cluster form) and B=80 (the large-batch form at 4 and 20 heads on an
+# H100), then the accepted cells' shapes (small.eval.long, turbo.eval.short,
+# owsm.eval.short), every layer of the cache; where H divides into the
+# large-batch items, both forms through the probe entry as well.
+@pytest.mark.parametrize("B,H,S,S_pad", [(3, 4, 100, 128), (3, 20, 100, 128), (80, 4, 100, 128),
+                                         (80, 20, 100, 128), (128, 12, 1500, 1536),
+                                         (64, 20, 1500, 1536), (128, 16, 749, 768)])
+def test_cross_decode_kernel(dev, B, H, S, S_pad):
     from sar_tpu_torch.ops import decode_cross, kv_init
     g = torch.Generator(device=dev).manual_seed(2)
-    L, B, S, S_pad = 2, 3, 100, 128
+    L = 2
     D = H * 64
     x = _randn(g, dev, B, S_pad, D)
     x[:, S:] = 0
@@ -163,11 +184,23 @@ def test_cross_decode_kernel(dev, H):
     kq, ks, vq, vs = kv_init.fused_kv_init_reference(
         x, w, w, torch.zeros((L, D), dtype=torch.bfloat16, device=dev), n_heads=H, t_valid=S)
     q = _randn(g, dev, B, D, std=0.125)
+    G = _k3_form(dev, B, H, S_pad)
+    assert (G > 0) == (B >= 64)
     for layer in range(L):
+        n = _k3_counts()
         got = decode_cross.cross_decode_attention_exact(q, kq, ks, vq, vs, layer=layer, n_heads=H)
         want = decode_cross.cross_decode_reference_exact(q, kq, ks, vq, vs, layer=layer, n_heads=H)
         torch.cuda.synchronize()
+        assert _k3_counts() == (n[0] + 1, n[1] + (G > 0), n[2])
         assert (got.float() - want.float()).abs().max().item() <= 2e-2
+        for form in (0, 1) if H % decode_cross.STREAM_HEADS == 0 else ():
+            one = decode_cross.cross_decode_exact_form(q, kq, ks, vq, vs, layer=layer,
+                                                       n_heads=H, form=form)
+            torch.cuda.synchronize()
+            assert _k3_counts() == (n[0] + 1, n[1] + (G > 0), n[2])
+            assert (one.float() - want.float()).abs().max().item() <= 2e-2
+            if form == (G > 0):
+                assert torch.equal(one, got)
 
 
 def _beam_cache(g, dev, L, B, S, S_pad, H):
@@ -224,29 +257,33 @@ def test_cross_decode_beam_wrapper_refuses_what_the_kernel_does_not_take(dev):
 
 # K3/K5's cluster split at its edges: one block (S_pad 128, C = 1), six
 # (whisper's S_pad 1536, slices of 256 rows) with t_valid on a slice
-# boundary (1280), one past it, and small enough that five slices hold
-# padding only, and eight (S_pad 2048) with t_valid on a slice boundary;
-# K = 1 (K3) and 2, 4, 8 (K5); every layer of a 3-layer cache; two runs
-# give the same bits (no atomics).
+# boundary (1280, also a border of the large-batch form's 64-row ring
+# tiles), one past it, and small enough that five slices (and every tile
+# past the second) hold padding only, and eight (S_pad 2048) with t_valid
+# on a slice boundary; K = 1 (K3) and 2, 4, 8 (K5); B = 2 and B = 80 (K3
+# in its large-batch form at these 4 heads, K5 still in clusters); every
+# layer of a 3-layer cache; two runs give the same bits (no atomics).
 @pytest.mark.parametrize("S_pad,t_valid,C", [(128, 100, 1), (1536, 1280, 6), (1536, 1281, 6),
                                              (1536, 100, 6), (2048, 1536, 8)])
 @pytest.mark.parametrize("K", [1, 2, 4, 8])
-def test_cross_decode_cluster_split_edges(dev, S_pad, t_valid, C, K):
+@pytest.mark.parametrize("B", [2, 80])
+def test_cross_decode_cluster_split_edges(dev, S_pad, t_valid, C, K, B):
     from sar_tpu_torch.ops import decode_cross
     g = torch.Generator(device=dev).manual_seed(6)
-    L, B, H = 3, 2, 4
+    L, H = 3, 4
     assert decode_cross.cluster_split(S_pad)[0] == C
+    stream = K == 1 and _k3_form(dev, B, H, S_pad) > 0
+    assert stream == (K == 1 and B == 80)
     kq, ks, vq, vs = _beam_cache(g, dev, L, B, t_valid, S_pad, H)
     q = _randn(g, dev, B, K, H * 64, std=0.125)
     q = q[:, 0].contiguous() if K == 1 else q
     for layer in range(L):
-        n = (decode_cross.LAUNCHES, decode_cross.BEAM_LAUNCHES)
+        n = _k3_counts()
         got = decode_cross.cross_decode_attention_exact(q, kq, ks, vq, vs, layer=layer, n_heads=H)
         again = decode_cross.cross_decode_attention_exact(q, kq, ks, vq, vs, layer=layer, n_heads=H)
         want = decode_cross.cross_decode_reference_exact(q, kq, ks, vq, vs, layer=layer, n_heads=H)
         torch.cuda.synchronize()
-        assert (decode_cross.LAUNCHES, decode_cross.BEAM_LAUNCHES) == \
-            (n[0] + 2 * (K == 1), n[1] + 2 * (K > 1))
+        assert _k3_counts() == (n[0] + 2 * (K == 1), n[1] + 2 * stream, n[2] + 2 * (K > 1))
         assert got.shape == q.shape and torch.isfinite(got.float()).all()
         assert torch.equal(got, again)
         err = (got.float() - want.float()).abs().max().item()
@@ -254,12 +291,15 @@ def test_cross_decode_cluster_split_edges(dev, S_pad, t_valid, C, K):
 
 
 @pytest.mark.parametrize("K", [1, 4])
-def test_cross_decode_all_rows_masked_is_uniform(dev, K):
+@pytest.mark.parametrize("B,H", [(2, 2), (80, 4)])
+def test_cross_decode_all_rows_masked_is_uniform(dev, K, B, H):
     """A sample whose every key scale is 0 attends uniformly over all S_pad
-    rows, as the TPU kernel's softmax of all -1e30 does."""
+    rows, as the TPU kernel's softmax of all -1e30 does: in the cluster
+    form (B=2) and, for K3, in the large-batch form (B=80 at 4 heads)."""
     from sar_tpu_torch.ops import decode_cross
     g = torch.Generator(device=dev).manual_seed(7)
-    L, B, S_pad, H = 2, 2, 1536, 2
+    L, S_pad = 2, 1536
+    assert (K == 1 and _k3_form(dev, B, H, S_pad) > 0) == (K == 1 and B == 80)
     kq, ks, vq, vs = _beam_cache(g, dev, L, B, 1500, S_pad, H)
     ks = ks.clone()
     ks[:, 1] = 0
