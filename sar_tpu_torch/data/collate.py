@@ -25,7 +25,9 @@ LABEL_PAD = -100
 def batch_features(items: list[dict], num_mels: int = 80,
                    num_frames: int | None = None, device=None):
     """Stacked "input_features" as numpy [B, M, T]; for raw-audio items,
-    the 30 s windows' log-mel on `device`, as a tensor there."""
+    the 30 s windows' Whisper log-mel on `device`, as a tensor there, as
+    the JAX package's collator computes them (a config with another
+    frontend takes its features from models/frontend.py instead)."""
     if "input_features" in items[0]:
         return np.stack([np.asarray(it["input_features"], np.float32)
                          for it in items])

@@ -79,10 +79,8 @@ from sar_tpu_torch.decode.graphs import (CudaGraphCapture, DecodeRunner,
 from sar_tpu_torch.decode.greedy import transcribe_tokens
 from sar_tpu_torch.device import resolve_device, tree_to
 from sar_tpu_torch.evaluation.fallback import FallbackTranscriber
-from sar_tpu_torch.models import whisper
+from sar_tpu_torch.models import frontend, whisper
 from sar_tpu_torch.models.config import WhisperConfig
-from sar_tpu_torch.ops import fbank as fbank_ops
-from sar_tpu_torch.ops import mel as mel_ops
 from sar_tpu_torch.parallel import distributed as pdist
 from sar_tpu_torch.parallel import sharding
 from sar_tpu_torch.training.metrics import (analyze_errors, compute_metrics,
@@ -159,10 +157,7 @@ class ASREvaluator:
         self.max_new_tokens = max_new_tokens
         self.num_beams = num_beams
         self.kernels = kernels
-        # "auto": the head-minor attention kernel on the card, exact
-        # attention on the CPU (the kernel's plain version is slower there).
-        self.flash = (("hm" if self.device.type == "cuda" else False)
-                      if flash == "auto" else flash)
+        self.flash = whisper.resolve_flash(flash, self.device)
         prompt = (list(prompt_tokens) if prompt_tokens is not None
                   else cfg.prompt_ids(language, task))
         self._prompt = torch.tensor(prompt, dtype=torch.int64, device=self.device)
@@ -264,25 +259,15 @@ class ASREvaluator:
 
     def from_audio(self, audio, prompts=None) -> list:
         """Raw 16 kHz audio ([B, N] array/tensor, or a list of 1-D
-        waveforms) -> per-clip token ids (or text): pad/trim to the 30 s
-        window, the config's frontend on the device in the params' dtype
-        (Whisper's log-mel, or ESPnet's normalised log-mel of OWSM with the
-        params' "mvn" statistics), keep the encoder's `num_audio_frames`
-        frames, then decode (with `prompts`
+        waveforms) -> per-clip token ids (or text): the config's frontend
+        (models/frontend.py: the 30 s window, Whisper's log-mel or OWSM's
+        normalised one) on the device in the params' dtype, then decode
+        (with `prompts`
         [P] or [B, P] of the evaluator's prompt width, when given)."""
         with profiling.span("frontend"):
-            if isinstance(audio, (list, tuple)):
-                audio = mel_ops.stack_pad_audio(audio)
-            if not isinstance(audio, torch.Tensor):
-                audio = torch.from_numpy(np.asarray(audio, np.float32))
-            audio = mel_ops.pad_or_trim(audio.to(self.device, torch.float32))
-            if self.cfg.frontend == "espnet":
-                feats = fbank_ops.fbank(audio, self.params["mvn"], self.cfg.num_mel_bins,
-                                        dtype=self.dtype)
-            else:
-                feats = mel_ops.log_mel_spectrogram(audio, self.cfg.num_mel_bins,
-                                                    dtype=self.dtype)
-        return self._transcribe_batch(feats[:, :, :self.cfg.num_audio_frames], prompts)
+            feats = frontend.features(audio, self.cfg, self.params,
+                                      dtype=self.dtype, device=self.device)
+        return self._transcribe_batch(feats, prompts)
 
     def evaluate(self, dataloader, return_predictions: bool = False) -> dict:
         """Corpus WER/CER (and the sample count) over one epoch of a

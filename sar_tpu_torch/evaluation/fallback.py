@@ -112,7 +112,7 @@ class FallbackTranscriber:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.params = tree_to(params, self.device)
-        dtype = self.params["encoder"]["conv1"]["w"].dtype
+        dtype = self.params["decoder"]["token_embed"].dtype
         self.lora = tree_to(lora, self.device, dtype) if lora is not None else None
         self.lora_scale = lora_scale
         self.tokenizer = tokenizer
@@ -124,8 +124,7 @@ class FallbackTranscriber:
         self.no_speech_threshold = no_speech_threshold
         self.seed = seed
         self._calls = 0
-        self.flash = (("hm" if self.device.type == "cuda" else False)
-                      if flash == "auto" else flash)
+        self.flash = whisper.resolve_flash(flash, self.device)
         self.kernels = kernels
         # timestamps=True decodes under the timestamp grammar; the
         # thresholds judge the timestamp-stripped text.

@@ -32,20 +32,19 @@ import numpy as np
 import torch
 
 from sar_tpu_torch.device import resolve_device, tree_to
+from sar_tpu_torch.models import frontend
 from sar_tpu_torch.ops import mel as mel_ops
 
 
-def window_features(chunks, cfg, device, batch: int | None = None) -> torch.Tensor:
-    """bf16 log-mel features [batch, n_mels, frames] of the chunks, padded
-    with silent clips to `batch` (as the JAX package's long-form computes
-    them, whatever the weights' dtype)."""
-    chunks = list(chunks)
-    if batch is not None:
-        chunks += [np.zeros(1, np.float32)] * (batch - len(chunks))
-    padded = torch.from_numpy(mel_ops.stack_pad_audio(chunks)).to(device)
-    feats = mel_ops.log_mel_spectrogram(padded, cfg.num_mel_bins,
-                                        dtype=torch.bfloat16)
-    return feats[:, :, :cfg.num_audio_frames]
+def window_features(chunks, cfg, device, batch: int | None = None, *,
+                    params: dict | None = None) -> torch.Tensor:
+    """bf16 encoder features [batch, n_mels, frames] of the chunks' 30 s
+    windows through the config's frontend (models/frontend.py; an ESPnet
+    config reads `params`' "mvn"), padded with silent clips to `batch` (as
+    the JAX package's long-form computes them, whatever the weights'
+    dtype)."""
+    return frontend.features(list(chunks), cfg, params, dtype=torch.bfloat16,
+                             device=device, rows=batch)
 
 
 def chunk_audio(audio: np.ndarray, chunk_seconds: float = 30.0,
@@ -186,7 +185,7 @@ def transcribe_long(audio: np.ndarray, cfg, params, tokenizer,
     device = resolve_device(device)
     params = tree_to(params, device)
     if lora is not None:
-        lora = tree_to(lora, device, params["encoder"]["conv1"]["w"].dtype)
+        lora = tree_to(lora, device, params["decoder"]["token_embed"].dtype)
     if (condition_on_previous_text or initial_prompt is not None
             or hallucination_silence_threshold is not None):
         return _transcribe_long_conditioned(
@@ -253,7 +252,8 @@ def transcribe_long(audio: np.ndarray, cfg, params, tokenizer,
     for s in range(0, len(chunks), batch_size):
         group = pairs[s:s + batch_size]
         n = len(group)
-        feats = window_features([c for c, _ in group], cfg, device, batch_size)
+        feats = window_features([c for c, _ in group], cfg, device, batch_size,
+                                params=params)
         group_texts, info = transcriber(feats, n_valid=n)
         kept = []
         for b, (text, row) in enumerate(zip(group_texts[:n], info[:n])):
@@ -429,7 +429,7 @@ def _transcribe_long_conditioned(
         if seek and len(chunk) < int(0.2 * sr):
             break                               # sub-200ms tail (chunker rule)
         off = seek / sr
-        feats = window_features([chunk], cfg, device)
+        feats = window_features([chunk], cfg, device, params=params)
         keep = C - len(carry)
         pool = carry + (ctx[-keep:] if keep > 0 else [])
         if pool and C:

@@ -8,8 +8,9 @@ the longest common prefix of consecutive hypotheses: committed text is
 stable, the tail may still be revised.
 
 Every update runs the same two programs, as the JAX transcriber's two
-jits: `prep` (the window zero-padded to the model's window, mel on the
-device in the weights' dtype, `encode`, the cache built into the
+jits: `prep` (the window zero-padded to the model's window, the
+config's frontend on the device in the weights' dtype (models/frontend.py:
+an ESPnet config's window is 30 s), `encode`, the cache built into the
 runner's static cache) and `dec` (the greedy loop over a token buffer of
 the whole width, the prompt then the committed ids, with the forced
 prefix length `prompt_len` = prompt + committed refilled per call). The
@@ -36,9 +37,8 @@ import torch
 from sar_tpu_torch.decode.graphs import CudaGraphCapture, DecodeRunner, resolve_capture
 from sar_tpu_torch.decode.greedy import transcribe_tokens
 from sar_tpu_torch.device import resolve_device, tree_to
-from sar_tpu_torch.models import whisper
+from sar_tpu_torch.models import frontend, whisper
 from sar_tpu_torch.models.config import WhisperConfig
-from sar_tpu_torch.ops import mel as mel_ops
 
 
 def common_prefix_len(a: list[int], b: list[int]) -> int:
@@ -70,19 +70,18 @@ class StreamingTranscriber:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.params = tree_to(params, self.device)
-        self.dtype = self.params["encoder"]["conv1"]["w"].dtype
+        self.dtype = self.params["decoder"]["token_embed"].dtype
         self.lora = (tree_to(lora, self.device, self.dtype)
                      if lora is not None else None)
         self.lora_scale = lora_scale
         self.tokenizer = tokenizer
         self.kernels = kernels
-        self.window_samples = cfg.num_audio_frames * mel_ops.HOP_LENGTH
+        self.window_samples = frontend.window_samples(cfg)
         prompt = cfg.prompt_ids(language, task)
         self._p0 = len(prompt)
         self._total = min(self._p0 + max_new_tokens, cfg.max_target_positions)
         self._prompt = np.asarray(prompt, np.int64)
-        self.flash = (("hm" if self.device.type == "cuda" else False)
-                      if flash == "auto" else flash)
+        self.flash = whisper.resolve_flash(flash, self.device)
         self._flags = dict(cross_kv_int8=kv_int8, self_kv_int8=kv_int8,
                            head_minor=whisper.use_head_minor(
                                cross_kv_int8=kv_int8, self_kv_int8=kv_int8))
@@ -106,12 +105,16 @@ class StreamingTranscriber:
         return self._total - self._p0 - 1
 
     # -- internals -----------------------------------------------------
+    def _features(self, audio: np.ndarray) -> torch.Tensor:
+        """The window's features [1, n_mels, frames]: the clip padded to
+        the window, through the config's frontend in the weights' dtype."""
+        return frontend.features([audio], self.cfg, self.params, dtype=self.dtype,
+                                 device=self.device, samples=self.window_samples)
+
     @torch.no_grad()
-    def _prep(self, window: np.ndarray) -> whisper.DecodeCache:
-        """mel -> encode -> the cache, into the runner's static cache."""
-        audio = torch.from_numpy(window).to(self.device)
-        feats = mel_ops.log_mel_spectrogram(audio, self.cfg.num_mel_bins, dtype=self.dtype)
-        enc = whisper.encode(self.params, feats[:, :, :self.cfg.num_audio_frames], self.cfg,
+    def _prep(self, audio: np.ndarray) -> whisper.DecodeCache:
+        """features -> encode -> the cache, into the runner's static cache."""
+        enc = whisper.encode(self.params, self._features(audio), self.cfg,
                              lora=self.lora, lora_scale=self.lora_scale, flash=self.flash,
                              kernels=self.kernels)
         return self.runner.prep(enc, self._total, **self._flags)
@@ -119,14 +122,13 @@ class StreamingTranscriber:
     def _decode_window(self, audio: np.ndarray) -> list[int]:
         """One update: returns the window's generated ids (the forced
         committed prefix followed by fresh greedy continuation)."""
-        window = mel_ops.stack_pad_audio([audio], self.window_samples)
         # feed() keeps _committed <= cap; the slice only guards the
         # feed-after-finalize() edge (finalize commits the full hypothesis).
         committed = self._committed[:self._commit_cap]
         buf = np.full((1, self._total), self.cfg.eos_token_id, np.int64)
         buf[0, :self._p0] = self._prompt
         buf[0, self._p0:self._p0 + len(committed)] = committed
-        tokens = self.runner.greedy(self._prep(window), buf,
+        tokens = self.runner.greedy(self._prep(audio), buf,
                                     prompt_len=self._p0 + len(committed))
         return transcribe_tokens(tokens, self.cfg, prompt_len=self._p0)[0]
 

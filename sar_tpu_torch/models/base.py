@@ -6,7 +6,7 @@ only (`local_files_only=True`, never the network), converted with
 `convert.from_hf_model`, moved to the device and cast; without
 `transformers` or without the checkpoint's files it raises and names the
 missing weights. `get_processor` is the port's (feature function,
-tokenizer) pair: the mel frontend on a device and `get_tokenizer`.
+tokenizer) pair: Whisper's mel frontend on a device and `get_tokenizer`.
 """
 
 from __future__ import annotations
@@ -35,9 +35,17 @@ def get_processor(model_name: str, language: str = "hindi",
     [B, N] (numpy or torch, padded or trimmed to the 30 s window by the
     caller) and returns log-mel features [B, num_mel_bins, 3000] fp32 on
     `device` (the CUDA card unless given); the tokenizer is
-    `get_tokenizer(model_name, language, task)`."""
+    `get_tokenizer(model_name, language, task)`. A config with ESPnet's
+    frontend (OWSM) raises ValueError: its features need the checkpoint's
+    MVN statistics, which only its params hold (models/frontend.py)."""
     from sar_tpu_torch.ops.mel import log_mel_spectrogram
     cfg = get_config(model_name)
+    if cfg.frontend != "whisper":
+        raise ValueError(
+            f"{model_name}: its {cfg.frontend} frontend normalises with the "
+            f"checkpoint's MVN statistics, params['mvn'], which get_processor "
+            f"does not hold; use sar_tpu_torch.models.frontend.features(audio, "
+            f"cfg, params, ...)")
     dev = resolve_device(device)
     tok = get_tokenizer(model_name, language=language, task=task)
 

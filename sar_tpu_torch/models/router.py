@@ -73,8 +73,8 @@ class AdapterRouter:
         self.strategy = strategy
         self.threshold = threshold
         self.kernels = kernels
-        self.flash = (("hm" if self.device.type == "cuda" else False)
-                      if flash is None else flash)
+        self.flash = whisper.resolve_flash("auto" if flash is None else flash,
+                                           self.device)
         self.dtype = self.base_params["encoder"]["conv1"]["w"].dtype
         # The bank in the compute dtype, once: lora_delta casts to it anyway.
         self._bank = tree_to(self.bank, dtype=self.dtype)

@@ -643,6 +643,15 @@ def encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig, *,
     return layer_norm(x, enc["ln"]["scale"], enc["ln"]["bias"])
 
 
+def resolve_flash(flash: bool | str, device: torch.device) -> bool | str:
+    """`encode`'s `flash` for inference on `device`: "auto" is "hm" (K1) on
+    a CUDA device and exact attention elsewhere (K1's plain version is
+    slower on the CPU); any other value stays."""
+    if flash != "auto":
+        return flash
+    return "hm" if device.type == "cuda" else False
+
+
 # ---------------------------------------------------------------------------
 # Decoder (teacher-forced)
 # ---------------------------------------------------------------------------

@@ -190,10 +190,10 @@ def _audio(batch: int, device: torch.device) -> torch.Tensor:
                             .astype(np.float32)).to(device)
 
 
-def _mel(cfg, audio: torch.Tensor) -> torch.Tensor:
-    from sar_tpu_torch.ops import mel as mel_ops
-    return mel_ops.log_mel_spectrogram(audio, cfg.num_mel_bins,
-                                       dtype=torch.bfloat16)[:, :, :cfg.num_audio_frames]
+def _mel(cfg, params, audio: torch.Tensor) -> torch.Tensor:
+    from sar_tpu_torch.models import frontend
+    return frontend.features(audio, cfg, params, dtype=torch.bfloat16,
+                             device=audio.device)
 
 
 def _agreement(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -334,21 +334,21 @@ def run_routed(cfg, params, batch, max_new_tokens, iters, kv, n_languages,
     audio = _audio(batch, device)
 
     def lid_only():
-        return router.route(_mel(cfg, audio))[0]
+        return router.route(_mel(cfg, params, audio))[0]
 
     def decode(feats, idx):
         return router.decode(router.encode(feats, idx), idx, max_new_tokens,
                              kv_int4=kv_int4, kv_int8=kv_int8)
 
     def routed():
-        feats = _mel(cfg, audio)
+        feats = _mel(cfg, params, audio)
         idx = router.route(feats)[0]
         return decode(feats, idx), idx
 
     toks_routed, idx0 = routed()
 
     def oracle():
-        return decode(_mel(cfg, audio), idx0)
+        return decode(_mel(cfg, params, audio), idx0)
 
     # Routing must cost time, never tokens: the same indices, the same decode.
     agreement = _agreement(toks_routed, oracle())
@@ -428,13 +428,13 @@ def run_config(cfg, params, batch, max_new_tokens, kv, iters, device,
         # Every rank's rows of the batch: the rates below are the batch's.
         audio = pdist.put_global_batch(audio, mesh)
         params = sharding.shard_params(params, mesh, cfg)
-    flash = "hm" if device.type == "cuda" else False
+    flash = whisper.resolve_flash("auto", device)
     runner = DecodeRunner(params, cfg, tp=tp, capture=CudaGraphCapture
                           if resolve_capture(capture, device) and tp is None else None)
 
     @torch.no_grad()
     def encode():
-        return whisper.encode(params, _mel(cfg, audio), cfg, flash=flash, tp=tp)
+        return whisper.encode(params, _mel(cfg, params, audio), cfg, flash=flash, tp=tp)
 
     # classic forces the [L,B,H,S,hd] layout, and so does a mesh; None
     # defers to the decoder's own choice (use_head_minor).

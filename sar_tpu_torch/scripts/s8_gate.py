@@ -61,6 +61,17 @@ def probe_logit_delta(ev_a, ev_b, feats, n_steps: int = 4) -> float:
     return worst
 
 
+def gate_features(cfg, params, batch: int, device: torch.device) -> torch.Tensor:
+    """A cell's input: `batch` random 30 s clips from seed = batch through
+    the config's frontend (models/frontend.py), in bf16."""
+    from sar_tpu_torch.models import frontend
+    from sar_tpu_torch.ops import mel as mel_ops
+    rng = np.random.default_rng(batch)
+    audio = torch.from_numpy(
+        (rng.standard_normal((batch, mel_ops.N_SAMPLES)) * 0.1).astype(np.float32)).to(device)
+    return frontend.features(audio, cfg, params, dtype=torch.bfloat16, device=device)
+
+
 def run_cell(model: str, batch: int, max_new_tokens: int, probe: bool,
              quant: str, device: torch.device) -> dict:
     """One gate cell (see the module docstring)."""
@@ -68,16 +79,11 @@ def run_cell(model: str, batch: int, max_new_tokens: int, probe: bool,
     from sar_tpu_torch.evaluation import ASREvaluator
     from sar_tpu_torch.models import whisper
     from sar_tpu_torch.models.config import get_config
-    from sar_tpu_torch.ops import mel as mel_ops
 
     cfg = get_config(model)
     g = torch.Generator(device=device).manual_seed(0)
     params = whisper.cast_params(whisper.init_params(cfg, g, device), torch.bfloat16)
-    rng = np.random.default_rng(batch)
-    audio = torch.from_numpy(
-        (rng.standard_normal((batch, mel_ops.N_SAMPLES)) * 0.1).astype(np.float32)).to(device)
-    feats = mel_ops.log_mel_spectrogram(audio, cfg.num_mel_bins,
-                                        dtype=torch.bfloat16)[:, :, :cfg.num_audio_frames]
+    feats = gate_features(cfg, params, batch, device)
     int4 = quant == "int4"
     cand = dict(kv_int4=True) if int4 else dict(scores_int8=True)
     ev_a = ASREvaluator(cfg, params, max_new_tokens=max_new_tokens, device=device, **cand)

@@ -221,7 +221,7 @@ def _single_window(audio, runner, cfg, params, tokenizer, language, lora,
     """(text, segments, words) of one window by beam search or greedy over
     the unquantized classic cache, with the timestamp grammar or the word
     aligner."""
-    feats = window_features([audio], cfg, device)
+    feats = window_features([audio], cfg, device, params=params)
     with torch.no_grad():
         enc = whisper.encode(params, feats, cfg, lora=lora, lora_scale=lora_scale)
     # --timestamps drops <|notimestamps|> from the prompt and turns on the
@@ -290,7 +290,7 @@ def _detect_language(audio, cfg, params, device) -> str:
     """--language auto: the base model's <|lang|> distribution (the
     decoder pass has no adapter, so the encoder runs without one too)."""
     with torch.no_grad():
-        enc0 = whisper.encode(params, window_features([audio], cfg, device), cfg)
+        enc0 = whisper.encode(params, window_features([audio], cfg, device, params=params), cfg)
         idx, probs = whisper.detect_language(params, enc0, cfg)
     language = WHISPER_LANGUAGES[int(idx[0])]
     logger.info("detected language: %s (p=%.2f)", language,
@@ -407,7 +407,7 @@ def run(args, cfg, params, tokenizer, lora=None, lora_scale: float = 1.0,
         elif args.fallback or args.temperature > 0:
             # --temperature alone is pure sampling (no quality gates).
             (text,), (row,) = transcribe_batch_with_fallback(
-                cfg, params, window_features([audio], cfg, device), tokenizer,
+                cfg, params, window_features([audio], cfg, device, params=params), tokenizer,
                 language=language, max_new_tokens=args.max_new_tokens,
                 lora=lora, lora_scale=lora_scale, task=args.task,
                 best_of=args.best_of, temperatures=temps,

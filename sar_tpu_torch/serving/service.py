@@ -69,6 +69,7 @@ import torch
 from sar_tpu_torch.decode.greedy import transcribe_tokens
 from sar_tpu_torch.evaluation.evaluator import (ASREvaluator,
                                                 quantized_decode_options)
+from sar_tpu_torch.models import frontend
 from sar_tpu_torch.ops import mel as mel_ops
 from sar_tpu_torch.utils import profiling
 
@@ -143,6 +144,7 @@ class TranscriptionService:
             self.cfg = router.cfg
             self.device = router.device
             self._dtype = router.dtype
+            self._params = router.base_params
             self._prompt_len = router.prompt_len
         else:
             self.cfg = cfg
@@ -156,6 +158,7 @@ class TranscriptionService:
                 device=device, capture=capture)
             self.device = self._ev.device
             self._dtype = self._ev.dtype
+            self._params = self._ev.params
             self._prompt_len = len(cfg.prompt_ids(language, task))
         self._q: queue.Queue[_Request] = queue.Queue(max_queue)
         self._stop = threading.Event()
@@ -185,7 +188,7 @@ class TranscriptionService:
         if self._stop.is_set():
             raise RuntimeError("service is closed")
         audio = np.asarray(audio, np.float32)
-        max_samples = self.cfg.num_audio_frames * mel_ops.HOP_LENGTH
+        max_samples = frontend.window_samples(self.cfg)
         if len(audio) > max_samples:
             raise ValueError(
                 f"audio is {len(audio) / mel_ops.SAMPLE_RATE:.1f} s; the "
@@ -268,14 +271,10 @@ class TranscriptionService:
                 self._process(batch)
 
     def _features(self, batch: list[_Request]) -> torch.Tensor:
-        pad = self.batch_size - len(batch)
         with profiling.span("serve.features"):
-            audio = mel_ops.stack_pad_audio(
-                [r.audio for r in batch] + [np.zeros(1, np.float32)] * pad)
-            feats = mel_ops.log_mel_spectrogram(
-                torch.from_numpy(audio).to(self.device), self.cfg.num_mel_bins,
-                dtype=self._dtype)
-            return feats[:, :, :self.cfg.num_audio_frames]
+            return frontend.features([r.audio for r in batch], self.cfg,
+                                     self._params, dtype=self._dtype,
+                                     device=self.device, rows=self.batch_size)
 
     def _run(self, batch: list[_Request]):
         """One batch -> (tokens [batch_size, total], detected languages)."""
