@@ -76,12 +76,19 @@ eager evaluator's (capture=False) on one batch.
    version's, ms, the plain version's ms, a library call computing the
    same (F.conv1d(groups=C) in bf16 with its epilogue; F.layer_norm in
    bf16) and the bound (operations over the fp32 rate, bytes over HBM).
+   Then K14 (the decoder step's residual add and LayerNorm) at [B, 1, d]
+   rows of whisper-small B=8 and 128 and OWSM B=128: x_new bit-equal to
+   the plain chain, h within one bf16 step, ms beside the plain chain's,
+   the bf16 adds + F.layer_norm and the bound; and one eager whisper-small
+   step at B=128 profiled with the plain chain and with K13/K14, its
+   device ops by name beside those of the boundary chain alone.
 4. greedy end to end: random bf16 whisper-small (seeded), two batches of 8
    random 30 s clips through the port's ASREvaluator (mel ->
    encode(flash="hm") -> the int8 cache -> greedy, 64 new tokens), with the
    launch counters zeroed before and read after (K3 = 12 per step run, none
    in its large-batch form at batch 8, K11
-   = 12 per step run, the steps and host syncs those the tokens predict); then the first batch
+   = 12 per step run, K13 = 1 and K14 = 36 per step run, the steps and
+   host syncs those the tokens predict); then the first batch
    through the plain path, compared in lockstep (both paths fed the same
    tokens) and free running.
 5. routed end to end: the same model with a random 4-adapter bank (r=16,
@@ -233,9 +240,10 @@ eager evaluator's (capture=False) on one batch.
 19. mixed: the six mixed-precision caches ((cross, self) precisions that
    differ: plain, int8, int4) at whisper-small, batch 8, 30 s clips, 64
    new tokens: per pair one encode (K1 12), the classic cache and the eager
-   greedy loop (K11 12 per step on an int8 self side, no other kernel:
-   plain torch reads the rest), then the same through a DecodeRunner's
-   CUDA graphs (captured first, then prep + replay: K11 alone, as eager),
+   greedy loop (K11 12 per step on an int8 self side, K13 1 and K14 36
+   per step, no other kernel: plain torch reads the rest), then the same
+   through a DecodeRunner's CUDA graphs (captured first, then prep +
+   replay: the same counts, as eager),
    tokens equal, the classic steps and host syncs the
    tokens predict, ms per token-step and the cache's bytes; then 4 beams
    for (int8, plain) (ancestry) and (int8, int4) (physical reorder), eager
@@ -249,7 +257,8 @@ eager evaluator's (capture=False) on one batch.
    warm-up batch, with the launch counters zeroed before and read after
    (per batch K12 2 per block, K13 6 per block + 1, K1 1 per block, K2 1;
    K3 and K11 one per decoder layer of every step run, K3 in the form the
-   rule takes at batch OWSM_BATCH; no other kernel),
+   rule takes at batch OWSM_BATCH; K13 1 and K14 3 per layer in every step
+   run; no other kernel),
    the steps and host syncs the tokens predict, RTFx; then the captured
    ids against an eager evaluator's on batch 0.
 21. result: one JSON line with every kernel's numbers, then the last line
@@ -409,6 +418,11 @@ K3_BIG_SHAPES = {"whisper-small": (12, 1500, 1536, 12), "owsm-v4-medium": (16, 7
 # plus BF16_STEP_FLOOR from the plain version's, and no further.
 OWSM_MODEL, OWSM_KERNEL_BATCH = "owsm-v4-medium", 128
 BF16_STEP, BF16_STEP_FLOOR = 2.0 ** -7, 1e-5
+# K14 at the decoder step's sublayer boundaries: (model, batch) of the rows
+# [B, 1, d] timed; the eager whisper-small step whose device ops are
+# attributed, with and without the K13/K14 route, at batch K14_STEP_BATCH.
+K14_CASES = (("whisper-small", 8), ("whisper-small", 128), ("owsm-v4-medium", 128))
+K14_STEP_BATCH = 128
 # The owsm phase: OWSM_BATCHES batches of OWSM_BATCH clips of
 # OWSM_SECONDS, OWSM_NEW_TOKENS new tokens (the cell's).
 OWSM_BATCH, OWSM_BATCHES, OWSM_NEW_TOKENS, OWSM_SECONDS = 16, 2, 48, (2.0, 10.0)
@@ -1271,6 +1285,126 @@ K3_PROBES = ("K3's loads alone", "K3's loads + its cluster barriers", "whole con
              "rows + I2F per value", "rows + byte trick per value")
 
 
+def phase_k14(device) -> list:
+    """K14 against its plain version at the decoder step's boundary rows
+    [B, 1, d] of K14_CASES (the module docstring's phase 3): x_new bit-equal,
+    h within one bf16 step, ms, the plain chain's ms (`linear`'s bias add,
+    the residual add, the fp32 LayerNorm), a library composite's (the bf16
+    adds and F.layer_norm) and the bound; then k14_attribution."""
+    import torch
+    import torch.nn.functional as F
+
+    from sar_tpu_torch.models.config import get_config
+    from sar_tpu_torch.ops import layer_norm as ln_ops
+
+    g = torch.Generator(device=device).manual_seed(SEED + 14)
+    bf16 = torch.bfloat16
+    k14 = {}
+    for model, B in K14_CASES:
+        cfg = get_config(model)
+        D, eps = cfg.d_model, cfg.ln_eps
+        x = (3.0 * torch.randn((B, 1, D), generator=g, device=device) + 0.5).to(bf16)
+        y = torch.randn((B, 1, D), generator=g, device=device).to(bf16)
+        b = (0.1 * torch.randn((D,), generator=g, device=device)).to(bf16)
+        scale = 1.0 + 0.1 * torch.randn((D,), generator=g, device=device)
+        bias = 0.1 * torch.randn((D,), generator=g, device=device)
+        args = (x, y, b, scale, bias, eps)
+        (x_new, h), (x_want, h_want) = (ln_ops.add_layer_norm(*args),
+                                        ln_ops.add_layer_norm_reference(*args))
+        torch.cuda.synchronize()
+        abs_err, apart = _step_errors(h, h_want)
+        s16, b16 = scale.to(bf16), bias.to(bf16)
+        ms = time_cuda(lambda: ln_ops.add_layer_norm(*args))
+        plain_ms = time_cuda(lambda: ln_ops.add_layer_norm_reference(*args))
+        lib_ms = time_cuda(lambda: F.layer_norm(x + (y + b), (D,), s16, b16, eps))
+        b_ms, b_by = bound(12.0 * B * D, 8.0 * B * D + 10.0 * D, PEAK_FP32_FLOPS)
+        case = f"{model} B={B}"
+        print(f"K14 add_layer_norm {case} [{B}, 1, {D}] bf16, bias bf16, fp32 scale and bias: "
+              f"x_new {'bit-equal' if torch.equal(x_new, x_want) else 'DIFFERS'}, h "
+              f"max_abs_err {abs_err:.3e}, {apart} values over one bf16 step | kernel "
+              f"{ms:.4f} ms plain {plain_ms:.4f} ms library (bf16 adds + F.layer_norm) "
+              f"{lib_ms:.4f} ms | bound {b_ms:.5f} ms ({b_by}) = {100 * b_ms / ms:.1f}% | "
+              f"ptxas {ptxas_of('add_ln_kernel')}")
+        if apart or not torch.equal(x_new, x_want):
+            fail(f"K14 ({case}) disagrees with its plain version")
+        k14[case] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=lib_ms)
+    k14["attribution"] = k14_attribution(device)
+    return [dict(name="add_layer_norm", route="cuda", source="sar_tpu_torch/csrc/layer_norm.cu",
+                 replaces="none: XLA fuses the jnp adds and LayerNorm",
+                 **k14["whisper-small B=128"],
+                 extra={k: v for k, v in k14.items() if k != "whisper-small B=128"})]
+
+
+def k14_attribution(device) -> dict:
+    """The device ops of one eager whisper-small decode step at batch
+    K14_STEP_BATCH (random bf16 weights, one encoder layer: the cache is
+    built from a random encoder output), under torch.profiler, by kernel
+    name (cut to 64 characters, as the benchmark's breakdown names them):
+    the step with the plain LayerNorm chain, the boundary chain alone (the
+    first LayerNorm and the 3L sublayer boundaries, each the plain chain),
+    and the step with K13 and K14. Prints and returns ms per step by name."""
+    import dataclasses
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    from sar_tpu_torch.models import whisper
+    from sar_tpu_torch.models.config import get_config
+    from sar_tpu_torch.ops import layer_norm as ln_ops
+
+    cfg = dataclasses.replace(get_config(MODEL), encoder_layers=1)
+    g = torch.Generator(device=device).manual_seed(SEED + 15)
+    params = whisper.cast_params(whisper.init_params(cfg, g, device), torch.bfloat16)
+    B, L, D = K14_STEP_BATCH, cfg.decoder_layers, cfg.d_model
+    enc = torch.randn((B, cfg.max_source_positions, D), generator=g,
+                      device=device).to(torch.bfloat16)
+    cache = whisper.init_cache(params, enc, cfg, 32, cross_kv_int8=True, self_kv_int8=True)
+    tok = torch.arange(B, device=device) + 100
+    x = torch.randn((B, 1, D), generator=g, device=device).to(torch.bfloat16)
+    lns = params["decoder"]["layers"]["self_ln"]
+    b = params["decoder"]["layers"]["fc2"]["b"][0]
+
+    def chain():
+        ln_ops.layer_norm_reference(x, lns["scale"][0], lns["bias"][0], cfg.ln_eps)
+        for _ in range(3 * L):
+            ln_ops.add_layer_norm_reference(x, x, b, lns["scale"][0], lns["bias"][0], cfg.ln_eps)
+
+    def profiled(fn, runs=3):
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        by_name: dict = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                n = e.name[:64]
+                by_name[n] = by_name.get(n, 0.0) + e.time_range.elapsed_us() / 1e3 / runs
+        return by_name
+
+    takes = ln_ops.kernel_takes
+    ln_ops.kernel_takes = lambda D: False          # the step's plain route
+    try:
+        plain = profiled(lambda: whisper.decode_step(params, tok, 5, cache, cfg))
+    finally:
+        ln_ops.kernel_takes = takes
+    fused = profiled(lambda: whisper.decode_step(params, tok, 5, cache, cfg))
+    boundary = profiled(chain)
+    out = {"plain step": plain, "boundary chain": boundary, "k13/k14 step": fused}
+    names = sorted(set(plain) | set(fused), key=lambda n: -max(plain.get(n, 0), fused.get(n, 0)))
+    print(f"K14 attribution, one eager {MODEL} decode step at B={B} (device ms per step: "
+          f"plain step | its boundary chain | the step with K13/K14):")
+    for n in names[:16]:
+        print(f"  {n}: {plain.get(n, 0.0):.4f} | {boundary.get(n, 0.0):.4f} | "
+              f"{fused.get(n, 0.0):.4f}")
+    print(f"  total: {sum(plain.values()):.4f} | {sum(boundary.values()):.4f} | "
+          f"{sum(fused.values()):.4f}")
+    return out
+
+
 def build_k3_probes(work: Path):
     """nvcc K3_PROBE_SRC into a shared library in `work` and load it."""
     import ctypes
@@ -1789,13 +1923,18 @@ KERNEL_NAMES = ("encoder_attention_hm", "fused_kv_init", "fused_kv_init_lora",
 # to its count by check_k11 in the greedy, routed, beam and mixed phases;
 # check_counts keeps to KERNEL_NAMES.
 K11_NAME = "self_decode_attention_exact"
-# K12 and K13 run in OWSM's encoder only: counted on every path, held to
-# their counts in the owsm phase.
-OWSM_NAMES = ("depthwise_conv_time", "layer_norm")
+# K12 runs in OWSM's encoder only: counted on every path, held to its
+# count in the owsm phase.
+OWSM_NAMES = ("depthwise_conv_time",)
+# K13 (once) and K14 (3 per layer) run in every decoder step over bf16 rows
+# of a width they take, every path's at whisper-small and OWSM, and K13 in
+# OWSM's encoder too: counted on every path, held by check_ln to the steps
+# run in the greedy, mixed and owsm phases.
+LN_NAMES = ("layer_norm", "add_layer_norm")
 # K3's launches in its large-batch form (decode_cross.STREAM_LAUNCHES):
 # counted on every path, held by check_k3_form to the rule's count.
 K3_STREAM_NAME = "cross_decode_attention_exact_stream"
-COUNTED_NAMES = (*KERNEL_NAMES, K11_NAME, *OWSM_NAMES, K3_STREAM_NAME)
+COUNTED_NAMES = (*KERNEL_NAMES, K11_NAME, *OWSM_NAMES, *LN_NAMES, K3_STREAM_NAME)
 INT8 = dict(cross_kv_int8=True, self_kv_int8=True)   # the int8 head-minor cache
 
 
@@ -1808,7 +1947,8 @@ def reset_counts():
     from sar_tpu_torch.ops.attic import attention, decode_self
     segments.STEPS.update(dict.fromkeys(segments.STEPS, 0))
     segments.HOST_SYNCS = 0
-    decode_self_exact.LAUNCHES = dwconv.LAUNCHES = layer_norm.LAUNCHES = 0
+    decode_self_exact.LAUNCHES = dwconv.LAUNCHES = 0
+    layer_norm.LAUNCHES = layer_norm.ADD_LAUNCHES = 0
     flash_enc.LAUNCHES = flash_enc.FUSED_LAUNCHES = 0
     kv_init.LAUNCHES = kv_init.LORA_LAUNCHES = 0
     decode_cross.LAUNCHES = decode_cross.BEAM_LAUNCHES = decode_cross.STREAM_LAUNCHES = 0
@@ -1830,7 +1970,7 @@ def read_counts() -> dict:
                                    flash_enc.FUSED_LAUNCHES, decode_self.LAUNCHES,
                                    attention.LAUNCHES, decode_self_exact.LAUNCHES,
                                    dwconv.LAUNCHES, layer_norm.LAUNCHES,
-                                   decode_cross.STREAM_LAUNCHES)))
+                                   layer_norm.ADD_LAUNCHES, decode_cross.STREAM_LAUNCHES)))
 
 
 def read_steps() -> dict:
@@ -1872,6 +2012,17 @@ def check_k11(path: str, counts: dict, want: int) -> None:
     print(f"{path}: K11 {K11_NAME} launched {counts[K11_NAME]} times (the design: {want})")
     if counts[K11_NAME] != want:
         fail(f"{path}: K11 launched {counts[K11_NAME]} times, not {want}")
+
+
+def check_ln(path: str, counts: dict, layers: int, steps: int, encoder_k13: int = 0) -> None:
+    """K13 once and K14 3 x `layers` times in each of `steps` decoder steps
+    (plus `encoder_k13` K13 launches of OWSM's encoder)."""
+    want = (steps + encoder_k13, 3 * layers * steps)
+    got = tuple(counts[k] for k in LN_NAMES)
+    print(f"{path}: K13, K14 launched {list(got)} times in {steps} steps (the design: "
+          f"{list(want)})")
+    if got != want:
+        fail(f"{path}: K13, K14 launched {list(got)} times, not {list(want)}")
 
 
 def check_steps(path: str, counts: dict, steps: dict, want_steps: int, want_syncs: int,
@@ -1974,6 +2125,7 @@ def phase_e2e(cfg, params, n_params, device, batch, n_batches, max_new_tokens,
     check_steps("greedy", counts, run_steps, sum(o[1] for o in outs), syncs,
                 "cross_decode_attention_exact", cfg.decoder_layers)
     check_k11("greedy", counts, cfg.decoder_layers * run_steps["greedy"])
+    check_ln("greedy", counts, cfg.decoder_layers, run_steps["greedy"])
     check_k3_form("greedy", counts, batch, cfg.decoder_heads,
                   whisper.cross_pad_len(cfg.max_source_positions))
     # The captured loop against the eager one on the replayed batch 0.
@@ -4478,8 +4630,8 @@ def phase_mixed(cfg, params, device, batch, max_new_tokens):
 
     def counted(label, fn, want_k1, k11_per_step=0):
         """fn() with the counters zeroed before and read after: K1 at
-        `want_k1`, K11 at `k11_per_step` per classic step run, no other
-        kernel."""
+        `want_k1`, K11 at `k11_per_step` per classic step run, K13 and K14
+        at their counts per step, no other kernel."""
         torch.cuda.synchronize()
         reset_counts()
         out = fn()
@@ -4488,12 +4640,14 @@ def phase_mixed(cfg, params, device, batch, max_new_tokens):
         for k in COUNTED_NAMES:
             total_counts[k] += c[k]
         if c["encoder_attention_hm"] != want_k1 or any(
-                v for k, v in c.items() if k not in ("encoder_attention_hm", K11_NAME)):
+                v for k, v in c.items()
+                if k not in ("encoder_attention_hm", K11_NAME, *LN_NAMES)):
             fail(f"{label}: launches {json.dumps({k: v for k, v in c.items() if v})}, the "
-                 f"design says K1 = {want_k1} and no other kernel but K11")
+                 f"design says K1 = {want_k1} and no other kernel but K11, K13 and K14")
         if any(st[k] for k in ("greedy", "beam", "s8")):
             fail(f"{label}: steps {st}: a mixed cache's steps are classic ones")
         check_k11(label, c, k11_per_step * st["classic"])
+        check_ln(label, c, cfg.decoder_layers, st["classic"])
         return out, st
 
     for pair, flags in MIXED_PAIRS.items():
@@ -4626,9 +4780,10 @@ def phase_owsm(device) -> dict:
           f"{wall:.3f} s -> RTFx {audio_s / wall:.1f} | steps {json.dumps(run_steps)} | "
           f"launches {json.dumps(counts)}")
     Le, Ld, n = cfg.encoder_layers, cfg.decoder_layers, OWSM_BATCHES
-    want = {"depthwise_conv_time": 2 * Le * n, "layer_norm": (6 * Le + 1) * n,
-            "encoder_attention_hm": Le * n, "fused_kv_init": n}
-    print(f"owsm: K12, K13, K1, K2 launched "
+    want = {"depthwise_conv_time": 2 * Le * n, "encoder_attention_hm": Le * n,
+            "fused_kv_init": n}
+    check_ln("owsm", counts, Ld, run_steps["greedy"], encoder_k13=(6 * Le + 1) * n)
+    print(f"owsm: K12, K1, K2 launched "
           f"{[counts[k] for k in want]} times (the design: {list(want.values())})")
     if any(counts[k] != v for k, v in want.items()):
         fail(f"owsm: launches {[counts[k] for k in want]}, the design {list(want.values())}")
@@ -4685,7 +4840,8 @@ def main() -> int:
     params, n_params = make_model(cfg, device)
     t0 = time.perf_counter()
     rows = (phase_kernels(cfg, device, BATCH) + phase_k6(cfg, device, BATCH)
-            + phase_kernels_k8_k10(cfg, params, device, BATCH) + phase_k12_k13(device))
+            + phase_kernels_k8_k10(cfg, params, device, BATCH) + phase_k12_k13(device)
+            + phase_k14(device))
     print(f"phase kernels: {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shapes", "extra")

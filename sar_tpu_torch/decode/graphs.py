@@ -104,9 +104,10 @@ def _counters() -> list[tuple[dict, str]]:
     """Every (namespace, name) of an integer counter that a decode body
     moves in Python: the kernels' launch counters and the step counters."""
     from sar_tpu_torch.ops import (decode_cross, decode_self_exact, flash,
-                                   flash_enc, kv_init)
+                                   flash_enc, kv_init, layer_norm)
     from sar_tpu_torch.ops.attic import attention, decode_self
     launches = {flash_enc: ("LAUNCHES", "FUSED_LAUNCHES"),
+                layer_norm: ("LAUNCHES", "ADD_LAUNCHES"),
                 kv_init: ("LAUNCHES", "LORA_LAUNCHES"),
                 decode_cross: ("LAUNCHES", "STREAM_LAUNCHES", "BEAM_LAUNCHES",
                                "S8_LAUNCHES", "S8_BEAM_LAUNCHES"),

@@ -75,6 +75,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from sar_tpu_torch.models.config import WhisperConfig
 from sar_tpu_torch.ops import flash as flash_ops
+from sar_tpu_torch.ops import layer_norm as ln_ops
 from sar_tpu_torch.ops.decode_cross import (cross_decode_attention,
                                             cross_decode_attention_exact,
                                             cross_decode_reference,
@@ -241,14 +242,34 @@ def _row_proj(x: torch.Tensor, p: Params, lora: Params | None, ctx: LoraCtx,
     "model", then the bias is added once. Without `tp`, `_proj`."""
     if tp is None:
         return _proj(x, p, lora, ctx, salt)
+    y = _row_sum(x, p, lora, ctx, salt, tp)
+    return y + p["b"].to(y.dtype) if "b" in p else y
+
+
+def _row_sum(x: torch.Tensor, p: Params, lora: Params | None, ctx: LoraCtx,
+             salt: int, tp: ModelGroup) -> torch.Tensor:
+    """`_row_proj` under `tp` before its bias: the partial products and
+    LoRA terms summed over "model"."""
     y = torch.matmul(x, p["w"])
     if lora is not None:
         la = lora["a"]
         lo, hi = split_range(la.shape[-2], tp)
         y = y + lora_delta(x, la[..., lo:hi, :], lora["b"], ctx, salt,
                            cols=(lo, hi, la.shape[-2]))
-    y = model_sum(y, tp)
-    return y + p["b"].to(y.dtype) if "b" in p else y
+    return model_sum(y, tp)
+
+
+def _row_proj_parts(x: torch.Tensor, p: Params, lora: Params | None, ctx: LoraCtx,
+                    tp: ModelGroup | None = None) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """`_row_proj` as (y, b), y + b in y's dtype being `_row_proj`'s output:
+    b is the bias where it is the last term added (no LoRA term, or under
+    `tp`, whose sum comes before the bias), else None and y the whole
+    output (`linear` adds the bias before the LoRA term)."""
+    if tp is not None:
+        return _row_sum(x, p, lora, ctx, 0, tp), p.get("b")
+    if lora is None:
+        return torch.matmul(x, p["w"]), p.get("b")
+    return _proj(x, p, lora, ctx), None
 
 
 def _row_linear(x: torch.Tensor, p: Params, tp: ModelGroup | None) -> torch.Tensor:
@@ -1374,6 +1395,14 @@ def decode_step(params: Params, tokens: torch.Tensor, pos: int,
     `lora` adapts the decoder hooks it holds (self_q/k/v/o, cross_q/o;
     cross_k/v live in the cache), per row when `adapter_idx` is given.
 
+    The LayerNorms and residual adds go through ops/layer_norm.py where
+    kernels=True and the rows are bf16 of a width the kernels take: the
+    first LayerNorm by `layer_norm` (K13 on the card) and each sublayer
+    boundary (self_o, cross_o, fc2 added to the residual, then the next
+    LayerNorm) by `add_layer_norm` (K14 on the card), which also adds the
+    projection's bias unless a LoRA term follows it (`_row_proj_parts`).
+    Otherwise, and on the CPU, they are the plain chain, bit for bit.
+
     `beam_width` K > 1: rows are beam-major groups of K per sample (row
     b*K+k = sample b, beam k) over a cache whose cross slabs hold ONE copy
     per sample; the K queries of a sample are folded into one cross call
@@ -1429,12 +1458,17 @@ def decode_step(params: Params, tokens: torch.Tensor, pos: int,
     dec_lora = lora.get("decoder") if lora else None
     ctx = lora_ctx(dec_lora, adapter_idx, lora_scale, dtype)
     act, eps = decoder_act(cfg), cfg.ln_eps
+    fused = kernels and dtype == torch.bfloat16 and ln_ops.kernel_takes(x.shape[-1])
+    norm = ln_ops.layer_norm if fused else layer_norm
+    add_norm = ln_ops.add_layer_norm if fused else ln_ops.add_layer_norm_reference
+    L = cache.self_k.shape[0]
+    lns = dec["layers"]
+    h = norm(x, lns["self_ln"]["scale"][0], lns["self_ln"]["bias"][0], eps)
 
-    for l in range(cache.self_k.shape[0]):
-        p = _layer(dec["layers"], l)
+    for l in range(L):
+        p = _layer(lns, l)
         lo = _layer(dec_lora, l) if dec_lora else {}
         # Self-attention against the cache (row `pos` written first).
-        h = layer_norm(x, p["self_ln"]["scale"], p["self_ln"]["bias"], eps)
         q = _proj(h, p["self_q"], lo.get("self_q"), ctx, tp=tp) * scaling
         k = split_heads(_proj(h, p["self_k"], lo.get("self_k"), ctx, tp=tp), H)
         v = split_heads(_proj(h, p["self_v"], lo.get("self_v"), ctx, tp=tp), H)
@@ -1465,12 +1499,13 @@ def decode_step(params: Params, tokens: torch.Tensor, pos: int,
                     cache.self_v, cache.self_v_scale, layer=l, pos=pos, n=n)
             else:
                 a = self_attn(split_heads(q, H), sk, sks, sv, svs, mask=pos_mask)
-        x = x + _row_proj(merge_heads(a), p["self_o"], lo.get("self_o"), ctx, tp=tp)
+        x, h = add_norm(x, *_row_proj_parts(merge_heads(a), p["self_o"], lo.get("self_o"),
+                                            ctx, tp),
+                        p["cross_ln"]["scale"], p["cross_ln"]["bias"], eps)
         # Cross-attention: exact over an unquantized classic side, int4 or
         # int8 over the quantized classic slabs, or over the head-minor int8
         # slabs of layer l (K3/K5 exact, K7 with scores_int8); beam queries
         # are folded per sample ([B/K, K, ...]) when beam_width > 1.
-        h = layer_norm(x, p["cross_ln"]["scale"], p["cross_ln"]["bias"], eps)
         q = _proj(h, p["cross_q"], lo.get("cross_q"), ctx, tp=tp) * scaling
         if cross_plain:
             # The K beam queries of a sample ride its one cross slab as K
@@ -1495,11 +1530,12 @@ def decode_step(params: Params, tokens: torch.Tensor, pos: int,
                   if beam_width > 1 else q[:, 0])
             o = cross(qc, cache.cross_k, cache.cross_k_scale, cache.cross_v,
                       cache.cross_v_scale, layer=l, n_heads=H)
-        x = x + _row_proj(o.reshape(B, 1, -1), p["cross_o"], lo.get("cross_o"),
-                          ctx, tp=tp)
-        # MLP.
-        h = layer_norm(x, p["mlp_ln"]["scale"], p["mlp_ln"]["bias"], eps)
+        x, h = add_norm(x, *_row_proj_parts(o.reshape(B, 1, -1), p["cross_o"],
+                                            lo.get("cross_o"), ctx, tp),
+                        p["mlp_ln"]["scale"], p["mlp_ln"]["bias"], eps)
+        # MLP, then the next layer's self_ln (the final ln after the last).
         h = act(linear(h, p["fc1"]))
-        x = x + _row_linear(h, p["fc2"], tp)
-    x = layer_norm(x, dec["ln"]["scale"], dec["ln"]["bias"], eps)
-    return _logits(x[:, 0], dec, cfg, tp), cache
+        ln = _layer(lns["self_ln"], l + 1) if l + 1 < L else dec["ln"]
+        x, h = add_norm(x, *_row_proj_parts(h, p["fc2"], None, ctx, tp),
+                        ln["scale"], ln["bias"], eps)
+    return _logits(h[:, 0], dec, cfg, tp), cache

@@ -110,6 +110,8 @@ SIGNATURES = {
     # x, scale, bias, y, B, T, D, x's batch and row strides, eps, device,
     # stream
     "sar_layer_norm_rows": [_P, _P, _P, _P, _I, _I, _I, _LL, _LL, _F, _I, _P],
+    # x, y, b (or NULL), scale, bias, x_new, h, N, D, eps, device, stream
+    "sar_add_layer_norm_rows": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -57,7 +57,7 @@ def test_build_key_covers_every_source():
                                       "sar_flash_attn_bwd_dq", "sar_self_decode_s8",
                                       "sar_decode_attention", "sar_s8_decode_probe",
                                       "sar_self_decode_exact", "sar_dwconv_time",
-                                      "sar_layer_norm_rows"}
+                                      "sar_layer_norm_rows", "sar_add_layer_norm_rows"}
     for name in _build.SIGNATURES:
         assert f'extern "C" int {name}(' in "".join(
             p.read_text() for p in _build.sources())

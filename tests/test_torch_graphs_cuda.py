@@ -14,6 +14,9 @@ At d_model 128 (2 heads of 64, the kernels' head_dim), bf16:
   reorder; each batch through the runner gives that batch's tokens (the
   first batch runs eagerly and captures, the later ones replay);
 - the launch and step counters after replays equal the eager run's;
+- at whisper-small's decoder (12 layers of 768) and B=128, the captured
+  greedy loop's tokens equal the eager loop's, and each step launches K13
+  once and K14 36 times (3 per layer), eager and under replay;
 - greedy with the fallback's options (sampling, logprobs, no-speech, the
   cap, a per-call prompt length, timestamps) captured against eager, one
   program for every prompt length, temperature and seed;
@@ -128,9 +131,10 @@ def _runners(cfg, params, **kw):
 
 def _counts():
     from sar_tpu_torch.decode import segments
-    from sar_tpu_torch.ops import decode_cross
+    from sar_tpu_torch.ops import decode_cross, layer_norm
     return (decode_cross.LAUNCHES, decode_cross.STREAM_LAUNCHES, decode_cross.BEAM_LAUNCHES,
-            decode_cross.S8_LAUNCHES, decode_cross.S8_BEAM_LAUNCHES, *segments.STEPS.values())
+            decode_cross.S8_LAUNCHES, decode_cross.S8_BEAM_LAUNCHES, layer_norm.LAUNCHES,
+            layer_norm.ADD_LAUNCHES, *segments.STEPS.values())
 
 
 def _run_both(run_captured, run_eager, encs):
@@ -187,6 +191,44 @@ def test_captured_routed_greedy_equals_eager(dev, model):
                                  adapter_idx=idx, segment=8)
         return run
     _run_both(routed(cap), routed(eager), encs)
+
+
+def test_captured_small_b128_launches_k13_and_k14_per_step(dev):
+    """whisper-small's decoder with random bf16 weights (every decoder bias
+    and LayerNorm parameter drawn, so the folded biases count) over a
+    random encoder output of 128 rows: the captured greedy loop against the
+    eager one over two batches, tokens equal, counters equal, and per step
+    one K13 and 3 x 12 K14 launches."""
+    from sar_tpu_torch.decode import segments
+    from sar_tpu_torch.models import whisper
+    from sar_tpu_torch.models.config import get_config
+    from sar_tpu_torch.ops import layer_norm as ln_ops
+    cfg = dataclasses.replace(get_config("whisper-small"), encoder_layers=1)
+    g = torch.Generator(device=dev).manual_seed(11)
+    params = whisper.init_params(cfg, g, dev)
+    params["decoder"] = whisper.tree_map(
+        lambda t: t + 0.05 * torch.randn(t.shape, generator=g, device=dev)
+        if t.is_floating_point() else t, params["decoder"])
+    params = whisper.cast_params(params, torch.bfloat16)
+    encs = [torch.randn((128, cfg.max_source_positions, cfg.d_model), generator=g,
+                        device=dev).to(torch.bfloat16) for _ in range(2)]
+    cap, eager = _runners(cfg, params)
+    prompt, total, L = cfg.prompt_ids("english"), 4 + 24, cfg.decoder_layers
+    got, moved = [], []
+    for runner in (cap, eager):
+        c0 = _counts()
+        k0 = (ln_ops.LAUNCHES, ln_ops.ADD_LAUNCHES, segments.STEPS["greedy"])
+        got.append([runner.greedy(runner.prep(e, total, **INT8), prompt, segment=8)
+                    for e in (encs[0], encs[1], encs[0])])
+        torch.cuda.synchronize()
+        moved.append([a - b for a, b in zip(_counts(), c0)])
+        k13, k14, steps = (a - b for a, b in zip(
+            (ln_ops.LAUNCHES, ln_ops.ADD_LAUNCHES, segments.STEPS["greedy"]), k0))
+        assert steps > 0 and k13 == steps and k14 == 3 * L * steps
+    for a, b in zip(*got):
+        assert torch.equal(a, b)
+    assert moved[0] == moved[1]
+    assert cap.graph_stats()["graphs"] >= 1
 
 
 @pytest.mark.parametrize("cache,scores_int8", [("int8_head_minor", False),
